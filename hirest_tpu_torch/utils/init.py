@@ -1,0 +1,64 @@
+"""Seeded random weights for when no checkpoint is present.
+
+Values come from one `numpy.random.default_rng(seed)` stream at about the
+scale of the JAX package's `shape_only_init` (0.02); LayerNorm weights sit
+near 1. The tower-wide tensors are drawn first and the blocks after them in
+order, so a config with fewer layers gets the same weights as the first
+blocks of a deeper one (a depth-cut run checks the full model's weights).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from hirest_tpu_torch.config import EvaVisionConfig
+
+SCALE = 0.02
+
+
+def eva_vision_shapes(cfg: EvaVisionConfig) -> dict:
+    """Reference key -> shape of every EVA vision-tower tensor, tower-wide
+    tensors first, then blocks 0..layers-1."""
+    w, p, inner = cfg.width, cfg.patch_size, cfg.num_heads * cfg.head_width
+    shapes = {
+        "patch_embed.proj.weight": (w, 3, p, p),
+        "patch_embed.proj.bias": (w,),
+        "cls_token": (1, 1, w),
+        "pos_embed": (1, cfg.num_patches + 1, w),
+        "norm.weight": (w,),
+        "norm.bias": (w,),
+        "head.weight": (cfg.embed_dim, w),
+        "head.bias": (cfg.embed_dim,),
+    }
+    for i in range(cfg.layers):
+        r = f"blocks.{i}"
+        shapes.update({
+            f"{r}.norm1.weight": (w,),
+            f"{r}.norm1.bias": (w,),
+            f"{r}.attn.qkv.weight": (3 * inner, w),
+            f"{r}.attn.q_bias": (inner,),
+            f"{r}.attn.v_bias": (inner,),
+            f"{r}.attn.proj.weight": (w, inner),
+            f"{r}.attn.proj.bias": (w,),
+            f"{r}.norm2.weight": (w,),
+            f"{r}.norm2.bias": (w,),
+            f"{r}.mlp.fc1.weight": (cfg.mlp_hidden, w),
+            f"{r}.mlp.fc1.bias": (cfg.mlp_hidden,),
+            f"{r}.mlp.fc2.weight": (w, cfg.mlp_hidden),
+            f"{r}.mlp.fc2.bias": (w,),
+        })
+    return shapes
+
+
+def random_eva_vision_state_dict(cfg: EvaVisionConfig = EvaVisionConfig(),
+                                 seed: int = 0) -> dict:
+    """Reference-named EVA vision state dict of float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in eva_vision_shapes(cfg).items():
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= SCALE
+        if key.endswith(("norm.weight", "norm1.weight", "norm2.weight")):
+            a += 1.0
+        sd[key] = a
+    return sd

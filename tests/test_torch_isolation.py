@@ -1,0 +1,91 @@
+"""The port stands alone: every hirest_tpu_torch module imports and a tiny
+forward runs with jax and flax blocked, without loading any hirest_tpu
+module; its entry points refuse to fall back to the CPU on their own; and
+chip_smoke.py refuses to report success where there is no GPU."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from hirest_tpu_torch.extraction.features import make_eva_encoder
+from hirest_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+
+_ISOLATED = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import numpy as np
+import hirest_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(hirest_tpu_torch.__path__,
+                                               "hirest_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+from hirest_tpu_torch.config import EvaVisionConfig
+from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
+from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
+cfg = EvaVisionConfig(image_size=28, layers=2, width=64, head_width=16,
+                      mlp_ratio=4.0, patch_size=14, embed_dim=32)
+out = build_scanned_vision_apply(random_eva_vision_state_dict(cfg), cfg,
+                                 device="cpu")(np.zeros((2, 28, 28, 3)))
+loaded = [m for m in sys.modules
+          if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
+print(json.dumps({"modules": names, "shape": list(out.shape),
+                  "finite": bool(out.isfinite().all()), "loaded": loaded}))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_port_imports_and_runs_without_jax():
+    r = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO,
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["loaded"] == []
+    assert got["shape"] == [2, 32] and got["finite"]
+    for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
+                "hirest_tpu_torch.models.eva_scan",
+                "hirest_tpu_torch.extraction.features",
+                "hirest_tpu_torch.data.prefetch"):
+        assert mod in got["modules"]
+
+
+def test_resolve_device_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_encoder_refuses_cpu_fallback(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eva_encoder(str(tmp_path))
+
+
+def test_chip_smoke_fails_without_gpu():
+    """Where torch sees no GPU, chip_smoke.py exits non-zero and prints no
+    result line. A host with a GPU runs it for real instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
