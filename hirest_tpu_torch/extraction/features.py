@@ -7,7 +7,7 @@ truncated to the rounded duration, one {video_id}.npy [n_frames, 1024] per
 video, videos already done skipped.
 
     python -m hirest_tpu_torch.extraction.features --frame_dir FRAMES \
-        --out_dir FEATS [--uint8_frontend] [--device cpu]
+        --out_dir FEATS [--int8] [--uint8_frontend] [--device cpu]
 
 It runs on CUDA unless --device cpu is given.
 """
@@ -138,16 +138,16 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
     device.
 
     The default is the bf16 forward with the CUDA attention kernel.
+    `int8=True` is the quantized throughput mode: int8 projections with
+    per-channel weight and per-row activation scales, through the ln_quant,
+    int8-epilogue attention and fused int8 MLP kernels.
     `uint8_frontend=True` ships raw uint8 frames to the device and runs pixel
-    normalization inside the patch-embed matmul. `int8=True` (the quantized
-    mode) is the port's next slice and raises."""
+    normalization inside the patch-embed matmul."""
     from hirest_tpu_torch.models.eva_clip import (preprocess_image,
                                                   preprocess_image_u8)
     from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
     from hirest_tpu_torch.utils.device import resolve_device
 
-    if int8:
-        raise NotImplementedError("--int8 is the port's next slice")
     device = resolve_device(device)  # before building a 1B-parameter tower
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     ckpt = os.path.join(pretrained_dir, "eva_clip_psz14.pt")
@@ -161,7 +161,7 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
 
         sd = random_eva_vision_state_dict(cfg, seed=0)
         print(f"WARNING: {ckpt} not found - vision tower is random-init")
-    apply = build_scanned_vision_apply(sd, cfg, dtype=dtype,
+    apply = build_scanned_vision_apply(sd, cfg, dtype=dtype, int8=int8,
                                        uint8_input=uint8_frontend,
                                        device=device)
     return apply, (preprocess_image_u8 if uint8_frontend else preprocess_image)
@@ -178,7 +178,8 @@ if __name__ == "__main__":
     p.add_argument("--process_id", type=int, default=0)
     p.add_argument("--num_processes", type=int, default=1)
     p.add_argument("--int8", action="store_true",
-                   help="quantized throughput mode (not ported yet)")
+                   help="quantized throughput mode: int8 projections, "
+                        "fused LN/attention/MLP int8 kernels")
     p.add_argument("--uint8_frontend", action="store_true",
                    help="ship raw uint8 frames; normalization folded into "
                         "the patch embed (4x less host->device traffic)")

@@ -5,12 +5,12 @@ CLIP_STD, preprocess_image, preprocess_image_u8). Parameter names are the
 EVA reference's own (EVA_clip/vit_model.py:248-351), so the `visual.*` part
 of `eva_clip_psz14.pt` loads with `load_state_dict` directly.
 
-There is one forward, the production bf16 block of
-hirest_tpu/models/eva_scan.py: LayerNorms computed in f32 and cast to the
-working dtype, the q/v biases folded into the qkv projection's bias, the
-batched-heads attention kernel, and the short erf polynomial for GELU when
-`fast_gelu` (the default). Its working dtype is the dtype of the parameters;
-the output is f32.
+Its block is the production bf16 block of hirest_tpu/models/eva_scan.py
+(the int8 block, models/eva_scan.py::Int8Block, is built from this one):
+LayerNorms computed in f32 and cast to the working dtype, the q/v biases
+folded into the qkv projection's bias, the batched-heads attention kernel,
+and the short erf polynomial for GELU when `fast_gelu` (the default). Its
+working dtype is the dtype of the parameters; the output is f32.
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
         self.mlp = Mlp(cfg.width, cfg.mlp_hidden)
 
-    def forward(self, x: torch.Tensor, act) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fast_gelu: bool) -> torch.Tensor:
+        act = gelu_bf16_poly if fast_gelu else gelu
         x = x + self.attn(layer_norm(x, self.norm1))
         h = act(self.mlp.fc1(layer_norm(x, self.norm2)))
         return x + self.mlp.fc2(h)
@@ -117,9 +118,8 @@ class EvaVisionTower(nn.Module):
         x = x + self.patch_embed.proj.bias
         x = torch.cat([self.cls_token.expand(b, 1, cfg.width), x], 1)
         x = x + self.pos_embed
-        act = gelu_bf16_poly if self.fast_gelu else gelu
         for blk in self.blocks:
-            x = blk(x, act)
+            x = blk(x, self.fast_gelu)
         x = layer_norm(x, self.norm)
         return self.head(x[:, 0]).float()
 

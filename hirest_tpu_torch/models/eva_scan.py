@@ -6,10 +6,13 @@ eagerly, so here the "scanned" forward is `EvaVisionTower` itself, staged
 once on the device in the working dtype. The function names are kept so each
 piece can be found beside its counterpart.
 
-Only the flags that change numbers are carried over: `dtype`, `fast_gelu`
-and `uint8_input` (and `int8`, which is the next slice). The TPU layout flags
-(flat2d, pad_tokens, xla_fences, attn_hg, attn_rows, attn_v2, remat) change
-no numbers and have no counterpart.
+Only the flags that change numbers are carried over: `dtype`, `fast_gelu`,
+`uint8_input` and `int8`. `int8=True` is the JAX package's production int8
+configuration (int8 + fused_quant + attn_v3 + fused_mlp): `Int8Block` runs
+ln_quant (K2), the int8 qkv and out products, the attention with its int8
+epilogue (K3) and the fused int8 MLP (K4). The TPU layout flags (flat2d,
+pad_tokens, xla_fences, attn_hg, attn_rows, attn_v2, remat) change no
+numbers and have no counterpart: the trunk runs its 257 tokens unpadded.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ from torch import nn
 from hirest_tpu_torch.config import EvaVisionConfig
 from hirest_tpu_torch.models.convert import (eva_vision_state_dict,
                                              patch_conv, patch_kernel)
-from hirest_tpu_torch.models.eva_clip import (CLIP_MEAN, CLIP_STD,
+from hirest_tpu_torch.models.eva_clip import (CLIP_MEAN, CLIP_STD, Block,
                                               EvaVisionTower)
+from hirest_tpu_torch.ops.attention import fused_attention_qkv3
+from hirest_tpu_torch.ops.quant import (fused_mlp_int8, int8_mm, ln_quant,
+                                        quantize_weight)
 from hirest_tpu_torch.utils.device import resolve_device
 
 
@@ -42,6 +48,58 @@ def fold_uint8_frontend(patch_w: torch.Tensor, patch_b: torch.Tensor):
     return w * a[:, None], b + bvec @ w
 
 
+class Int8Block(nn.Module):
+    """The int8 block of the JAX production forward (eva_scan.block_flat
+    with int8, fused_quant, attn_v3 and fused_mlp), made from a float
+    `Block`.
+
+    The four projections become per-output-channel int8 codes and f32
+    scales, quantized from the block's float weights as they are (callers
+    pass weights not yet cast to the working dtype). Every bias and norm
+    parameter is rounded to `dtype` and kept as f32, which is what the JAX
+    forward feeds its kernels. All of it lives in buffers, codes int8 and
+    the rest f32; `forward` takes and returns x [B, S, C] in `dtype`."""
+
+    def __init__(self, blk: Block, dtype: torch.dtype):
+        super().__init__()
+        attn, mlp = blk.attn, blk.mlp
+        self.heads, self.scale = attn.heads, attn.scale
+        self.eps = blk.norm1.eps
+
+        def vec(t):
+            return t.detach().to(dtype).float()
+
+        bias3 = torch.cat([attn.q_bias, torch.zeros_like(attn.q_bias),
+                           attn.v_bias])
+        for name, t in (("norm1_w", blk.norm1.weight),
+                        ("norm1_b", blk.norm1.bias), ("qkv_b", bias3),
+                        ("out_b", attn.proj.bias),
+                        ("norm2_w", blk.norm2.weight),
+                        ("norm2_b", blk.norm2.bias),
+                        ("fc1_b", mlp.fc1.bias), ("fc2_b", mlp.fc2.bias)):
+            self.register_buffer(name, vec(t))
+        for name, lin in (("qkv", attn.qkv), ("out", attn.proj),
+                          ("fc1", mlp.fc1), ("fc2", mlp.fc2)):
+            q, s = quantize_weight(lin.weight.detach())
+            self.register_buffer(f"{name}_wq", q)
+            self.register_buffer(f"{name}_ws", s)
+
+    def forward(self, x: torch.Tensor, fast_gelu: bool) -> torch.Tensor:
+        b, s, c = x.shape
+        x = x.reshape(b * s, c)
+        h_q, h_s = ln_quant(x, self.norm1_w, self.norm1_b, self.eps)
+        qkv = int8_mm(h_q, h_s, self.qkv_wq, self.qkv_ws, self.qkv_b, x.dtype)
+        a_q, a_s = fused_attention_qkv3(qkv.view(b, s, -1), self.scale,
+                                        self.heads, quant_out=True)
+        x = x + int8_mm(a_q.view(b * s, -1), a_s.view(b * s, 1), self.out_wq,
+                        self.out_ws, self.out_b, x.dtype)
+        h_q, h_s = ln_quant(x, self.norm2_w, self.norm2_b, self.eps)
+        x = fused_mlp_int8(h_q, h_s, self.fc1_wq, self.fc1_ws, self.fc1_b,
+                           self.fc2_wq, self.fc2_ws, self.fc2_b, x,
+                           act="gelu_poly" if fast_gelu else "gelu")
+        return x.view(b, s, c)
+
+
 def build_scanned_vision_apply(params: Union[Mapping, nn.Module],
                                cfg: EvaVisionConfig = EvaVisionConfig(), *,
                                dtype: torch.dtype = torch.bfloat16,
@@ -56,11 +114,9 @@ def build_scanned_vision_apply(params: Union[Mapping, nn.Module],
     modified. Every parameter is cast to `dtype` except the final
     LayerNorm's, which stays f32 as in the JAX forward.
     uint8_input: apply() takes raw uint8 0..255 frames; pixel normalization
-    is folded into the patch embed (fold_uint8_frontend)."""
-    if int8:
-        raise NotImplementedError(
-            "the int8 forward (ln_quant, the int8 attention epilogue, "
-            "fused_mlp_int8 and the int8 GEMMs) is the port's next slice")
+    is folded into the patch embed (fold_uint8_frontend).
+    int8: every block is an `Int8Block`, its codes quantized on `device`
+    from the float weights before anything is cast to `dtype`."""
     device = resolve_device(device)
     sd = dict(params.state_dict() if isinstance(params, nn.Module)
               else eva_vision_state_dict(params))
@@ -76,8 +132,14 @@ def build_scanned_vision_apply(params: Union[Mapping, nn.Module],
     if missing:
         raise KeyError(f"EVA vision state dict lacks {len(missing)} keys, "
                        f"e.g. {missing[:3]}")
+    if int8:
+        blocks = nn.ModuleList(Int8Block(blk.to(device), dtype)
+                               for blk in tower.blocks)
+        tower.blocks = nn.ModuleList()  # .to(dtype) must not cast the scales
     tower = tower.to(device=device, dtype=dtype).eval()
     tower.norm.float()
+    if int8:
+        tower.blocks = blocks.eval()
 
     @torch.inference_mode()
     def apply(images) -> torch.Tensor:

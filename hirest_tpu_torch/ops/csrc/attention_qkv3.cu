@@ -1,18 +1,27 @@
-// K1: batched-heads softmax attention over fused, bias-complete qkv rows.
+// K1 and K3: batched-heads softmax attention over fused, bias-complete qkv
+// rows, with bf16 output (K1) or an int8 row-quantization epilogue (K3).
 //
-// Replaces hirest_tpu/ops/attention.py::fused_attention_qkv3 with bf16 output
-// and no pad mask (kernel body _attn_heads_batched via _attn_kernel_qkv3).
-// For each (b, h), with q/k/v the head-h column slices of qkv[b]:
-//   s   = q k^T            f32, unscaled
+// Replaces hirest_tpu/ops/attention.py::fused_attention_qkv3 (kernel bodies
+// _attn_heads_batched via _attn_kernel_qkv3, and _attn_kernel_qkv3_quant
+// with the pad-key mask _mask_pad_keys). For each (b, h), with q/k/v the
+// head-h column slices of qkv[b] and n_keys = min(n_real, S) (S when
+// n_real is 0):
+//   s   = q k^T            f32, unscaled; keys >= n_keys excluded
 //   m   = rowmax(s)
 //   p   = bf16(exp2((s - m) * c)),  c = scale * log2(e)
 //   den = sum(float(p))     f32
-//   out[b, :, h*D:(h+1)*D] = bf16((p v accumulated in f32) / den)
+//   o   = (p v accumulated in f32) / den
+// K1 writes out[b, :, h*D:(h+1)*D] = bf16(o). The reference masks keys >=
+// n_real to -1e30 before the row max, which makes their p exactly 0; leaving
+// them out of the max and the sums gives the same bits.
+// K3 quantizes each token's whole H*D row of f32 o (all heads, never rounded
+// to bf16): sc = max(max|o| / 127, 1e-8), q = clamp(rint(o / sc), +-127).
 //
 // Bound on an H100 SXM (EVA-g, B=128, S=257, H=16, D=88): the call reads
 // qkv [128, 257, 4224] bf16 (278 MB) and writes [128, 257, 1408] bf16
-// (93 MB): 111 us at 3.35 TB/s, against 48 us for its 47.6 GFLOP of QK^T and
-// PV at the 989 TFLOP/s dense bf16 rate. It is bound by memory.
+// (93 MB; K3: 46 MB of int8 and 0.13 MB of scales): 111 us (K3: 97 us) at
+// 3.35 TB/s, against 48 us for its 47.6 GFLOP of QK^T and PV at the
+// 989 TFLOP/s dense bf16 rate. It is bound by memory.
 //
 // Design (simple first version; no TMA, wgmma or pipelining):
 // - One block per (b, h), 8 warps. The block stages k_h row-major and v_h
@@ -28,6 +37,13 @@
 //   rescaling). This spends a second QK^T to keep the reference's numbers.
 // - Staging and compute do not overlap inside a block; the second resident
 //   block on the SM is what hides the loads.
+// - K3's row scale needs all 16 heads of a row, which 16 different blocks
+//   compute. Each block writes its f32 head output to a [B, S, H*D] workspace
+//   and folds its per-row max |o| into a zeroed [B, S] buffer with atomicMax
+//   on the bits of the non-negative float (monotone as unsigned integers).
+//   A second kernel then quantizes the workspace rows. This moves 370 MB
+//   more than the bound counts; a 16-block cluster reducing the row max in
+//   distributed shared memory would not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,11 +112,13 @@ __device__ __forceinline__ __nv_bfloat16 prob(float s, float m, float c,
   return __float2bfloat16_rn(valid ? exp2f((s - m) * c) : 0.f);
 }
 
-template <int D>
+template <int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads, 2)
     attention_qkv3_kernel(const __nv_bfloat16* __restrict__ qkv,
-                          __nv_bfloat16* __restrict__ out, int S, int H,
-                          float c) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ ws,
+                          unsigned int* __restrict__ rowmax, int S, int H,
+                          int n_keys, float c) {
   using T = Tile<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int s_pad = round_up16(S);
@@ -158,11 +176,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       float s[4];
       qk_tile<D>(s, qa, ks, nt, g, t);
       const int key = nt * 8 + 2 * t;
-      if (key < S) {
+      if (key < n_keys) {
         m0 = fmaxf(m0, s[0]);
         m1 = fmaxf(m1, s[2]);
       }
-      if (key + 1 < S) {
+      if (key + 1 < n_keys) {
         m0 = fmaxf(m0, s[1]);
         m1 = fmaxf(m1, s[3]);
       }
@@ -184,14 +202,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       qk_tile<D>(sa, qa, ks, 2 * kb, g, t);
       qk_tile<D>(sb, qa, ks, 2 * kb + 1, g, t);
       const int key = kb * 16 + 2 * t;
-      const __nv_bfloat16 p0 = prob(sa[0], m0, c, key < S);
-      const __nv_bfloat16 p1 = prob(sa[1], m0, c, key + 1 < S);
-      const __nv_bfloat16 p2 = prob(sa[2], m1, c, key < S);
-      const __nv_bfloat16 p3 = prob(sa[3], m1, c, key + 1 < S);
-      const __nv_bfloat16 p4 = prob(sb[0], m0, c, key + 8 < S);
-      const __nv_bfloat16 p5 = prob(sb[1], m0, c, key + 9 < S);
-      const __nv_bfloat16 p6 = prob(sb[2], m1, c, key + 8 < S);
-      const __nv_bfloat16 p7 = prob(sb[3], m1, c, key + 9 < S);
+      const __nv_bfloat16 p0 = prob(sa[0], m0, c, key < n_keys);
+      const __nv_bfloat16 p1 = prob(sa[1], m0, c, key + 1 < n_keys);
+      const __nv_bfloat16 p2 = prob(sa[2], m1, c, key < n_keys);
+      const __nv_bfloat16 p3 = prob(sa[3], m1, c, key + 1 < n_keys);
+      const __nv_bfloat16 p4 = prob(sb[0], m0, c, key + 8 < n_keys);
+      const __nv_bfloat16 p5 = prob(sb[1], m0, c, key + 9 < n_keys);
+      const __nv_bfloat16 p6 = prob(sb[2], m1, c, key + 8 < n_keys);
+      const __nv_bfloat16 p7 = prob(sb[3], m1, c, key + 9 < n_keys);
       l0 += __bfloat162float(p0) + __bfloat162float(p1) +
             __bfloat162float(p4) + __bfloat162float(p5);
       l1 += __bfloat162float(p2) + __bfloat162float(p3) +
@@ -211,38 +229,124 @@ __global__ void __launch_bounds__(kThreads, 2)
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
 
-    __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * hd + h * D + 2 * t;
-    __nv_bfloat16* o1 = o0 + 8 * (size_t)hd;
+    if constexpr (kQuant) {
+      float* w0 = ws + ((size_t)b * S + r0) * hd + h * D + 2 * t;
+      float* w1 = w0 + 8 * (size_t)hd;
+      float a0 = 0.f, a1 = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < T::kOTiles; ++dt) {
-      if (r0 < S)
-        *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
-            pack_bf16(__float2bfloat16_rn(o[dt][0] / l0),
-                      __float2bfloat16_rn(o[dt][1] / l0));
-      if (r1 < S)
-        *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
-            pack_bf16(__float2bfloat16_rn(o[dt][2] / l1),
-                      __float2bfloat16_rn(o[dt][3] / l1));
+      for (int dt = 0; dt < T::kOTiles; ++dt) {
+        const float y0 = __fdiv_rn(o[dt][0], l0), y1 = __fdiv_rn(o[dt][1], l0);
+        const float y2 = __fdiv_rn(o[dt][2], l1), y3 = __fdiv_rn(o[dt][3], l1);
+        a0 = fmaxf(a0, fmaxf(fabsf(y0), fabsf(y1)));
+        a1 = fmaxf(a1, fmaxf(fabsf(y2), fabsf(y3)));
+        if (r0 < S) *reinterpret_cast<float2*>(w0 + dt * 8) = make_float2(y0, y1);
+        if (r1 < S) *reinterpret_cast<float2*>(w1 + dt * 8) = make_float2(y2, y3);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, off));
+        a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, off));
+      }
+      if (t == 0) {
+        if (r0 < S) atomicMax(rowmax + (size_t)b * S + r0, __float_as_uint(a0));
+        if (r1 < S) atomicMax(rowmax + (size_t)b * S + r1, __float_as_uint(a1));
+      }
+    } else {
+      __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * hd + h * D + 2 * t;
+      __nv_bfloat16* o1 = o0 + 8 * (size_t)hd;
+#pragma unroll
+      for (int dt = 0; dt < T::kOTiles; ++dt) {
+        if (r0 < S)
+          *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
+              pack_bf16(__float2bfloat16_rn(o[dt][0] / l0),
+                        __float2bfloat16_rn(o[dt][1] / l0));
+        if (r1 < S)
+          *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
+              pack_bf16(__float2bfloat16_rn(o[dt][2] / l1),
+                        __float2bfloat16_rn(o[dt][3] / l1));
+      }
     }
   }
+}
+
+// K3's second step: one warp per token row of the f32 workspace [rows, hd]
+// -> int8 codes and the row's scale, from the row max the first step left.
+__global__ void __launch_bounds__(kThreads)
+    attention_quant_rows_kernel(const float* __restrict__ ws,
+                                const unsigned int* __restrict__ rowmax,
+                                int8_t* __restrict__ q, float* __restrict__ s,
+                                int rows, int hd) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float sc = fmaxf(__fdiv_rn(__uint_as_float(rowmax[row]), 127.f), 1e-8f);
+  const float4* src = reinterpret_cast<const float4*>(ws + (size_t)row * hd);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(q + (size_t)row * hd);
+  for (int i = lane; i < hd / 4; i += 32) {
+    const float4 y = src[i];
+    const float yy[4] = {y.x, y.y, y.z, y.w};
+    uint32_t packed = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int code = max(-127, min(127, __float2int_rn(__fdiv_rn(yy[k], sc))));
+      packed |= (uint32_t)(uint8_t)(int8_t)code << (8 * k);
+    }
+    dst[i] = packed;
+  }
+  if (lane == 0) s[row] = sc;
+}
+
+template <bool kQuant>
+cudaError_t launch_attention(const void* qkv, void* out, float* ws,
+                             unsigned int* rowmax, int B, int S, int H,
+                             int n_keys, float c, cudaStream_t stream) {
+  const size_t smem = smem_bytes<88>(S);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_qkv3_kernel<88, kQuant>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_qkv3_kernel<88, kQuant><<<B * H, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<__nv_bfloat16*>(out), ws, rowmax, S, H, n_keys, c);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int S, int H, int D, int n_keys) {
+  return D != 88 || B <= 0 || S <= 0 || H <= 0 || n_keys <= 0 || n_keys > S;
 }
 
 }  // namespace
 
 // qkv [B, S, 3*H*D] bf16 contiguous, biases pre-added; out [B, S, H*D] bf16.
-// c = scale * log2(e). Launches on `stream` and returns cudaGetLastError().
+// Keys >= n_keys (1 <= n_keys <= S) are left out. c = scale * log2(e).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int hirest_attention_qkv3_bf16(const void* qkv, void* out, int B,
-                                          int S, int H, int D, float c,
-                                          void* stream) {
-  if (D != 88 || B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<88>(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_qkv3_kernel<88>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                                          int S, int H, int D, int n_keys,
+                                          float c, void* stream) {
+  if (bad_shape(B, S, H, D, n_keys)) return (int)cudaErrorInvalidValue;
+  return (int)launch_attention<false>(qkv, out, nullptr, nullptr, B, S, H,
+                                      n_keys, c, (cudaStream_t)stream);
+}
+
+// As above with the int8 epilogue: q [B, S, H*D] int8 and s [B, S] f32 out;
+// ws [B, S, H*D] f32 and rowmax [B, S] (4 bytes each) are scratch. Zeroes
+// rowmax and launches both steps on `stream`.
+extern "C" int hirest_attention_qkv3_quant(const void* qkv, void* ws,
+                                           void* rowmax, void* q, void* s,
+                                           int B, int S, int H, int D,
+                                           int n_keys, float c, void* stream) {
+  if (bad_shape(B, S, H, D, n_keys)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int rows = B * S;
+  cudaError_t err = cudaMemsetAsync(rowmax, 0, sizeof(unsigned int) * rows, st);
   if (err != cudaSuccess) return (int)err;
-  attention_qkv3_kernel<88><<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      S, H, c);
+  err = launch_attention<true>(qkv, nullptr, static_cast<float*>(ws),
+                               static_cast<unsigned int*>(rowmax), B, S, H,
+                               n_keys, c, st);
+  if (err != cudaSuccess) return (int)err;
+  attention_quant_rows_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<const unsigned int*>(rowmax),
+      static_cast<int8_t*>(q), static_cast<float*>(s), rows, H * D);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_util import assert_codes_close
 
 from hirest_tpu.ops.attention import fused_attention_qkv3 as jax_qkv3
 from hirest_tpu_torch.ops.attention import (fused_attention_qkv3,
@@ -62,3 +63,74 @@ def test_cpu_tensor_takes_plain_version_without_counting():
 def test_rejects_qkv_not_divisible_by_heads():
     with pytest.raises(ValueError, match="heads"):
         fused_attention_qkv3(torch.zeros(1, 4, 3 * 10), 1.0, 4)
+
+
+# --- K3: the int8 epilogue and the pad-key mask ---------------------------
+
+
+def _quant_jax(x, dtype, n_real):
+    q, s = jax_qkv3(jnp.asarray(x, dtype), SCALE, H, interpret=True,
+                    quant_out=True, n_real=n_real)
+    return np.asarray(q), np.asarray(s)
+
+
+@pytest.mark.parametrize("s,n_real", [(257, 0), (264, 257)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_out_plain_matches_jax_v3(s, n_real, dtype):
+    """Codes and row scales of the f32 attention output over all 16 heads,
+    unpadded and token-padded to 264 with the pad keys masked. f32: scales
+    within 2e-5 (the JAX v1/v2/v3 bar, test_eva_scan.py:97); bf16 (p
+    rounded to bf16, which may round the other way under another summation
+    order): within 2**-7. Codes within one; equal on 99.9 % (f32) and 99 %
+    (bf16)."""
+    x = (np.random.default_rng(3).normal(size=(B, s, 3 * H * D))
+         * 0.5).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (
+        jnp.bfloat16, torch.bfloat16)
+    jq, js = _quant_jax(x, jdt, n_real)
+    q, sc = fused_attention_qkv3(torch.from_numpy(x).to(tdt), SCALE, H,
+                                 quant_out=True, n_real=n_real)
+    assert q.dtype == torch.int8 and q.shape == (B, s, H * D)
+    assert sc.dtype == torch.float32 and sc.shape == (B, s, 1)
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(sc.numpy(), js, rtol=2e-5 if f32 else 2 ** -7)
+    assert_codes_close(q.numpy(), jq, 0.999 if f32 else 0.99)
+
+
+def test_padded_real_rows_equal_the_unpadded_run():
+    """Pad keys get exactly zero weight: the first 257 rows of a run padded
+    to 264 tokens (junk in the pad rows) are the unpadded run's."""
+    x = (np.random.default_rng(4).normal(size=(B, 264, 3 * H * D))
+         * 0.5).astype(np.float32)
+    full = torch.from_numpy(x)
+    q, s = fused_attention_qkv3(full, SCALE, H, quant_out=True, n_real=257)
+    q0, s0 = fused_attention_qkv3(full[:, :257].contiguous(), SCALE, H,
+                                  quant_out=True)
+    assert_codes_close(q[:, :257].numpy(), q0.numpy(), 0.9999)
+    np.testing.assert_allclose(s[:, :257].numpy(), s0.numpy(), rtol=1e-6)
+    bf = fused_attention_qkv3(full, SCALE, H, n_real=257)
+    np.testing.assert_allclose(bf[:, :257].numpy(),
+                               fused_attention_qkv3(full[:, :257], SCALE, H)
+                               .numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_quant_out_is_not_the_bf16_output_quantized():
+    """The epilogue quantizes the f32 output, never rounded to bf16 first."""
+    x = torch.from_numpy(_qkv(5)).bfloat16()
+    q, s = fused_attention_qkv3(x, SCALE, H, quant_out=True)
+    o = fused_attention_qkv3(x, SCALE, H).float()
+    sq = (o.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    assert not torch.equal(q, torch.round(o / sq).clamp(-127, 127)
+                           .to(torch.int8))
+    torch.testing.assert_close(s, sq, rtol=2 ** -7, atol=0)
+
+
+def test_cpu_quant_call_counts_nothing():
+    x = torch.from_numpy(_qkv(6))
+    before = (fused_attention_qkv3.launches,
+              fused_attention_qkv3.quant_launches)
+    q, s = fused_attention_qkv3(x, SCALE, H, quant_out=True)
+    rq, rs = fused_attention_qkv3_ref(x, SCALE, H, quant_out=True)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert (fused_attention_qkv3.launches,
+            fused_attention_qkv3.quant_launches) == before

@@ -1,6 +1,7 @@
-"""The port's bf16 EVA-CLIP-g slice (hirest_tpu_torch.models) against the JAX
-package, on one seeded EVA state dict (tests/torch_port_util.py) loaded
-into both: directly into the port, through convert_eva_vision into JAX."""
+"""The port's EVA-CLIP-g forwards, bf16 and int8 (hirest_tpu_torch.models),
+against the JAX package, on one seeded EVA state dict
+(tests/torch_port_util.py) loaded into both: directly into the port,
+through convert_eva_vision into JAX."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +22,11 @@ from hirest_tpu_torch.models.convert import (eva_vision_from_jax,
                                              patch_kernel)
 from hirest_tpu_torch.models.eva_clip import (CLIP_MEAN, CLIP_STD,
                                               EvaVisionTower)
-from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+from hirest_tpu_torch.models.eva_scan import (Int8Block,
+                                              build_scanned_vision_apply,
                                               fold_uint8_frontend)
 from hirest_tpu_torch.models.layers import gelu, gelu_bf16_poly
+from hirest_tpu_torch.ops.quant import quantize_weight
 from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
 
 
@@ -166,6 +169,77 @@ def test_random_init_is_depth_prefix_stable():
         np.testing.assert_array_equal(v, deep[k])
 
 
-def test_int8_is_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        _port(eva_state_dict(TINY), TINY, int8=True)
+# --- the int8 forward ------------------------------------------------------
+
+# wide enough that the MLP (2048 hidden units) has two 1024-unit requant
+# chunks, so the per-(row, chunk) scales are exercised
+WIDE = dict(image_size=28, layers=2, width=512, head_width=32, mlp_ratio=4.0,
+            patch_size=14, embed_dim=32)
+# the JAX package's production int8 configuration (fq+v3+flat+tp+fm)
+JAX_INT8 = dict(int8=True, fused_quant=True, attn_v3=True, flat2d=True,
+                pad_tokens=True, fused_mlp=True, use_pallas=True,
+                interpret=True)
+
+
+def _jax_int8(sd, spec, images_, **kw):
+    kw.setdefault("dtype", jnp.float32)
+    return np.asarray(jax_build(jax_params(sd, spec), configs(spec)[0],
+                                **JAX_INT8, **kw)(jnp.asarray(images_)))
+
+
+@pytest.mark.parametrize("fast_gelu", [True, False])
+@pytest.mark.parametrize("spec", [PACKED, WIDE], ids=["packed", "wide"])
+def test_int8_forward_matches_jax(spec, fast_gelu):
+    """f32, plain versions of K2-K4, 257-style unpadded tokens, against the
+    JAX int8 production forward (Pallas in interpret mode, tokens padded)
+    at 2e-3, the JAX package's own fq and fused-MLP bar
+    (test_eva_scan.py:111, :216)."""
+    sd, im = eva_state_dict(spec, seed=11), images(spec, 4, seed=11)
+    want = _jax_int8(sd, spec, im, fast_gelu=fast_gelu)
+    got = _port(sd, spec, int8=True, fast_gelu=fast_gelu)(im).numpy()
+    assert got.shape == (4, spec["embed_dim"]) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_int8_bf16_forward_close_to_jax():
+    """bf16 int8 against the f32 JAX int8 forward at cosine > 0.99, and
+    within the JAX int8 bar (cosine > 0.98, test_eva_scan.py:57) of the f32
+    float forward."""
+    sd, im = eva_state_dict(WIDE, seed=12), images(WIDE, 4, seed=12)
+    got = _port(sd, WIDE, int8=True, dtype=torch.bfloat16)(im).numpy()
+    assert np.all(cosine(got, _jax_int8(sd, WIDE, im)) > 0.99)
+    assert np.all(cosine(got, _port(sd, WIDE)(im).numpy()) > 0.98)
+
+
+def test_int8_uint8_input_matches_jax():
+    """Raw uint8 frames through the port's int8 forward against the JAX
+    int8 uint8 forward, cosine > 0.99."""
+    sd = eva_state_dict(PACKED, seed=13)
+    u8 = np.random.default_rng(13).integers(0, 256, size=(3, 28, 28, 3),
+                                            dtype=np.uint8)
+    want = _jax_int8(sd, PACKED, u8, uint8_input=True)
+    got = _port(sd, PACKED, int8=True, uint8_input=True)(u8).numpy()
+    assert np.all(cosine(got, want) > 0.99)
+
+
+def test_int8_block_quantizes_the_float_weights():
+    """Codes come from the f32 weights, not from weights already rounded to
+    the working dtype; biases and norm parameters are rounded to it and
+    kept in f32; codes int8, scales f32."""
+    tcfg = configs(WIDE)[1]
+    tower = EvaVisionTower(tcfg)
+    tower.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           eva_state_dict(WIDE, seed=14).items()})
+    blk = tower.blocks[0]
+    ib = Int8Block(blk, torch.bfloat16)
+    w = blk.mlp.fc1.weight.detach()
+    q, s = quantize_weight(w)
+    assert torch.equal(ib.fc1_wq, q) and torch.equal(ib.fc1_ws, s)
+    assert not torch.equal(ib.fc1_wq, quantize_weight(w.bfloat16())[0])
+    assert ib.qkv_wq.dtype == torch.int8 and ib.qkv_ws.dtype == torch.float32
+    assert ib.qkv_wq.shape == blk.attn.qkv.weight.shape
+    assert torch.equal(ib.norm1_w,
+                       blk.norm1.weight.detach().bfloat16().float())
+    assert torch.equal(ib.qkv_b[:tcfg.width],
+                       blk.attn.q_bias.detach().bfloat16().float())
+    assert not ib.qkv_b[tcfg.width:2 * tcfg.width].any()

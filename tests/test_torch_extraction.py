@@ -98,6 +98,30 @@ def test_finish_video_features():
     assert finish_video_features(embs, normalize=False).shape == (3, 2)
 
 
-def test_int8_encoder_is_the_next_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_eva_encoder(str(tmp_path), int8=True, device="cpu")
+def test_int8_encoder_writes_jax_int8_features(frames_and_ckpt):
+    """make_eva_encoder(int8=True) on the CPU writes unit-norm features of
+    the right shape, within 2e-3 of the JAX int8 production forward's
+    (fq+v3+flat+tp+fm, Pallas in interpret mode)."""
+    root, sd = frames_and_ckpt
+    jcfg, tcfg = configs(TINY224)
+    jax_apply = jax_build(jax_params(sd, TINY224), jcfg, int8=True,
+                          fused_quant=True, attn_v3=True, flat2d=True,
+                          pad_tokens=True, fused_mlp=True, use_pallas=True,
+                          interpret=True, dtype=jnp.float32)
+    durations = {"v1": 6.4}
+    jax_extract(str(root / "frames"), str(root / "jax8"),
+                lambda im: jax_apply(jnp.asarray(im)), jax_preprocess,
+                batch_size=4, durations=durations)
+    enc, pre = make_eva_encoder(str(root / "pre"), dtype_name="float32",
+                                int8=True, device="cpu", cfg=tcfg)
+    out = root / "port8"
+    assert extract_video_features(str(root / "frames"), str(out), enc, pre,
+                                  batch_size=4, durations=durations) == 2
+    for vid, n in (("v1", 6), ("v2", FRAMES["v2"])):
+        got = np.load(out / f"{vid}.npy")
+        assert got.shape == (n, TINY224["embed_dim"])
+        assert got.dtype == np.float32 and np.isfinite(got).all()
+        np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got, np.load(root / "jax8" / f"{vid}.npy"),
+                                   rtol=2e-3, atol=2e-3)

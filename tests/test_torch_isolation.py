@@ -1,7 +1,7 @@
-"""The port stands alone: every hirest_tpu_torch module imports and a tiny
-forward runs with jax and flax blocked, without loading any hirest_tpu
-module; its entry points refuse to fall back to the CPU on their own; and
-chip_smoke.py refuses to report success where there is no GPU."""
+"""The port stands alone: every hirest_tpu_torch module imports and tiny
+bf16 and int8 forwards run with jax and flax blocked, without loading any
+hirest_tpu module; its entry points refuse to fall back to the CPU on their
+own; and chip_smoke.py refuses to report success where there is no GPU."""
 
 import json
 import os
@@ -32,12 +32,15 @@ from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
 from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
 cfg = EvaVisionConfig(image_size=28, layers=2, width=64, head_width=16,
                       mlp_ratio=4.0, patch_size=14, embed_dim=32)
-out = build_scanned_vision_apply(random_eva_vision_state_dict(cfg), cfg,
-                                 device="cpu")(np.zeros((2, 28, 28, 3)))
+outs = [build_scanned_vision_apply(random_eva_vision_state_dict(cfg), cfg,
+                                   int8=int8, device="cpu")(
+            np.zeros((2, 28, 28, 3))) for int8 in (False, True)]
 loaded = [m for m in sys.modules
           if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
-print(json.dumps({"modules": names, "shape": list(out.shape),
-                  "finite": bool(out.isfinite().all()), "loaded": loaded}))
+print(json.dumps({"modules": names,
+                  "shapes": [list(o.shape) for o in outs],
+                  "finite": all(bool(o.isfinite().all()) for o in outs),
+                  "loaded": loaded}))
 """
 
 
@@ -54,8 +57,9 @@ def test_port_imports_and_runs_without_jax():
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
-    assert got["shape"] == [2, 32] and got["finite"]
+    assert got["shapes"] == [[2, 32], [2, 32]] and got["finite"]
     for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
+                "hirest_tpu_torch.ops.quant",
                 "hirest_tpu_torch.models.eva_scan",
                 "hirest_tpu_torch.extraction.features",
                 "hirest_tpu_torch.data.prefetch"):
@@ -73,10 +77,11 @@ def test_resolve_device_without_cuda(monkeypatch):
         resolve_device("mps")
 
 
-def test_encoder_refuses_cpu_fallback(monkeypatch, tmp_path):
+@pytest.mark.parametrize("int8", [False, True])
+def test_encoder_refuses_cpu_fallback(monkeypatch, tmp_path, int8):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        make_eva_encoder(str(tmp_path))
+        make_eva_encoder(str(tmp_path), int8=int8)
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -1,0 +1,223 @@
+"""The port's int8 pieces (hirest_tpu_torch/ops/quant.py) against the JAX
+package's: weight quantization, row quantization and the int8 products of
+eva_scan, and the plain versions of K2 (ln_quant) and K4 (fused_mlp_int8)
+against the Pallas kernels in interpret mode, at EVA-g's real widths.
+
+On the CPU the port's wrappers take their plain versions, so these tests
+hold the plain versions' arithmetic against the TPU kernels'; the CUDA
+kernels are held against the plain versions on the card by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_util import assert_codes_close
+
+from hirest_tpu.models.eva_scan import _dyn_quant_rows as jax_dyn_quant_rows
+from hirest_tpu.models.eva_scan import _int8_mm as jax_int8_mm
+from hirest_tpu.models.eva_scan import \
+    _quantize_stacked as jax_quantize_stacked
+from hirest_tpu.ops.quant import fused_mlp_int8 as jax_fused_mlp
+from hirest_tpu.ops.quant import ln_quant as jax_ln_quant
+from hirest_tpu.ops.quant import quantize_weight as jax_quantize_weight
+from hirest_tpu_torch.ops.quant import (dyn_quant_rows, fused_mlp_int8,
+                                        fused_mlp_int8_ref, int8_mm,
+                                        ln_quant, ln_quant_ref,
+                                        quantize_weight)
+
+C, F, EPS = 1408, 6144, 1e-6  # EVA-g trunk width, MLP width, LayerNorm eps
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _weight_with_ties(rng, shape):
+    """f32 weights whose every column has max |w| = 127, so its scale is 1
+    and w / scale lands on exact halves, plus an all-zero column."""
+    w = rng.normal(size=shape).astype(np.float32) * 20
+    w[..., 0, :] = 127.0
+    w[..., 1, :3] = [2.5, -3.5, 0.5]
+    w[..., -1] = 0.0
+    return w
+
+
+def test_quantize_weight_is_bit_equal_to_jax():
+    """Per (layer, output channel) codes and scales: half-even rounding of
+    exact ties, the 1e-8 scale floor of an all-zero channel."""
+    w = _weight_with_ties(_rng(0), (3, 96, 40))  # [L, in, out] as JAX has it
+    jq, js = jax_quantize_stacked(w)
+    q, s = quantize_weight(torch.from_numpy(w).transpose(1, 2))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.transpose(1, 2).numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert q[0, 0, 1] == 2 and q[0, 1, 1] == -4 and q[0, 2, 1] == 0
+    jq2, js2 = jax_quantize_weight(w[0])
+    q2, s2 = quantize_weight(torch.from_numpy(w[0]).T)
+    np.testing.assert_array_equal(q2.T.numpy(), np.asarray(jq2))
+    np.testing.assert_array_equal(s2.numpy(), np.asarray(js2))
+
+
+def test_dyn_quant_rows_is_bit_equal_to_jax():
+    x = _rng(1).normal(size=(37, 256)).astype(np.float32)
+    x[3] = 0.0
+    jq, js = jax_dyn_quant_rows(jnp.asarray(x))
+    q, s = dyn_quant_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_int8_mm_matches_jax(with_bias):
+    """The int32 product is exact in both; the f32 epilogue
+    (acc * x_s) * w_s + bias agrees to an f32 rounding."""
+    rng = _rng(2)
+    x_q = rng.integers(-127, 128, (300, C), dtype=np.int8)
+    x_s = rng.uniform(0.01, 0.05, (300, 1)).astype(np.float32)
+    w_q = rng.integers(-127, 128, (C, 512), dtype=np.int8)  # [in, out]
+    w_s = rng.uniform(1e-4, 1e-3, 512).astype(np.float32)
+    bias = rng.normal(size=512).astype(np.float32) if with_bias else None
+    want = np.asarray(jax_int8_mm(
+        jnp.asarray(x_q), jnp.asarray(x_s), jnp.asarray(w_q),
+        jnp.asarray(w_s), None if bias is None else jnp.asarray(bias),
+        jnp.float32))
+    got = int8_mm(torch.from_numpy(x_q), torch.from_numpy(x_s),
+                  torch.from_numpy(w_q.T.copy()), torch.from_numpy(w_s),
+                  None if bias is None else torch.from_numpy(bias),
+                  torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (300, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+# --- K2 ln_quant ----------------------------------------------------------
+
+
+def _ln_inputs(seed, m):
+    rng = _rng(seed)
+    # a residual stream with a per-row offset and spread, as the trunk has
+    x = (rng.normal(size=(m, C)) * rng.uniform(0.5, 3, (m, 1))
+         + rng.normal(size=(m, 1))).astype(np.float32)
+    g = (1 + 0.02 * rng.normal(size=C)).astype(np.float32)
+    b = (0.02 * rng.normal(size=C)).astype(np.float32)
+    return x, g, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_quant_plain_matches_jax(dtype):
+    """[2*257, 1408]: scales within rtol 1e-6, codes within one and equal on
+    99.9 %: the two LayerNorms reduce in another order, and a code at a
+    rounding boundary may go either way."""
+    x, g, b = _ln_inputs(3, 2 * 257)
+    xt = torch.from_numpy(x).to(dtype)
+    jq, js = jax_ln_quant(jnp.asarray(xt.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32),
+        jnp.asarray(g), jnp.asarray(b), EPS, interpret=True, row_block=257)
+    q, s = ln_quant(xt, torch.from_numpy(g), torch.from_numpy(b), EPS)
+    assert q.dtype == torch.int8 and q.shape == (2 * 257, C)
+    assert s.dtype == torch.float32 and s.shape == (2 * 257, 1)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+    assert_codes_close(q.numpy(), np.asarray(jq), 0.999)
+
+
+def test_ln_quant_keeps_the_layernorm_in_f32():
+    """The LayerNorm output goes into the quantization unrounded: its codes
+    are those of the f32 LayerNorm, not of the LayerNorm rounded to bf16."""
+    x, g, b = _ln_inputs(4, 64)
+    xt = torch.from_numpy(x).bfloat16()
+    y = torch.nn.functional.layer_norm(xt.float(), (C,), torch.from_numpy(g),
+                                       torch.from_numpy(b), EPS)
+    q, _ = ln_quant_ref(xt, torch.from_numpy(g), torch.from_numpy(b), EPS)
+    assert_codes_close(q.numpy(), dyn_quant_rows(y)[0].numpy(), 0.999)
+    rounded = dyn_quant_rows(y.bfloat16())[0]
+    assert not torch.equal(q, rounded)
+
+
+# --- K4 fused_mlp_int8 ----------------------------------------------------
+
+
+def _mlp_inputs(seed, m, f=F):
+    """What the trunk hands the MLP: ln_quant codes of a LayerNorm output,
+    weights quantized from 0.02-scale floats, an f32 residual."""
+    rng = _rng(seed)
+    h_q, h_s = dyn_quant_rows(torch.from_numpy(
+        rng.normal(size=(m, C)).astype(np.float32)))
+    w1_q, w1_s = quantize_weight(torch.from_numpy(
+        (0.02 * rng.normal(size=(f, C))).astype(np.float32)))
+    w2_q, w2_s = quantize_weight(torch.from_numpy(
+        (0.02 * rng.normal(size=(C, f))).astype(np.float32)))
+    b1 = torch.from_numpy((0.02 * rng.normal(size=f)).astype(np.float32))
+    b2 = torch.from_numpy((0.02 * rng.normal(size=C)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(m, C)).astype(np.float32))
+    return h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x
+
+
+@pytest.mark.parametrize("act", ["gelu_poly", "gelu"])
+def test_fused_mlp_plain_matches_jax(act):
+    """[264, 1408] x 6144 (six 1024-unit requant chunks), f32 residual:
+    within 1e-3 of the MLP's largest contribution max|want - x|. A hidden
+    code that flips between the two moves a row by far less."""
+    args = _mlp_inputs(5, 264)
+    h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x = args
+    want = np.asarray(jax_fused_mlp(
+        jnp.asarray(h_q.numpy()), jnp.asarray(h_s.numpy()),
+        jnp.asarray(w1_q.T.numpy()), jnp.asarray(w1_s.numpy()),
+        jnp.asarray(b1.numpy()), jnp.asarray(w2_q.T.numpy()),
+        jnp.asarray(w2_s.numpy()), jnp.asarray(b2.numpy()),
+        jnp.asarray(x.numpy()), act=act, interpret=True))
+    got = fused_mlp_int8(*args, act=act)
+    assert got.dtype == torch.float32 and got.shape == (264, C)
+    scale = np.abs(want - x.numpy()).max()
+    assert scale > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3 * scale)
+
+
+def test_fused_mlp_chunks_requant_separately():
+    """Two 1024-unit chunks quantize the hidden units with two scales a
+    row: the result differs from one chunk over all 2048 of them, and a
+    chunk wider than F is that single chunk."""
+    args = _mlp_inputs(6, 40, f=2048)
+    two = fused_mlp_int8(*args)
+    assert torch.equal(two, fused_mlp_int8_ref(*args, n_chunk=1024))
+    one = fused_mlp_int8_ref(*args, n_chunk=4096)
+    assert not torch.equal(two, one)
+    assert torch.equal(one, fused_mlp_int8_ref(*args, n_chunk=2048))
+
+
+def test_fused_mlp_bf16_residual_keeps_its_dtype():
+    args = list(_mlp_inputs(7, 16, f=1024))
+    args[-1] = args[-1].bfloat16()
+    out = fused_mlp_int8(*args)
+    assert out.dtype == torch.bfloat16
+    ref = fused_mlp_int8_ref(*args[:-1], args[-1].float())
+    torch.testing.assert_close(out.float(), ref, rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_fused_mlp_rejects_bad_chunk_and_act():
+    args = _mlp_inputs(8, 8, f=1536)
+    with pytest.raises(ValueError, match="not a multiple"):
+        fused_mlp_int8(*args)
+    with pytest.raises(ValueError, match="act must be"):
+        fused_mlp_int8(*_mlp_inputs(8, 8, f=1024), act="relu")
+
+
+def test_cpu_wrappers_take_plain_versions_without_counting():
+    x, g, b = (torch.from_numpy(a) for a in _ln_inputs(9, 8))
+    before = (ln_quant.launches, fused_mlp_int8.launches)
+    q, s = ln_quant(x, g, b, EPS)
+    rq, rs = ln_quant_ref(x, g, b, EPS)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    args = _mlp_inputs(9, 8, f=1024)
+    assert torch.equal(fused_mlp_int8(*args), fused_mlp_int8_ref(*args))
+    assert (ln_quant.launches, fused_mlp_int8.launches) == before
+
+
+def test_wrappers_raise_on_a_device_without_kernels():
+    """No silent fallback: a tensor that is neither on the CPU nor on CUDA
+    raises instead of taking the plain version."""
+    x = torch.empty((4, C), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ln_quant(x, torch.ones(C), torch.zeros(C), EPS)
+    args = [a.to("meta") for a in _mlp_inputs(10, 4, f=1024)]
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_mlp_int8(*args)

@@ -59,3 +59,12 @@ def images(spec: dict, n: int, seed: int = 0) -> np.ndarray:
 def cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1)
                                 * np.linalg.norm(b, axis=-1))
+
+
+def assert_codes_close(got, want, min_equal: float) -> None:
+    """int8 codes within one of each other, and equal on a share of at
+    least min_equal of them: an f32 rounding that differs lands a value on
+    the other side of a code boundary."""
+    diff = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1, diff.max()
+    assert (diff == 0).mean() >= min_equal, (diff == 0).mean()
