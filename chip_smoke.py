@@ -8,27 +8,41 @@ Phases; any failure exits non-zero before the result line is printed:
 1. build    compile every CUDA kernel of the port from this checkout (set-up).
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
-            [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257),
-            K2 (ln_quant, [M, 1408]) and K4 (fused_mlp_int8, [M, 1408] x 6144,
-            both activations), B = 2 and 128, M = 257 B.
+            [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
+            both again at the padded head width, [B, 257, 6144]), K2
+            (ln_quant, [M, 1408]), K4 (fused_mlp_int8, [M, 1408] x 6144,
+            both activations), K6 (split heads [B, 16, 257, 88] as views of
+            one qkv projection, and a masked [2, 12, 48, 64] over 20 keys)
+            and K7 (packed [B, 257, 16 * 128], and a masked 48 x 20-key
+            shape), B = 2 and 128, M = 257 B.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
             synthetic videos through the per-video finish of
             extract_video_features. Every launch count is zeroed before each
             precision's run and read after it: per forward, the bf16 path
-            launches K1 40 times and no int8 kernel; the int8 path launches
-            K2 80 times, K3 and K4 40 times each, and no K1.
-4. depth    the same weights cut to 2 layers, on the card in bf16 against the
+            launches K1 40 times and no other kernel; the int8 path launches
+            K2 80 times, K3 and K4 40 times each, and no other.
+4. factory  build_eva_model_and_transforms(device="cuda") at full width
+            (text 12 x 768, vision 40 x 1408; one draw of seeded random
+            weights shared by every build): encode_text on 512 prompts, and
+            encode_image at B = 128 unrolled (scan=False: 40 K6 a forward),
+            padded unrolled (40 K7), padded scanned (40 K1 at head width
+            128) and padded scanned int8 (80 K2, 40 K3 at 128, 40 K4), each
+            with the counts zeroed before and read after, and no other
+            kernel launched.
+5. depth    the same weights cut to 2 layers, on the card in bf16 against the
             plain path on the CPU in f32: bf16 vs float at cosine >= 0.99;
-            int8 vs int8 at >= 0.99 and int8 vs float at >= 0.98.
-5. timing   frames/s at B=128 for both precisions and front ends, and each
-            kernel's ms per call beside its plain version, one library call
-            computing the same function (or its int8 products, for K4), and
-            the card's bound.
-6. profile  where one forward's device time goes, by group of kernels, and
-            the device's idle share, for each precision; each plain per-layer
-            op timed alone.
+            int8 vs int8 at >= 0.99 and int8 vs float at >= 0.98; the text
+            tower, the unrolled tower, and the padded unrolled and padded
+            scanned towers against the unpadded CPU paths at >= 0.99.
+6. timing   frames/s at B=128 for every encoder and factory forward, text
+            prompts/s, and each kernel's ms per call beside its plain
+            version, one library call computing the same function (or its
+            int8 products, for K4), and the card's bound.
+7. profile  where one forward's device time goes, by group of kernels, and
+            the device's idle share, for each precision and for the
+            unrolled towers; each plain per-layer op timed alone.
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -48,6 +62,10 @@ import torch
 REPO = Path(__file__).resolve().parent
 BATCH = 128  # frames per forward on the main path
 TOKENS = 257  # EVA-g tokens per frame (16 x 16 patches and the class token)
+PADDED_HD = 16 * 128  # the padded heads' width (models/eva_pad.py)
+PROMPTS = 512  # text prompts through encode_text, in batches of BATCH
+TEXT_BATCH = 256  # prompts per encode_text call when timed
+FACTORY_FORWARDS = 2  # image forwards of B=128 per factory configuration
 # synthetic videos: frame count and duration in seconds (truncation target)
 VIDEOS = {"vid_a": (200, 199.6), "vid_b": (90, 88.4), "vid_c": (17, 17.0)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -108,13 +126,22 @@ def normalize_frames(u8: np.ndarray) -> np.ndarray:
 
 def counters() -> dict:
     """Kernel -> (wrapper, attribute) of its launch count."""
-    from hirest_tpu_torch.ops.attention import fused_attention_qkv3
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_qkv3)
     from hirest_tpu_torch.ops.quant import fused_mlp_int8, ln_quant
 
     return {"K1": (fused_attention_qkv3, "launches"),
             "K2": (ln_quant, "launches"),
             "K3": (fused_attention_qkv3, "quant_launches"),
-            "K4": (fused_mlp_int8, "launches")}
+            "K4": (fused_mlp_int8, "launches"),
+            "K6": (fused_attention, "launches"),
+            "K7": (fused_attention_packed, "launches")}
+
+
+def expect(**per_forward) -> dict:
+    """Every kernel's expected count: the given ones, and 0 for the rest."""
+    return {k: per_forward.get(k, 0) for k in counters()}
 
 
 def zero_counts() -> None:
@@ -130,10 +157,30 @@ def gen(seed: int) -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def attention_inputs(batch: int, seed: int, tokens: int = TOKENS):
+def attention_inputs(batch: int, seed: int, tokens: int = TOKENS,
+                     hd: int = 1408):
     # std 0.75: what the trunk's qkv projection gives with 0.02 weights
-    return (torch.randn((batch, tokens, 3 * 1408), generator=gen(seed),
+    return (torch.randn((batch, tokens, 3 * hd), generator=gen(seed),
                         device="cuda") * 0.75).to(torch.bfloat16)
+
+
+def split_views(qkv, heads: int = 16):
+    """q, k, v as the unrolled tower's split_heads gives them: [B, H, S, d]
+    views of one [B, S, 3 H d] projection, no copy."""
+    from hirest_tpu_torch.models.layers import split_heads
+
+    return [split_heads(t, heads) for t in qkv.chunk(3, -1)]
+
+
+def masked_inputs(seed: int, sq: int = 48, sk: int = 20, valid: int = 15,
+                  heads: int = 12, d: int = 64):
+    """The caption decoder's cross-attention shape: q [2, H, sq, d] over
+    k/v [2, H, sk, d], the keys from `valid` on masked."""
+    g = gen(seed)
+    q, k, v = (torch.randn((2, heads, n, d), generator=g, device="cuda")
+               .to(torch.bfloat16) for n in (sq, sk, sk))
+    mask = (torch.arange(sk, device="cuda") < valid).int()[None].repeat(2, 1)
+    return q, k, v, mask
 
 
 def ln_inputs(m: int, seed: int):
@@ -185,45 +232,89 @@ def check_codes(tag: str, got, want, min_equal: float, scale_rel: float):
     return err
 
 
+def check_close(tag: str, got, want) -> float:
+    """A bf16 attention output against its plain version: within 2^-7 of
+    the output's largest magnitude, one to two bf16 ulps there (p may round
+    the other way at a bf16 boundary under another summation order, and the
+    output rounds once to bf16). Returns the largest error."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    print(f"[kernels] {tag}: max_abs_err={err} max_err/max|ref|={err / top} "
+          f"tol={2 ** -7 * top}")
+    require(bool(got.isfinite().all()) and err <= 2 ** -7 * top,
+            f"{tag} off its plain version")
+    return err
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes."""
-    from hirest_tpu_torch.ops.attention import (fused_attention_qkv3,
-                                                fused_attention_qkv3_ref)
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_packed_ref,
+                                                fused_attention_qkv3,
+                                                fused_attention_qkv3_ref,
+                                                fused_attention_ref)
     from hirest_tpu_torch.ops.quant import (fused_mlp_int8,
                                             fused_mlp_int8_ref, ln_quant,
                                             ln_quant_ref)
 
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
-    for batch in (2, BATCH):
-        qkv = attention_inputs(batch, seed=batch)
-        got = fused_attention_qkv3(qkv, scale, heads)
-        torch.cuda.synchronize()
-        want = fused_attention_qkv3_ref(qkv, scale, heads)
-        err = (got.float() - want.float()).abs().max().item()
-        # 2^-7 of the output's largest magnitude, one to two bf16 ulps
-        # there: p may round the other way at a bf16 boundary under another
-        # summation order, and the output rounds once to bf16
-        tol = 2 ** -7 * want.float().abs().max().item()
-        rel = err / want.float().abs().max().item()
-        print(f"[kernels] K1 fused_attention_qkv3 B={batch}: "
-              f"max_abs_err={err} max_err/max|ref|={rel} tol={tol}")
-        require(bool(got.isfinite().all()) and err <= tol,
-                f"fused_attention_qkv3 B={batch} off its plain version")
-        worst["K1"] = max(worst["K1"], err)
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K7": 0.0}
+    for d in (88, 128):  # the native head width, and the padded one
+        for batch in (2, BATCH):
+            qkv = attention_inputs(batch, seed=batch + d - 88, hd=heads * d)
+            err = check_close(
+                f"K1 fused_attention_qkv3 d={d} B={batch}",
+                fused_attention_qkv3(qkv, d ** -0.5, heads),
+                fused_attention_qkv3_ref(qkv, d ** -0.5, heads))
+            if d == 88:
+                worst["K1"] = max(worst["K1"], err)
 
     # K3: codes within one, equal on 99 %, scales within 2^-7 (p is rounded
     # to bf16 and may round the other way under another summation order)
-    for batch, tokens, n_real in ((2, TOKENS, 0), (2, 264, TOKENS),
-                                  (BATCH, TOKENS, 0)):
-        qkv = attention_inputs(batch, seed=10 + batch + tokens, tokens=tokens)
-        got = fused_attention_qkv3(qkv, scale, heads, quant_out=True,
+    for d, batch, tokens, n_real in ((88, 2, TOKENS, 0), (88, 2, 264, TOKENS),
+                                     (88, BATCH, TOKENS, 0),
+                                     (128, 2, TOKENS, 0),
+                                     (128, BATCH, TOKENS, 0)):
+        qkv = attention_inputs(batch, seed=10 + batch + tokens + d - 88,
+                               tokens=tokens, hd=heads * d)
+        got = fused_attention_qkv3(qkv, d ** -0.5, heads, quant_out=True,
                                    n_real=n_real)
-        want = fused_attention_qkv3_ref(qkv, scale, heads, quant_out=True,
-                                        n_real=n_real)
-        worst["K3"] = max(worst["K3"], check_codes(
-            f"K3 attention quant_out [{batch},{tokens},4224] n_real={n_real}",
-            got, want, 0.99, 2 ** -7))
+        want = fused_attention_qkv3_ref(qkv, d ** -0.5, heads,
+                                        quant_out=True, n_real=n_real)
+        err = check_codes(
+            f"K3 attention quant_out [{batch},{tokens},{3 * heads * d}] "
+            f"n_real={n_real}", got, want, 0.99, 2 ** -7)
+        if d == 88:
+            worst["K3"] = max(worst["K3"], err)
+
+    # K6 and K7 at K1's bar, on the unrolled towers' shapes: split-heads
+    # views of one qkv projection (d=88), packed heads (d=128), and the
+    # masked cross-attention shape in each layout
+    for batch in (2, BATCH):
+        q, k, v = split_views(attention_inputs(batch, seed=40 + batch))
+        worst["K6"] = max(worst["K6"], check_close(
+            f"K6 fused_attention [{batch},16,257,88]",
+            fused_attention(q, k, v, scale), fused_attention_ref(q, k, v,
+                                                                 scale)))
+        q, k, v = attention_inputs(batch, seed=50 + batch,
+                                   hd=PADDED_HD).chunk(3, -1)
+        worst["K7"] = max(worst["K7"], check_close(
+            f"K7 fused_attention_packed [{batch},257,16*128]",
+            fused_attention_packed(q, k, v, 128 ** -0.5, heads),
+            fused_attention_packed_ref(q, k, v, 128 ** -0.5, heads)))
+    q, k, v, mask = masked_inputs(seed=60)
+    worst["K6"] = max(worst["K6"], check_close(
+        "K6 fused_attention [2,12,48,64] over 20 keys, 15 valid",
+        fused_attention(q, k, v, 0.125, mask),
+        fused_attention_ref(q, k, v, 0.125, mask)))
+    q, k, v, mask = masked_inputs(seed=61, heads=16, d=128)
+    packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v)]
+    worst["K7"] = max(worst["K7"], check_close(
+        "K7 fused_attention_packed [2,48,16*128] over 20 keys, 15 valid",
+        fused_attention_packed(*packed, 128 ** -0.5, heads, mask),
+        fused_attention_packed_ref(*packed, 128 ** -0.5, heads, mask)))
 
     # K2: codes within one, equal on 99.9 %, scales within 1e-6 (the row
     # reductions run in another order; rsqrtf is not correctly rounded)
@@ -319,9 +410,8 @@ def phase_main(cfg, pretrained: Path) -> dict:
         print(f"[main] {tag}: two full-width encoders staged in "
               f"{time.perf_counter() - t0:.1f} s")
         feats[tag], counts, fw = run_videos(cfg, encoders[tag], frames, tag)
-        want = ({"K1": 0, "K2": 2 * cfg.layers * fw, "K3": cfg.layers * fw,
-                 "K4": cfg.layers * fw} if int8 else
-                {"K1": cfg.layers * fw, "K2": 0, "K3": 0, "K4": 0})
+        n = cfg.layers * fw
+        want = (expect(K2=2 * n, K3=n, K4=n) if int8 else expect(K1=n))
         require(counts == want, f"{tag} launches {counts}, expected {want}")
         launches.update({k: v for k, v in counts.items() if want[k]})
     cos = min(cosine(feats["int8"][False, v], feats["bf16"][False, v]).min()
@@ -331,9 +421,108 @@ def phase_main(cfg, pretrained: Path) -> dict:
     return {"launches": launches, "encoders": encoders, "frames": frames}
 
 
-def phase_depth(cfg, pretrained: Path) -> None:
+def factory_weights(cfg, text_cfg, pretrained: Path) -> dict:
+    """One `text.*` / `visual.*` state dict for every factory build: the
+    checkpoint when there is one, else one draw of seeded random weights."""
+    from hirest_tpu_torch.models.convert import load_torch_ckpt
+    from hirest_tpu_torch.utils.init import (random_eva_text_state_dict,
+                                             random_eva_vision_state_dict)
+
+    ckpt = pretrained / "eva_clip_psz14.pt"
+    if ckpt.exists():
+        return load_torch_ckpt(str(ckpt))
+    t0 = time.perf_counter()
+    sd = {**{f"text.{k}": v for k, v in
+             random_eva_text_state_dict(text_cfg, seed=0).items()},
+          **{f"visual.{k}": v for k, v in
+             random_eva_vision_state_dict(cfg, seed=0).items()}}
+    print(f"[factory] seeded random weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return sd
+
+
+def prompt_ids(n: int, seed: int, text_cfg) -> np.ndarray:
+    """Token ids [n, 77] as the tokenizer gives them: tokens below the EOT
+    id (the vocabulary's last), EOT at varied positions, zeros after."""
+    ctx, eot = text_cfg.context_length, text_cfg.vocab_size - 1
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, eot, size=(n, ctx))
+    ends = rng.integers(1, ctx, size=n)
+    for row, end in zip(ids, ends):
+        row[end] = eot
+        row[end + 1:] = 0
+    return ids
+
+
+# factory configuration -> (its options, launches per image forward)
+FACTORY = {
+    "unrolled": (dict(scan=False), dict(K6=1)),
+    "padded_unrolled": (dict(scan=False, padded_heads=True), dict(K7=1)),
+    "padded_scanned": (dict(scan=True, padded_heads=True), dict(K1=1)),
+    "padded_scanned_int8": (dict(scan=True, padded_heads=True, int8=True),
+                            dict(K2=2, K3=1, K4=1)),
+}
+
+
+def phase_factory(cfg, text_cfg, weights: dict) -> dict:
+    """build_eva_model_and_transforms at full width on the card: the text
+    tower on PROMPTS prompts, and every image configuration of FACTORY on
+    FACTORY_FORWARDS forwards of B=128, with the launch counts zeroed
+    before each run and read after it."""
+    from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
+
+    frames = normalize_frames(np.random.default_rng(2).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8))
+    models, feats, launches = {}, {}, {}
+    for tag, (options, per_forward) in FACTORY.items():
+        t0 = time.perf_counter()
+        models[tag] = build_eva_model_and_transforms(
+            pretrained=weights, device="cuda", text_config=text_cfg,
+            vision_config=cfg, **options)[0]
+        torch.cuda.synchronize()
+        print(f"[factory] {tag}: built in {time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        for _ in range(FACTORY_FORWARDS):
+            out = models[tag].encode_image(frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expect(**{k: v * cfg.layers * FACTORY_FORWARDS
+                         for k, v in per_forward.items()})
+        print(f"[factory] {tag}: {FACTORY_FORWARDS} forwards of {BATCH} "
+              f"frames; launches {counts}")
+        require(counts == want, f"{tag} launches {counts}, expected {want}")
+        require(tuple(out.shape) == (BATCH, cfg.embed_dim)
+                and bool(out.isfinite().all()), f"{tag}: output {out.shape}")
+        feats[tag] = out.cpu().numpy()
+        launches.update({k: v for k, v in counts.items() if want[k]})
+    for tag in ("padded_unrolled", "padded_scanned"):  # same function
+        cos = cosine(feats[tag], feats["unrolled"]).min()
+        print(f"[factory] {tag} vs unrolled: min cosine {cos:.6f} "
+              f"(>= {COS_MIN})")
+        require(cos >= COS_MIN, f"{tag} off the unrolled tower")
+    cos = cosine(feats["padded_scanned_int8"], feats["padded_scanned"]).min()
+    print(f"[factory] padded int8 vs padded bf16: min cosine {cos:.6f} "
+          f"(>= {COS_INT8_VS_FLOAT})")
+    require(cos >= COS_INT8_VS_FLOAT, "padded int8 off padded bf16")
+
+    ids = prompt_ids(PROMPTS, seed=3, text_cfg=text_cfg)
+    zero_counts()
+    text = torch.cat([models["unrolled"].encode_text(ids[i: i + BATCH])
+                      for i in range(0, PROMPTS, BATCH)])
+    torch.cuda.synchronize()
+    print(f"[factory] encode_text: {tuple(text.shape)} from {PROMPTS} "
+          f"prompts, EOT at positions {int(ids.argmax(1).min())}.."
+          f"{int(ids.argmax(1).max())}; launches {read_counts()}")
+    require(tuple(text.shape) == (PROMPTS, text_cfg.embed_dim)
+            and bool(text.isfinite().all()) and read_counts() == expect(),
+            "encode_text output")
+    return {"models": models, "frames": frames, "ids": ids,
+            "launches": launches}
+
+
+def phase_depth(cfg, pretrained: Path) -> np.ndarray:
     """The same weights at 2 layers: the card's bf16 and int8 forwards
-    against the plain path on the CPU in f32."""
+    against the plain path on the CPU in f32. Returns the 4 frames used."""
     from dataclasses import replace
 
     from hirest_tpu_torch.models.convert import load_torch_ckpt
@@ -366,6 +555,49 @@ def phase_depth(cfg, pretrained: Path) -> None:
               f"(>= {bar})")
         require(got.shape == (4, cfg.embed_dim) and bool(cos.min() >= bar),
                 f"2-layer {what} below {bar}")
+    return frames
+
+
+def phase_factory_depth(cfg, text_cfg, weights: dict, frames) -> None:
+    """The factory's towers cut to 2 layers, on the card in bf16 against the
+    unpadded plain paths on the CPU in f32, at cosine >= 0.99: the text
+    tower, the unrolled tower, the padded unrolled tower against the
+    unrolled one and the padded scanned tower against the scanned one."""
+    from dataclasses import replace
+
+    from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
+
+    cuts = dict(text_config=replace(text_cfg, layers=2),
+                vision_config=replace(cfg, layers=2))
+    ids = prompt_ids(8, seed=4, text_cfg=text_cfg)
+
+    def build(device, **options):
+        dtype = torch.bfloat16 if device == "cuda" else torch.float32
+        return build_eva_model_and_transforms(
+            pretrained=weights, device=device, dtype=dtype, **cuts,
+            **options)[0]
+
+    cpu = {scan: build("cpu", scan=scan) for scan in (False, True)}
+    ref_text = cpu[False].encode_text(ids).numpy()
+    ref_image = {scan: m.encode_image(frames).numpy()
+                 for scan, m in cpu.items()}
+    for what, options, ref in (
+            ("unrolled", dict(scan=False), ref_image[False]),
+            ("padded unrolled vs unpadded", dict(scan=False,
+                                                 padded_heads=True),
+             ref_image[False]),
+            ("padded scanned vs unpadded", dict(scan=True,
+                                                padded_heads=True),
+             ref_image[True])):
+        model = build("cuda", **options)
+        cos = cosine(model.encode_image(frames).cpu().numpy(), ref)
+        print(f"[depth] 2 layers, {what}: bf16 card vs f32 CPU plain: "
+              f"cosine min={cos.min():.6f} (>= {COS_MIN})")
+        require(bool(cos.min() >= COS_MIN), f"2-layer {what} below {COS_MIN}")
+    cos = cosine(model.encode_text(ids).cpu().numpy(), ref_text)
+    print(f"[depth] 2 layers, text tower: bf16 card vs f32 CPU plain: "
+          f"cosine min={cos.min():.6f} (>= {COS_MIN})")
+    require(bool(cos.min() >= COS_MIN), f"2-layer text tower below {COS_MIN}")
 
 
 def time_encoders(main: dict, card: str) -> dict:
@@ -394,18 +626,49 @@ def time_encoders(main: dict, card: str) -> dict:
     return out
 
 
-def phase_timing(cfg, main: dict, card: str) -> dict:
+def time_factory(factory: dict, card: str) -> None:
+    """Frames/s of every factory image configuration at B=128 and text
+    prompts/s at TEXT_BATCH, host clock around work ending in a
+    synchronize, after one warm-up call."""
+    for tag, model in factory["models"].items():
+        for what, fn, n in (
+                ("images", lambda: model.encode_image(factory["frames"]),
+                 BATCH),
+                ("prompts", lambda: model.encode_text(
+                    factory["ids"][:TEXT_BATCH]), TEXT_BATCH)):
+            if what == "prompts" and tag != "unrolled":
+                continue  # one text tower is enough: they are the same
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iters = 5
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            rate = n * iters / (time.perf_counter() - t0)
+            label = ("text encoder" if what == "prompts"
+                     else f"factory {tag} encode_image")
+            print(f"[timing] {card}: {label} B={n}: {rate:.2f} {what}/s")
+
+
+def phase_timing(cfg, main: dict, factory: dict, card: str) -> dict:
     """Frames/s, and each kernel's ms beside its plain version, a library
     yardstick and the bound, at the main path's B=128 shapes."""
     import torch.nn.functional as F
 
-    from hirest_tpu_torch.ops.attention import (fused_attention_qkv3,
-                                                fused_attention_qkv3_ref)
+    from hirest_tpu_torch.models.layers import split_heads
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_packed_ref,
+                                                fused_attention_qkv3,
+                                                fused_attention_qkv3_ref,
+                                                fused_attention_ref)
     from hirest_tpu_torch.ops.quant import (fused_mlp_int8,
                                             fused_mlp_int8_ref, ln_quant,
                                             ln_quant_ref)
 
     time_encoders(main, card)
+    time_factory(factory, card)
     res = {}
     scale, heads, d = cfg.head_width ** -0.5, cfg.num_heads, cfg.head_width
     m, w, hid = BATCH * TOKENS, cfg.width, cfg.mlp_hidden
@@ -451,7 +714,48 @@ def phase_timing(cfg, main: dict, card: str) -> dict:
                                        torch._int_mm(hidden_q, w2_q.t())), 5),
         **bound(m * w + m * 4 + 2 * m * w * 2 + 2 * hid * w
                 + 4 * (2 * hid + 2 * w), 2 * 2 * m * w * hid, INT8_OP_PER_S)}
-    for name, r in res.items():
+    # the unrolled towers' attention: K6 on split-heads views of one qkv
+    # projection, K7 on packed heads at the padded width; K1 and K3 at the
+    # padded width (heads padded 88 -> 128) on the padded scanned tower
+    qkv = attention_inputs(BATCH, seed=11)
+    q, k, v = split_views(qkv)
+    res["K6"] = {
+        "ms": cuda_ms(lambda: fused_attention(q, k, v, scale), 20),
+        "plain_ms": cuda_ms(lambda: fused_attention_ref(q, k, v, scale), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 20),
+        **bound(4 * q.numel() * 2, attn_flops, BF16_FLOP_PER_S)}
+    qkv128 = attention_inputs(BATCH, seed=12, hd=PADDED_HD)
+    p128 = 128 ** -0.5
+    q, k, v = qkv128.chunk(3, -1)
+    qs, ks, vs = (split_heads(t, heads) for t in (q, k, v))
+    flops128 = 2 * 2 * BATCH * heads * s * s * 128
+    res["K7"] = {
+        "ms": cuda_ms(lambda: fused_attention_packed(q, k, v, p128, heads),
+                      20),
+        "plain_ms": cuda_ms(lambda: fused_attention_packed_ref(
+            q, k, v, p128, heads), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, scale=p128), 20),
+        **bound(4 * q.numel() * 2, flops128, BF16_FLOP_PER_S)}
+    padded = {
+        "K1 d=128": {
+            "ms": cuda_ms(lambda: fused_attention_qkv3(qkv128, p128, heads),
+                          20),
+            "plain_ms": cuda_ms(lambda: fused_attention_qkv3_ref(
+                qkv128, p128, heads), 5),
+            "library_ms": res["K7"]["library_ms"],
+            **bound(qkv128.numel() * 2 + m * PADDED_HD * 2, flops128,
+                    BF16_FLOP_PER_S)},
+        "K3 d=128": {
+            "ms": cuda_ms(lambda: fused_attention_qkv3(
+                qkv128, p128, heads, quant_out=True), 20),
+            "plain_ms": cuda_ms(lambda: fused_attention_qkv3_ref(
+                qkv128, p128, heads, quant_out=True), 5),
+            "library_ms": None,
+            **bound(qkv128.numel() * 2 + m * PADDED_HD + m * 4, flops128,
+                    BF16_FLOP_PER_S)}}
+    for name, r in {**res, **padded}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
@@ -477,10 +781,18 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("elementwise (int8_mm dequant epilogue, residual, casts)",
          ("elementwise", "reduce")),
     ),
+    "unrolled": (
+        ("K6/K7 attention_split (CUDA)", ("attention_split",)),
+        ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+        ("exact GELU", ("gelu", "Gelu")),
+        ("elementwise and reductions (LayerNorm, q/v bias, residual, casts)",
+         ("elementwise", "reduce")),
+    ),
 }
 
 
-def profile_forward(tag: str, enc, batch: np.ndarray, card: str) -> None:
+def profile_forward(tag: str, enc, batch: np.ndarray, card: str,
+                    group_set: str) -> None:
     """One forward's device kernels by group from torch.profiler, and the
     device's idle share of its wall time."""
     from torch.autograd import DeviceType
@@ -500,7 +812,7 @@ def profile_forward(tag: str, enc, batch: np.ndarray, card: str) -> None:
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
-        group = next((g for g, keys in KERNEL_GROUPS[tag]
+        group = next((g for g, keys in KERNEL_GROUPS[group_set]
                       if any(k in e.key for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms
         kernels[e.key] = kernels.get(e.key, 0.0) + ms
@@ -514,19 +826,24 @@ def profile_forward(tag: str, enc, batch: np.ndarray, card: str) -> None:
         print(f"[profile]     kernel {name[:110]}: {ms:.2f} ms")
 
 
-def phase_profile(cfg, main: dict, card: str) -> None:
-    """Where one float-front-end forward's time goes, for each precision,
-    and each plain per-layer op timed alone at the main path's shapes with
-    CUDA events."""
+def phase_profile(cfg, main: dict, factory: dict, card: str) -> None:
+    """Where one float-front-end forward's time goes, for each precision and
+    for the factory's bf16 image configurations, and each plain per-layer
+    op timed alone at the main path's shapes with CUDA events."""
     import torch.nn.functional as F
 
     from hirest_tpu_torch.models.eva_clip import layer_norm
-    from hirest_tpu_torch.models.layers import gelu_bf16_poly
+    from hirest_tpu_torch.models.layers import (gelu, gelu_bf16_poly,
+                                                layer_norm_fast_var)
     from hirest_tpu_torch.ops.quant import int8_mm
 
     batch = normalize_frames(main["frames"]["vid_a"][:BATCH])
     for tag, encoders in main["encoders"].items():
-        profile_forward(tag, encoders[False], batch, card)
+        profile_forward(tag, encoders[False], batch, card, tag)
+    for tag in ("unrolled", "padded_unrolled", "padded_scanned"):
+        profile_forward(f"factory {tag}", factory["models"][tag].encode_image,
+                        batch, card, "bf16" if "scanned" in tag
+                        else "unrolled")
 
     m, w, hid = BATCH * TOKENS, cfg.width, cfg.mlp_hidden
     g = gen(3)
@@ -562,6 +879,9 @@ def phase_profile(cfg, main: dict, card: str) -> None:
                                                                   out_q.t()),
         "int8_mm out (product + dequant epilogue)": lambda: int8_mm(
             x_q, x_s, out_q, out_s, bp, torch.bfloat16),
+        "exact gelu [M,6144]": lambda: gelu(h),
+        "layer_norm_fast_var (flax arithmetic) [M,1408]":
+            lambda: layer_norm_fast_var(x, norm),
     }
     for name, fn in ops.items():
         print(f"[profile] {card}: {name}, M={m}: "
@@ -579,6 +899,11 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
            "hirest_tpu/ops/attention.py:502"),
     "K4": ("fused_mlp_int8", "hirest_tpu_torch/ops/csrc/fused_mlp_int8.cu",
            "hirest_tpu/ops/quant.py:296"),
+    "K6": ("fused_attention", "hirest_tpu_torch/ops/csrc/attention_split.cu",
+           "hirest_tpu/ops/attention.py:69"),
+    "K7": ("fused_attention_packed",
+           "hirest_tpu_torch/ops/csrc/attention_split.cu",
+           "hirest_tpu/ops/attention.py:188"),
 }
 
 
@@ -587,13 +912,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on a GPU only",
               file=sys.stderr)
         return 1
-    from hirest_tpu_torch.config import EvaVisionConfig
+    from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
     from hirest_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_and_power()
-    cfg = EvaVisionConfig()
+    cfg, text_cfg = EvaVisionConfig(), EvaTextConfig()
     pretrained = REPO / "pretrained_weights"
 
     t0 = time.perf_counter()
@@ -605,14 +930,18 @@ def main() -> int:
 
     errs = phase_kernels(cfg)
     main_res = phase_main(cfg, pretrained)
-    phase_depth(cfg, pretrained)
-    timing = phase_timing(cfg, main_res, card)
-    phase_profile(cfg, main_res, card)
+    weights = factory_weights(cfg, text_cfg, pretrained)
+    factory = phase_factory(cfg, text_cfg, weights)
+    frames = phase_depth(cfg, pretrained)
+    phase_factory_depth(cfg, text_cfg, weights, frames)
+    timing = phase_timing(cfg, main_res, factory, card)
+    phase_profile(cfg, main_res, factory, card)
+    launches = {**factory["launches"], **main_res["launches"]}
 
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": main_res["launches"][k], "max_abs_err": errs[k],
+        "launches": launches[k], "max_abs_err": errs[k],
         **timing[k]} for k, (name, src, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

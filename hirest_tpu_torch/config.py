@@ -1,14 +1,16 @@
 """Model architecture configs of the port.
 
-An own copy of `EvaVisionConfig` from hirest_tpu/config.py (the port imports
-nothing of the JAX package). Field names and defaults are the same, so one
-set of values describes the same tower in both packages; `heads_override`,
-which only the JAX package's padded-heads variant sets, is not carried.
+Own copies of `EvaVisionConfig` and `EvaTextConfig` from
+hirest_tpu/config.py (the port imports nothing of the JAX package). Field
+names and defaults are the same, so one set of values describes the same
+tower in both packages. `heads_override` is set by the padded-heads
+transform (models/eva_pad.py), which widens each head and keeps the count.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -23,9 +25,12 @@ class EvaVisionConfig:
     patch_size: int = 14
     embed_dim: int = 1024  # output projection dim
     norm_eps: float = 1e-6
+    heads_override: Optional[int] = None  # set when head_width is padded
 
     @property
     def num_heads(self) -> int:
+        if self.heads_override is not None:
+            return self.heads_override
         return self.width // self.head_width
 
     @property
@@ -35,3 +40,16 @@ class EvaVisionConfig:
     @property
     def mlp_hidden(self) -> int:
         return int(self.width * self.mlp_ratio)
+
+
+@dataclass(frozen=True)
+class EvaTextConfig:
+    """EVA-CLIP-g text tower (reference EVA_clip/eva_model.py:177-250)."""
+
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 768
+    heads: int = 12
+    layers: int = 12
+    embed_dim: int = 1024
+    norm_eps: float = 1e-5

@@ -128,7 +128,8 @@ def extract_video_features(
 
 
 def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
-                     dtype_name: str = "bfloat16", int8: bool = False,
+                     dtype_name: str = "bfloat16", padded_heads: bool = False,
+                     scan: bool = True, int8: bool = False,
                      uint8_frontend: bool = False, device=None,
                      cfg: EvaVisionConfig = EvaVisionConfig()):
     """Build (encode_image_fn, preprocess_fn) around the EVA vision tower on
@@ -137,14 +138,23 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
     weights otherwise. encode_image_fn returns [B, embed_dim] f32 on the
     device.
 
-    The default is the bf16 forward with the CUDA attention kernel.
+    The default is the production bf16 forward (scan=True) with the
+    batched-heads attention kernel at the native head width 88.
+    `padded_heads=True` pads the heads to 128 (models/eva_pad.py), an
+    identity on the outputs that runs the attention at head width 128.
+    `scan=False` builds the unrolled tower (the JAX package's flax tower:
+    split-heads attention, or packed heads once padded, and exact GELU); it
+    ignores `int8` and `uint8_frontend`, as the JAX encoder does, and takes
+    normalised float frames.
     `int8=True` is the quantized throughput mode: int8 projections with
     per-channel weight and per-row activation scales, through the ln_quant,
     int8-epilogue attention and fused int8 MLP kernels.
     `uint8_frontend=True` ships raw uint8 frames to the device and runs pixel
     normalization inside the patch-embed matmul."""
-    from hirest_tpu_torch.models.eva_clip import (preprocess_image,
+    from hirest_tpu_torch.models.eva_clip import (build_unrolled_vision_apply,
+                                                  preprocess_image,
                                                   preprocess_image_u8)
+    from hirest_tpu_torch.models.eva_pad import pad_vision_head_params
     from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
     from hirest_tpu_torch.utils.device import resolve_device
 
@@ -161,6 +171,11 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
 
         sd = random_eva_vision_state_dict(cfg, seed=0)
         print(f"WARNING: {ckpt} not found - vision tower is random-init")
+    if padded_heads:
+        sd, cfg = pad_vision_head_params(sd, cfg)
+    if not scan:
+        return (build_unrolled_vision_apply(sd, cfg, dtype=dtype,
+                                            device=device), preprocess_image)
     apply = build_scanned_vision_apply(sd, cfg, dtype=dtype, int8=int8,
                                        uint8_input=uint8_frontend,
                                        device=device)

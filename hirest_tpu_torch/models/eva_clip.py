@@ -1,29 +1,50 @@
-"""EVA-CLIP-g vision tower in PyTorch, and its image preprocessing.
+"""EVA-CLIP-g towers in PyTorch, their image preprocessing and the model
+factory.
 
-Counterpart of hirest_tpu/models/eva_clip.py (EvaVisionTower, CLIP_MEAN,
-CLIP_STD, preprocess_image, preprocess_image_u8). Parameter names are the
-EVA reference's own (EVA_clip/vit_model.py:248-351), so the `visual.*` part
-of `eva_clip_psz14.pt` loads with `load_state_dict` directly.
+Counterpart of hirest_tpu/models/eva_clip.py. Parameter names are the EVA
+reference's own (EVA_clip/vit_model.py:248-351 for `visual.*`,
+EVA_clip/eva_model.py:177-250 for `text.*`), so the two parts of
+`eva_clip_psz14.pt` load with `load_state_dict` directly.
 
-Its block is the production bf16 block of hirest_tpu/models/eva_scan.py
-(the int8 block, models/eva_scan.py::Int8Block, is built from this one):
-LayerNorms computed in f32 and cast to the working dtype, the q/v biases
-folded into the qkv projection's bias, the batched-heads attention kernel,
-and the short erf polynomial for GELU when `fast_gelu` (the default). Its
-working dtype is the dtype of the parameters; the output is f32.
+- `EvaVisionTower` (with `Block`) is the production bf16 tower of
+  hirest_tpu/models/eva_scan.py (the int8 block, models/eva_scan.py::
+  Int8Block, is built from this one): LayerNorms computed in f32 and cast
+  to the working dtype, the q/v biases folded into the qkv projection's
+  bias, the batched-heads attention kernel (K1), and the short erf
+  polynomial for GELU when `fast_gelu` (the default). Its working dtype is
+  the dtype of the parameters; the output is f32.
+- `UnrolledEvaVisionTower` (with `VisionBlock`) is the JAX package's flax
+  `EvaVisionTower` with `use_pallas=True` (the factory's `scan=False`), on
+  the same state dict: flax's LayerNorm arithmetic (`layer_norm_fast_var`),
+  the q/v biases added after the split, exact-erf GELU, and the
+  split-heads attention kernel (K6), or the packed one (K7) once the heads
+  are padded to 128 (models/eva_pad.py).
+- `EvaTextTower` (with `TextBlock`) is the flax `EvaTextTower`.
+- `build_eva_model_and_transforms` is the factory
+  `build_eva_model_and_transforms` (reference EVA_clip/eva_clip.py:155-171).
 """
 
 from __future__ import annotations
+
+import os
+from types import SimpleNamespace
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hirest_tpu_torch.config import EvaVisionConfig
-from hirest_tpu_torch.models.convert import patch_kernel
-from hirest_tpu_torch.models.layers import gelu, gelu_bf16_poly
+from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
+from hirest_tpu_torch.models.convert import (eva_text_state_dict,
+                                             eva_vision_state_dict,
+                                             load_into, load_torch_ckpt,
+                                             patch_kernel)
+from hirest_tpu_torch.models.layers import (MultiHeadAttention, causal_mask,
+                                            gelu, gelu_bf16_poly,
+                                            layer_norm_fast_var)
 from hirest_tpu_torch.ops.attention import fused_attention_qkv3
+from hirest_tpu_torch.utils.device import resolve_device
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -89,6 +110,8 @@ class PatchEmbed(nn.Module):
 class EvaVisionTower(nn.Module):
     """ViT-g/14 image encoder: [B, 224, 224, 3] (NHWC) -> [B, 1024] f32."""
 
+    block = Block
+
     def __init__(self, cfg: EvaVisionConfig = EvaVisionConfig(),
                  fast_gelu: bool = True):
         super().__init__()
@@ -98,11 +121,13 @@ class EvaVisionTower(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.num_patches + 1, cfg.width))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.layers))
+        self.blocks = nn.ModuleList(self.block(cfg) for _ in range(cfg.layers))
         self.norm = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
         self.head = nn.Linear(cfg.width, cfg.embed_dim)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """Patch embedding, class token and positions: -> [B, 1 + N, width]
+        in the working dtype."""
         cfg = self.cfg
         b, hh, ww, c = images.shape
         p = cfg.patch_size
@@ -117,11 +142,129 @@ class EvaVisionTower(nn.Module):
         x = x @ patch_kernel(w)
         x = x + self.patch_embed.proj.bias
         x = torch.cat([self.cls_token.expand(b, 1, cfg.width), x], 1)
-        x = x + self.pos_embed
+        return x + self.pos_embed
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.embed(images)
         for blk in self.blocks:
             x = blk(x, self.fast_gelu)
         x = layer_norm(x, self.norm)
         return self.head(x[:, 0]).float()
+
+
+class VisionBlock(nn.Module):
+    """The flax VisionBlock: BEiT pre-norm block with q/v-only bias
+    attention (vit_model.py:153-182), on `Block`'s parameter names."""
+
+    def __init__(self, cfg: EvaVisionConfig):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
+        self.attn = MultiHeadAttention(cfg.width, cfg.num_heads,
+                                       cfg.head_width, mode="fused_qv_bias")
+        self.norm2 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
+        self.mlp = Mlp(cfg.width, cfg.mlp_hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(layer_norm_fast_var(x, self.norm1))
+        h = gelu(self.mlp.fc1(layer_norm_fast_var(x, self.norm2)))
+        return x + self.mlp.fc2(h)
+
+
+class UnrolledEvaVisionTower(EvaVisionTower):
+    """The flax EvaVisionTower(use_pallas=True): `EvaVisionTower`'s state
+    dict and patch embedding, `VisionBlock`s, and the final LayerNorm in
+    the working dtype. [B, 224, 224, 3] (NHWC) -> [B, 1024] f32."""
+
+    block = VisionBlock
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.embed(images)
+        for blk in self.blocks:
+            x = blk(x)
+        x = layer_norm_fast_var(x, self.norm)
+        return self.head(x[:, 0]).float()
+
+
+class TextMlp(nn.Module):
+    def __init__(self, width: int, hidden: int):
+        super().__init__()
+        self.c_fc = nn.Linear(width, hidden)
+        self.c_proj = nn.Linear(hidden, width)
+
+
+class TextBlock(nn.Module):
+    """Pre-LN residual attention block (eva_model.py:110-159)."""
+
+    def __init__(self, cfg: EvaTextConfig, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.ln_1 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
+        self.attn = MultiHeadAttention(cfg.width, cfg.heads,
+                                       cfg.width // cfg.heads, mode="fused")
+        self.ln_2 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
+        self.mlp = TextMlp(cfg.width, int(cfg.width * mlp_ratio))
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(layer_norm_fast_var(x, self.ln_1), bias)
+        h = gelu(self.mlp.c_fc(layer_norm_fast_var(x, self.ln_2)))
+        return x + self.mlp.c_proj(h)
+
+
+class EvaTextTower(nn.Module):
+    """CLIP text encoder: token ids [B, T <= 77] -> [B, 1024] f32, in the
+    working dtype of its parameters."""
+
+    def __init__(self, cfg: EvaTextConfig = EvaTextConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(cfg.context_length, cfg.width))
+        self.transformer = nn.ModuleDict({"resblocks": nn.ModuleList(
+            TextBlock(cfg) for _ in range(cfg.layers))})
+        self.ln_final = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
+        self.text_projection = nn.Parameter(
+            torch.zeros(cfg.width, cfg.embed_dim))
+
+    def forward(self, text_ids: torch.Tensor) -> torch.Tensor:
+        ids = text_ids.long()
+        t = ids.shape[1]
+        x = self.token_embedding(ids) + self.positional_embedding[:t]
+        bias = causal_mask(t, device=x.device)
+        for blk in self.transformer["resblocks"]:
+            x = blk(x, bias)
+        x = layer_norm_fast_var(x, self.ln_final)
+        # EOT pooling: the EOT token has the highest id in each row
+        x = x[torch.arange(x.shape[0], device=x.device), ids.argmax(-1)]
+        return (x @ self.text_projection).float()
+
+
+def staged(cls, cfg, sd: Mapping, what: str, device: torch.device,
+           dtype: torch.dtype) -> nn.Module:
+    """`cls(cfg)` with the state dict `sd` loaded (every key it needs, or
+    KeyError), on `device` in `dtype`, in eval mode. Built on the meta
+    device, so no parameter is allocated twice."""
+    with torch.device("meta"):
+        module = cls(cfg)
+    return load_into(module, sd, what).to(device=device, dtype=dtype).eval()
+
+
+def build_unrolled_vision_apply(params: Mapping,
+                                cfg: EvaVisionConfig = EvaVisionConfig(), *,
+                                dtype: torch.dtype = torch.bfloat16,
+                                device=None):
+    """Stage `UnrolledEvaVisionTower` on `device` with every parameter in
+    `dtype` (as the JAX factory casts them) and return
+    `apply(images [B, H, W, 3] NHWC) -> [B, embed_dim] f32`. params: an EVA
+    vision state dict, `visual.`-prefixed or bare."""
+    device = resolve_device(device)
+    tower = staged(UnrolledEvaVisionTower, cfg, eva_vision_state_dict(params),
+                   "EVA vision", device, dtype)
+
+    @torch.inference_mode()
+    def apply(images) -> torch.Tensor:
+        return tower(torch.as_tensor(images).to(device))
+
+    return apply
 
 
 # ---------------------------------------------------------------------------
@@ -160,3 +303,69 @@ def preprocess_image_u8(img, image_size: int = 224) -> np.ndarray:
     """Resize + center-crop only -> [image_size, image_size, 3] uint8, for
     forwards built with uint8_input=True (eva_scan.fold_uint8_frontend)."""
     return np.asarray(_resize_center_crop(img, image_size), dtype=np.uint8)
+
+
+def build_eva_model_and_transforms(
+        model_name: str = "EVA_CLIP_g_14",
+        pretrained: Union[str, Mapping, None] = None,
+        dtype: torch.dtype = torch.bfloat16, padded_heads: bool = False,
+        scan: bool = True, int8: bool = False,
+        text_config: Optional[EvaTextConfig] = None,
+        vision_config: Optional[EvaVisionConfig] = None, device=None):
+    """The reference's factory surface (EVA_clip/eva_clip.py:155-171) on
+    `device` (CUDA unless "cpu" is asked for): returns (model, preprocess)
+    where `model.encode_text(ids [B, <=77]) -> [B, 1024]` and
+    `model.encode_image(images NHWC) -> [B, 1024]`, both f32 on the device;
+    `model.vision_config` is the vision tower's config (padded or not).
+
+    pretrained: the torch `eva_clip_psz14.pt` checkpoint (its `text.*` and
+    `visual.*` keys), or such a state dict already loaded; without one the
+    towers get seeded random weights (loudly).
+    padded_heads: pad the vision heads 88 -> 128 (models/eva_pad.py), an
+    identity on the outputs.
+    scan: True is the production forward (build_scanned_vision_apply: K1,
+    or with int8 K2-K4); False the unrolled tower (K6, or K7 with padded
+    heads), which ignores int8 as the JAX factory does. The JAX factory's
+    `use_pallas` has no counterpart: a CUDA tensor always takes the
+    kernels, a CPU tensor their plain versions."""
+    from hirest_tpu_torch.models.eva_pad import pad_vision_head_params
+    from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
+    from hirest_tpu_torch.utils.init import (random_eva_text_state_dict,
+                                             random_eva_vision_state_dict)
+
+    if model_name != "EVA_CLIP_g_14":
+        raise ValueError(f"unknown model {model_name}")
+    device = resolve_device(device)  # before building a 1B-parameter tower
+    text_cfg = text_config or EvaTextConfig()
+    vision_cfg = vision_config or EvaVisionConfig()
+    if isinstance(pretrained, Mapping):
+        sd = pretrained
+    elif pretrained and os.path.exists(pretrained):
+        sd = load_torch_ckpt(pretrained)
+        print(f"Loaded EVA CLIP G from {pretrained}")
+    else:
+        sd = {**{f"text.{k}": v for k, v in
+                 random_eva_text_state_dict(text_cfg, seed=0).items()},
+              **{f"visual.{k}": v for k, v in
+                 random_eva_vision_state_dict(vision_cfg, seed=0).items()}}
+        print(f"WARNING: {pretrained!r} not found - EVA towers are "
+              f"random-init")
+    vision_sd = eva_vision_state_dict(sd)
+    if padded_heads:
+        vision_sd, vision_cfg = pad_vision_head_params(vision_sd, vision_cfg)
+    text_tower = staged(EvaTextTower, text_cfg, eva_text_state_dict(sd),
+                        "EVA text", device, dtype)
+    if scan:
+        encode_image = build_scanned_vision_apply(
+            vision_sd, vision_cfg, dtype=dtype, int8=int8, device=device)
+    else:
+        encode_image = build_unrolled_vision_apply(
+            vision_sd, vision_cfg, dtype=dtype, device=device)
+
+    @torch.inference_mode()
+    def encode_text(ids) -> torch.Tensor:
+        return text_tower(torch.as_tensor(ids).to(device))
+
+    model = SimpleNamespace(encode_text=encode_text, encode_image=encode_image,
+                            vision_config=vision_cfg)
+    return model, preprocess_image

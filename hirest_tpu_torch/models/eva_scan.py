@@ -25,7 +25,8 @@ from torch import nn
 
 from hirest_tpu_torch.config import EvaVisionConfig
 from hirest_tpu_torch.models.convert import (eva_vision_state_dict,
-                                             patch_conv, patch_kernel)
+                                             load_into, patch_conv,
+                                             patch_kernel)
 from hirest_tpu_torch.models.eva_clip import (CLIP_MEAN, CLIP_STD, Block,
                                               EvaVisionTower)
 from hirest_tpu_torch.ops.attention import fused_attention_qkv3
@@ -111,7 +112,9 @@ def build_scanned_vision_apply(params: Union[Mapping, nn.Module],
 
     params: an EVA vision state dict (reference names, `visual.`-prefixed
     or bare; tensors or numpy arrays) or an `EvaVisionTower`; it is not
-    modified. Every parameter is cast to `dtype` except the final
+    modified. With heads padded to 128 (models/eva_pad.py, `cfg` from
+    pad_vision_head_params) the heads come from `cfg.num_heads` and the
+    attention runs at head width 128. Every parameter is cast to `dtype` except the final
     LayerNorm's, which stays f32 as in the JAX forward.
     uint8_input: apply() takes raw uint8 0..255 frames; pixel normalization
     is folded into the patch embed (fold_uint8_frontend).
@@ -128,10 +131,7 @@ def build_scanned_vision_apply(params: Union[Mapping, nn.Module],
         sd["patch_embed.proj.bias"] = b
     with torch.device("meta"):
         tower = EvaVisionTower(cfg, fast_gelu=fast_gelu)
-    missing, _ = tower.load_state_dict(sd, strict=False, assign=True)
-    if missing:
-        raise KeyError(f"EVA vision state dict lacks {len(missing)} keys, "
-                       f"e.g. {missing[:3]}")
+    load_into(tower, sd, "EVA vision")
     if int8:
         blocks = nn.ModuleList(Int8Block(blk.to(device), dtype)
                                for blk in tower.blocks)

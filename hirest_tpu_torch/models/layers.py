@@ -1,12 +1,19 @@
-"""Activation functions of the EVA trunk.
+"""Shared building blocks of the EVA towers.
 
-Counterparts of hirest_tpu/models/layers.py `gelu` and `gelu_bf16_poly`.
+Counterparts of hirest_tpu/models/layers.py: `gelu`, `gelu_bf16_poly`,
+`causal_mask`, `dot_product_attention`, `split_heads`, `merge_heads` and
+`MultiHeadAttention` (its `fused` and `fused_qv_bias` modes, the EVA text
+and vision attentions), and `layer_norm_fast_var`, the arithmetic of the
+flax `nn.LayerNorm` that the JAX package's unrolled towers use.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,3 +44,110 @@ def gelu_bf16_poly(x: torch.Tensor) -> torch.Tensor:
     e = u.mul_(p).clamp_(-1.0, 1.0)
     # 0.5 * x * (1 + e): the halving is exact, so its position is free
     return e.add_(1.0).mul_(x32).mul_(0.5).to(x.dtype)
+
+
+def layer_norm_fast_var(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """flax `nn.LayerNorm(dtype=x.dtype)`: statistics in f32 with the fast
+    variance E[x^2] - E[x]^2 clipped at 0, (x - mean) * (rsqrt(var + eps) *
+    scale) + bias in f32, cast to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.float()
+    return ((x32 - mean) * mul + norm.bias.float()).to(x.dtype)
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """[1, 1, T, T] f32 additive causal bias: -inf above the diagonal."""
+    tri = torch.full((length, length), float("-inf"), device=device).triu(1)
+    return tri[None, None]
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor],
+                          scale: float) -> torch.Tensor:
+    """q, k, v [B, H, T, D] in the working dtype; bias broadcastable to
+    [B, H, Tq, Tk] or None. q is scaled in the working dtype, the scores
+    are f32 (the products of the working-dtype values, accumulated in f32)
+    plus the bias, the softmax is f32 and the probabilities are rounded to
+    the working dtype before PV."""
+    scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, T, H*D] -> the [B, H, T, D] view of it."""
+    return x.unflatten(-1, (num_heads, -1)).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, D] -> [B, T, H*D] (a view when x lies in [B, T, H, D]
+    memory, as the attention kernels' outputs do)."""
+    return x.transpose(1, 2).flatten(2)
+
+
+class MultiHeadAttention(nn.Module):
+    """Fused-qkv self-attention in two modes, with the reference's
+    parameter names:
+
+    - "fused" (the text tower, torch's nn.MultiheadAttention packing):
+      `in_proj_weight` [3*inner, dim], `in_proj_bias` [3*inner],
+      `out_proj`;
+    - "fused_qv_bias" (the vision tower, EVA_clip/vit_model.py:66-150):
+      `qkv` without bias, `q_bias` and `v_bias` added after the split in
+      the working dtype, `proj`.
+
+    Attention without a bias takes the kernels as the JAX module's
+    use_pallas path does: head width a multiple of 128 -> packed heads
+    (K7), else split heads (K6). With a bias (the text tower's causal mask)
+    it is the plain `dot_product_attention`, which the JAX package never
+    sends to a kernel."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 mode: str = "fused"):
+        super().__init__()
+        self.num_heads, self.head_dim, self.mode = num_heads, head_dim, mode
+        self.scale = head_dim ** -0.5
+        inner = num_heads * head_dim
+        if mode == "fused":
+            self.in_proj_weight = nn.Parameter(torch.zeros(3 * inner, dim))
+            self.in_proj_bias = nn.Parameter(torch.zeros(3 * inner))
+            self.out_proj = nn.Linear(inner, dim)
+        elif mode == "fused_qv_bias":
+            self.qkv = nn.Linear(dim, 3 * inner, bias=False)
+            self.q_bias = nn.Parameter(torch.zeros(inner))
+            self.v_bias = nn.Parameter(torch.zeros(inner))
+            self.proj = nn.Linear(inner, dim)
+        else:
+            raise ValueError(mode)
+
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # imported here: ops.attention and ops.quant import this module
+        from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                    fused_attention_packed)
+
+        if self.mode == "fused":
+            q, k, v = F.linear(x, self.in_proj_weight).chunk(3, -1)
+            qb, kb, vb = self.in_proj_bias.chunk(3)
+            q, k, v = q + qb, k + kb, v + vb
+            out_proj = self.out_proj
+        else:
+            q, k, v = self.qkv(x).chunk(3, -1)
+            q, v = q + self.q_bias, v + self.v_bias
+            out_proj = self.proj
+        h = self.num_heads
+        if bias is None and self.head_dim % 128 == 0:
+            out = fused_attention_packed(q, k, v, self.scale, h)
+        elif bias is None:
+            out = merge_heads(fused_attention(
+                split_heads(q, h), split_heads(k, h), split_heads(v, h),
+                self.scale))
+        else:
+            out = merge_heads(dot_product_attention(
+                split_heads(q, h), split_heads(k, h), split_heads(v, h),
+                bias, self.scale))
+        return out_proj(out)

@@ -1,11 +1,21 @@
-"""Fused-qkv attention for the EVA vision trunk.
+"""Attention kernels of the EVA vision towers.
 
-Counterpart of hirest_tpu/ops/attention.py::fused_attention_qkv3 (v3), with
-its pad-key mask (n_real) and its int8 epilogue (quant_out).
-`fused_attention_qkv3` launches the hand-written CUDA kernel
-`csrc/attention_qkv3.cu` on a CUDA tensor: K1 for bf16 output, K3 for int8
-codes and row scales. It takes the plain PyTorch version
-`fused_attention_qkv3_ref` only for a tensor on the CPU.
+Counterparts of hirest_tpu/ops/attention.py:
+
+- `fused_attention_qkv3` (v3), with its pad-key mask (n_real) and its int8
+  epilogue (quant_out): the scanned trunk. It launches the CUDA kernel
+  `csrc/attention_qkv3.cu` on a CUDA tensor: K1 for bf16 output, K3 for
+  int8 codes and row scales.
+- `fused_attention` (`_pallas_attention`, K6) over split heads
+  [B, H, S, D] and `fused_attention_packed` (`_pallas_attention_packed`,
+  K7) over packed [B, S, H*D]: the unrolled tower, at the native and the
+  padded head width. Both launch `csrc/attention_split.cu`, one kernel
+  that takes strides, so the head views cost no copy.
+
+Each takes its plain PyTorch version (`*_ref`) only for a tensor on the
+CPU. Their softmaxes differ, as the TPU kernels' do: v3 rounds the
+unnormalised exp2 probabilities to the input dtype and divides after PV;
+K6 and K7 scale the f32 scores, normalise p in f32 and then round it.
 """
 
 from __future__ import annotations
@@ -14,11 +24,13 @@ import ctypes
 
 import torch
 
+from hirest_tpu_torch.models.layers import merge_heads, split_heads
 from hirest_tpu_torch.ops import build
 from hirest_tpu_torch.ops.quant import dyn_quant_rows
 
 LOG2E = 1.4426950408889634
-KERNEL_HEAD_WIDTH = 88  # head width the CUDA kernel is instantiated for
+QKV3_HEAD_WIDTHS = (88, 128)  # head widths attention_qkv3.cu is built for
+SPLIT_HEAD_WIDTHS = (64, 88, 128)  # and attention_split.cu
 
 
 def _split(qkv_biased: torch.Tensor, num_heads: int):
@@ -55,6 +67,14 @@ def fused_attention_qkv3_ref(qkv_biased: torch.Tensor, scale: float,
     return o.to(qkv_biased.dtype)
 
 
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {x.device}")
+    return True
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = build.load("attention_qkv3")
     ints = [ctypes.c_int] * 5  # B, S, H, D, n_keys
@@ -76,15 +96,13 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
     when n_real > 0.
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with head width 88 and launches the kernel on the current stream;
+    bf16 with head width 88 or 128 (padded heads) and launches the kernel
+    on the current stream;
     anything else raises. `fused_attention_qkv3.launches` counts bf16-out
     launches (K1), `fused_attention_qkv3.quant_launches` int8-out ones (K3)."""
-    if qkv_biased.device.type == "cpu":
+    if not _on_cuda(qkv_biased):
         return fused_attention_qkv3_ref(qkv_biased, scale, num_heads,
                                         quant_out=quant_out, n_real=n_real)
-    if qkv_biased.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device "
-                         f"{qkv_biased.device}")
     if qkv_biased.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got "
                          f"{tuple(qkv_biased.shape)}")
@@ -92,9 +110,9 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
     if qkv_biased.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bfloat16, got "
                         f"{qkv_biased.dtype}")
-    if d != KERNEL_HEAD_WIDTH:
-        raise ValueError(f"the CUDA kernel is built for head width "
-                         f"{KERNEL_HEAD_WIDTH}, got {d}")
+    if d not in QKV3_HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel is built for head widths "
+                         f"{QKV3_HEAD_WIDTHS}, got {d}")
     if not qkv_biased.is_contiguous() or qkv_biased.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     if n_real < 0:
@@ -129,3 +147,125 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
 
 fused_attention_qkv3.launches = 0
 fused_attention_qkv3.quant_launches = 0
+
+
+# --- K6 and K7: softmax attention over split or packed heads ---------------
+
+
+def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, key_mask=None) -> torch.Tensor:
+    """Plain PyTorch version of `fused_attention`: q [B, H, Sq, D], k/v
+    [B, H, Sk, D] -> [B, H, Sq, D] in q's dtype, as the Pallas bodies
+    compute it: f32 scores q k^T multiplied by scale, keys whose mask is 0
+    set to -1e30, exp(s - rowmax) / rowsum in f32, p rounded to the input
+    dtype, f32 PV, the output rounded to the input dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if key_mask is not None:
+        valid = (key_mask > 0).to(s.device)[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(q.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def fused_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, scale: float, num_heads: int,
+                               key_mask=None) -> torch.Tensor:
+    """Plain version of `fused_attention_packed`: q [B, Sq, H*D], k/v
+    [B, Sk, H*D] -> [B, Sq, H*D], per head as `fused_attention_ref`."""
+    q, k, v = (split_heads(t, num_heads) for t in (q, k, v))
+    return merge_heads(fused_attention_ref(q, k, v, scale, key_mask))
+
+
+def _split_lib() -> ctypes.CDLL:
+    lib = build.load("attention_split")
+    lib.hirest_attention_split.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+    lib.hirest_attention_split.restype = ctypes.c_int
+    return lib
+
+
+def _launch_split(q, k, v, key_mask, out, scale: float) -> None:
+    """Launch attention_split.cu on [B, H, S, D] views (any batch, head and
+    row strides, unit last stride) into the [B, H, Sq, D] view `out`."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if k.shape != (b, h, sk, d) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not make one attention")
+    for t in (q, k, v):
+        if t.device != q.device or t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bfloat16 q, k and v on "
+                            f"one device, got {t.dtype} on {t.device}")
+        if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError("q, k and v need a unit last stride, the other "
+                             "strides a multiple of 8 and 16-byte alignment")
+    if d not in SPLIT_HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel is built for head widths "
+                         f"{SPLIT_HEAD_WIDTHS}, got {d}")
+    mask = None
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (b, sk):
+            raise ValueError(f"key_mask must be [B, Sk] = {(b, sk)}, got "
+                             f"{tuple(key_mask.shape)}")
+        mask = key_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    lib = _split_lib()
+    with torch.cuda.device(q.device):
+        err = lib.hirest_attention_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            b, h, sq, sk, d, strides, scale,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "attention_split launch")
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, key_mask=None) -> torch.Tensor:
+    """Softmax attention over split heads: q [B, H, Sq, D], k/v
+    [B, H, Sk, D], key_mask [B, Sk] or None (nonzero marks a valid key)
+    -> [B, H, Sq, D] in q's dtype (K6).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
+    bf16 views with a unit last stride, head width 64, 88 or 128, Sk up to
+    what shared memory holds (592 keys at d=88, 432 at d=128); anything
+    else raises. The output lies in [B, Sq, H, D] memory, so merging the
+    heads back is a view. `fused_attention.launches` counts launches."""
+    if not _on_cuda(q):
+        return fused_attention_ref(q, k, v, scale, key_mask)
+    if q.dim() != 4:
+        raise ValueError(f"expected [B, H, Sq, D], got {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    _launch_split(q, k, v, key_mask, out, scale)
+    fused_attention.launches += 1
+    return out
+
+
+def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, num_heads: int,
+                           key_mask=None) -> torch.Tensor:
+    """Softmax attention over packed heads: q [B, Sq, H*D], k/v
+    [B, Sk, H*D] -> [B, Sq, H*D] (K7), the function of `fused_attention`
+    with the heads left in place. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel under `fused_attention`'s conditions.
+    `fused_attention_packed.launches` counts launches."""
+    if not _on_cuda(q):
+        return fused_attention_packed_ref(q, k, v, scale, num_heads,
+                                          key_mask)
+    if q.dim() != 3 or q.shape[-1] % num_heads:
+        raise ValueError(f"expected [B, Sq, {num_heads} heads * D], got "
+                         f"{tuple(q.shape)}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    q, k, v, o = (split_heads(t, num_heads) for t in (q, k, v, out))
+    _launch_split(q, k, v, key_mask, o, scale)
+    fused_attention_packed.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+fused_attention_packed.launches = 0

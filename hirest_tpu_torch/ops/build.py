@@ -2,8 +2,9 @@
 
 Each source `csrc/<name>.cu` exposes a plain C interface and compiles on its
 own into `build/kernels/lib<name>-<digest>.so` at the repository root (a
-directory git ignores). The digest covers the source and the flags, so an
-edited source is rebuilt and never served from a stale library. Nothing is
+directory git ignores). The digest covers the source, the shared headers
+`csrc/*.cuh` and the flags, so an edited source or header is rebuilt and
+never served from a stale library. Nothing is
 built when a module is imported: the first launch builds, or a caller that
 wants the build timed on its own calls `build()` first.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_qkv3", "ln_quant", "fused_mlp_int8")
+SOURCES = ("attention_qkv3", "attention_split", "ln_quant", "fused_mlp_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

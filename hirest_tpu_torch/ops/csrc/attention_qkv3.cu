@@ -21,7 +21,9 @@
 // qkv [128, 257, 4224] bf16 (278 MB) and writes [128, 257, 1408] bf16
 // (93 MB; K3: 46 MB of int8 and 0.13 MB of scales): 111 us (K3: 97 us) at
 // 3.35 TB/s, against 48 us for its 47.6 GFLOP of QK^T and PV at the
-// 989 TFLOP/s dense bf16 rate. It is bound by memory.
+// 989 TFLOP/s dense bf16 rate. It is bound by memory. At the padded head
+// width (models/eva_pad.py: H=16, D=128) it reads 404 MB and writes 135 MB
+// (K3: 67 MB of int8): 161 us (K3: 141 us), against 70 us for 69.3 GFLOP.
 //
 // Design (simple first version; no TMA, wgmma or pipelining):
 // - One block per (b, h), 8 warps. The block stages k_h row-major and v_h
@@ -29,7 +31,8 @@
 //   an SM), so each byte of qkv is read from device memory once and each
 //   output byte written once: the traffic is the bound's.
 // - Each warp walks 16-row query tiles. Its q fragments come straight from
-//   device memory into registers; d is zero-padded from 88 to 96.
+//   device memory into registers; d is zero-padded from 88 to 96. At
+//   d=128 K and V^T take 145,664 bytes, so one block fits on an SM.
 // - QK^T and PV run on the tensor cores with mma.sync m16n8k16 (bf16 in,
 //   f32 accumulate). The row max is taken in a first pass over all keys and
 //   the scores are recomputed in the second pass, so p is rounded to bf16
@@ -50,22 +53,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-
-template <int D>
-struct Tile {
-  static_assert(D % 8 == 0, "head width must be a multiple of 8");
-  static constexpr int kChunks = (D + 15) / 16;  // k-steps of QK^T over d
-  static constexpr int kDPad = kChunks * 16;     // d zero-padded for QK^T
-  static constexpr int kKStride = kDPad + 8;     // bank-conflict-free rows
-  static constexpr int kOTiles = D / 8;          // n-tiles of the PV product
-  static constexpr int kVecs = D / 8;            // 16-byte vectors per slice
-};
-
-__host__ __device__ constexpr int round_up16(int x) { return (x + 15) & ~15; }
 
 template <int D>
 size_t smem_bytes(int S) {
@@ -74,46 +67,15 @@ size_t smem_bytes(int S) {
          ((size_t)s_pad * Tile<D>::kKStride + (size_t)D * (s_pad + 8));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One 16x8 tile of scores: query rows of the warp's tile against keys
-// [8*nt, 8*nt + 8). Lane (g, t) holds rows g and g+8, keys 2t and 2t+1.
-template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[4],
-                                        const uint32_t (&qa)[Tile<D>::kChunks][4],
-                                        const __nv_bfloat16* ks, int nt, int g,
-                                        int t) {
-  s[0] = s[1] = s[2] = s[3] = 0.f;
-  const __nv_bfloat16* krow = ks + (nt * 8 + g) * Tile<D>::kKStride + 2 * t;
-#pragma unroll
-  for (int kc = 0; kc < Tile<D>::kChunks; ++kc)
-    mma_bf16(s, qa[kc], ld_u32(krow + kc * 16), ld_u32(krow + kc * 16 + 8));
-}
-
 __device__ __forceinline__ __nv_bfloat16 prob(float s, float m, float c,
                                               bool valid) {
   return __float2bfloat16_rn(valid ? exp2f((s - m) * c) : 0.f);
 }
 
+// Two blocks an SM at d=88 (105,856 bytes of shared memory each); at d=128
+// one block fits, which leaves it all 255 registers.
 template <int D, bool kQuant>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 96 ? 1 : 2)
     attention_qkv3_kernel(const __nv_bfloat16* __restrict__ qkv,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ ws,
@@ -128,29 +90,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hd = H * D;
-  const size_t row_stride = 3 * (size_t)hd;
+  const long long row_stride = 3 * (long long)hd;
   const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
   const __nv_bfloat16* qg = base + h * D;
   const __nv_bfloat16* kg = base + hd + h * D;
   const __nv_bfloat16* vg = base + 2 * hd + h * D;
 
   // Stage k_h (row-major, keys S..s_pad zero) and v_h^T (keys S..s_pad zero).
-  for (int i = threadIdx.x; i < s_pad * T::kVecs; i += kThreads) {
-    const int r = i / T::kVecs, v = i % T::kVecs;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < S) {
-      kv = *reinterpret_cast<const uint4*>(kg + r * row_stride + v * 8);
-      vv = *reinterpret_cast<const uint4*>(vg + r * row_stride + v * 8);
-    }
-    *reinterpret_cast<uint4*>(ks + r * T::kKStride + v * 8) = kv;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vt[(v * 8 + j) * vt_stride + r] = ve[j];
-  }
-  // Zero k_h's padded columns D..kKStride (QK^T reads up to kDPad).
-  constexpr int kPadCols = T::kKStride - D;
-  for (int i = threadIdx.x; i < s_pad * kPadCols; i += kThreads)
-    ks[(i / kPadCols) * T::kKStride + D + i % kPadCols] = __float2bfloat16(0.f);
+  stage_kv<D, kThreads>(ks, vt, kg, row_stride, vg, row_stride, S, s_pad,
+                        vt_stride);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -161,14 +109,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int r0 = qt * 16 + g, r1 = r0 + 8;
     // q fragments (A operand, row-major 16x16 per d-chunk), zero past S / D.
     uint32_t qa[T::kChunks][4];
-#pragma unroll
-    for (int kc = 0; kc < T::kChunks; ++kc) {
-      const int c0 = kc * 16 + 2 * t, c1 = c0 + 8;
-      qa[kc][0] = (r0 < S && c0 < D) ? ld_u32(qg + r0 * row_stride + c0) : 0u;
-      qa[kc][1] = (r1 < S && c0 < D) ? ld_u32(qg + r1 * row_stride + c0) : 0u;
-      qa[kc][2] = (r0 < S && c1 < D) ? ld_u32(qg + r0 * row_stride + c1) : 0u;
-      qa[kc][3] = (r1 < S && c1 < D) ? ld_u32(qg + r1 * row_stride + c1) : 0u;
-    }
+    load_q<D>(qa, qg, row_stride, r0, S, t);
 
     // Pass 1: row max over the real keys.
     float m0 = -INFINITY, m1 = -INFINITY;
@@ -296,35 +237,50 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) s[row] = sc;
 }
 
-template <bool kQuant>
+template <int D, bool kQuant>
 cudaError_t launch_attention(const void* qkv, void* out, float* ws,
                              unsigned int* rowmax, int B, int S, int H,
                              int n_keys, float c, cudaStream_t stream) {
-  const size_t smem = smem_bytes<88>(S);
+  const size_t smem = smem_bytes<D>(S);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_qkv3_kernel<88, kQuant>,
+      attention_qkv3_kernel<D, kQuant>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  attention_qkv3_kernel<88, kQuant><<<B * H, kThreads, smem, stream>>>(
+  attention_qkv3_kernel<D, kQuant><<<B * H, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<__nv_bfloat16*>(out), ws, rowmax, S, H, n_keys, c);
   return cudaGetLastError();
 }
 
+// The head widths the kernel is built for: EVA-g's 88, and 128 for the
+// padded heads of models/eva_pad.py.
+template <bool kQuant>
+cudaError_t launch_attention(const void* qkv, void* out, float* ws,
+                             unsigned int* rowmax, int B, int S, int H, int D,
+                             int n_keys, float c, cudaStream_t stream) {
+  if (D == 88)
+    return launch_attention<88, kQuant>(qkv, out, ws, rowmax, B, S, H, n_keys,
+                                        c, stream);
+  return launch_attention<128, kQuant>(qkv, out, ws, rowmax, B, S, H, n_keys,
+                                       c, stream);
+}
+
 bool bad_shape(int B, int S, int H, int D, int n_keys) {
-  return D != 88 || B <= 0 || S <= 0 || H <= 0 || n_keys <= 0 || n_keys > S;
+  return (D != 88 && D != 128) || B <= 0 || S <= 0 || H <= 0 || n_keys <= 0 ||
+         n_keys > S;
 }
 
 }  // namespace
 
-// qkv [B, S, 3*H*D] bf16 contiguous, biases pre-added; out [B, S, H*D] bf16.
+// qkv [B, S, 3*H*D] bf16 contiguous, biases pre-added, D = 88 or 128;
+// out [B, S, H*D] bf16.
 // Keys >= n_keys (1 <= n_keys <= S) are left out. c = scale * log2(e).
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int hirest_attention_qkv3_bf16(const void* qkv, void* out, int B,
                                           int S, int H, int D, int n_keys,
                                           float c, void* stream) {
   if (bad_shape(B, S, H, D, n_keys)) return (int)cudaErrorInvalidValue;
-  return (int)launch_attention<false>(qkv, out, nullptr, nullptr, B, S, H,
+  return (int)launch_attention<false>(qkv, out, nullptr, nullptr, B, S, H, D,
                                       n_keys, c, (cudaStream_t)stream);
 }
 
@@ -341,7 +297,7 @@ extern "C" int hirest_attention_qkv3_quant(const void* qkv, void* ws,
   cudaError_t err = cudaMemsetAsync(rowmax, 0, sizeof(unsigned int) * rows, st);
   if (err != cudaSuccess) return (int)err;
   err = launch_attention<true>(qkv, nullptr, static_cast<float*>(ws),
-                               static_cast<unsigned int*>(rowmax), B, S, H,
+                               static_cast<unsigned int*>(rowmax), B, S, H, D,
                                n_keys, c, st);
   if (err != cudaSuccess) return (int)err;
   attention_quant_rows_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(

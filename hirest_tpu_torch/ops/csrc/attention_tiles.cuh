@@ -1,0 +1,96 @@
+// Tensor-core pieces shared by the attention kernels (attention_qkv3.cu,
+// attention_split.cu): mma.sync m16n8k16 bf16 with f32 accumulation, the
+// shared-memory layout of a staged head, and one 16x8 tile of QK^T.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+template <int D>
+struct Tile {
+  static_assert(D % 8 == 0, "head width must be a multiple of 8");
+  static constexpr int kChunks = (D + 15) / 16;  // k-steps of QK^T over d
+  static constexpr int kDPad = kChunks * 16;     // d zero-padded for QK^T
+  static constexpr int kKStride = kDPad + 8;     // bank-conflict-free rows
+  static constexpr int kOTiles = D / 8;          // n-tiles of the PV product
+  static constexpr int kVecs = D / 8;            // 16-byte vectors per slice
+};
+
+__host__ __device__ constexpr int round_up16(int x) { return (x + 15) & ~15; }
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One 16x8 tile of scores: query rows of the warp's tile against keys
+// [8*nt, 8*nt + 8) of k staged row-major with row stride Tile<D>::kKStride.
+// Lane (g, t) holds rows g and g+8, keys 2t and 2t+1.
+template <int D>
+__device__ __forceinline__ void qk_tile(float (&s)[4],
+                                        const uint32_t (&qa)[Tile<D>::kChunks][4],
+                                        const __nv_bfloat16* ks, int nt, int g,
+                                        int t) {
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+  const __nv_bfloat16* krow = ks + (nt * 8 + g) * Tile<D>::kKStride + 2 * t;
+#pragma unroll
+  for (int kc = 0; kc < Tile<D>::kChunks; ++kc)
+    mma_bf16(s, qa[kc], ld_u32(krow + kc * 16), ld_u32(krow + kc * 16 + 8));
+}
+
+// Load the A fragments of a 16-row query tile (rows r0 and r0 + 8 of this
+// lane, row stride `rs`), zero past `rows` and past D.
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[Tile<D>::kChunks][4],
+                                       const __nv_bfloat16* qg, long long rs,
+                                       int r0, int rows, int t) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int kc = 0; kc < Tile<D>::kChunks; ++kc) {
+    const int c0 = kc * 16 + 2 * t, c1 = c0 + 8;
+    qa[kc][0] = (r0 < rows && c0 < D) ? ld_u32(qg + r0 * rs + c0) : 0u;
+    qa[kc][1] = (r1 < rows && c0 < D) ? ld_u32(qg + r1 * rs + c0) : 0u;
+    qa[kc][2] = (r0 < rows && c1 < D) ? ld_u32(qg + r0 * rs + c1) : 0u;
+    qa[kc][3] = (r1 < rows && c1 < D) ? ld_u32(qg + r1 * rs + c1) : 0u;
+  }
+}
+
+// Stage one head's k (row-major, rows >= n zero) and v^T (columns >= n
+// zero) in shared memory, and zero k's padded columns D..kKStride. Row
+// strides ks_g / vs_g in elements; 16-byte aligned rows.
+template <int D, int kThreads>
+__device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
+                                         const __nv_bfloat16* kg, long long ks_g,
+                                         const __nv_bfloat16* vg, long long vs_g,
+                                         int n, int s_pad, int vt_stride) {
+  using T = Tile<D>;
+  for (int i = threadIdx.x; i < s_pad * T::kVecs; i += kThreads) {
+    const int r = i / T::kVecs, c = i % T::kVecs;
+    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+    if (r < n) {
+      kv = *reinterpret_cast<const uint4*>(kg + r * ks_g + c * 8);
+      vv = *reinterpret_cast<const uint4*>(vg + r * vs_g + c * 8);
+    }
+    *reinterpret_cast<uint4*>(ks + r * T::kKStride + c * 8) = kv;
+    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) vt[(c * 8 + j) * vt_stride + r] = ve[j];
+  }
+  constexpr int kPadCols = T::kKStride - D;
+  for (int i = threadIdx.x; i < s_pad * kPadCols; i += kThreads)
+    ks[(i / kPadCols) * T::kKStride + D + i % kPadCols] = __float2bfloat16(0.f);
+}

@@ -5,13 +5,14 @@ scale of the JAX package's `shape_only_init` (0.02); LayerNorm weights sit
 near 1. The tower-wide tensors are drawn first and the blocks after them in
 order, so a config with fewer layers gets the same weights as the first
 blocks of a deeper one (a depth-cut run checks the full model's weights).
+Key names are the EVA reference's, without the `visual.` or `text.` prefix.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from hirest_tpu_torch.config import EvaVisionConfig
+from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
 
 SCALE = 0.02
 
@@ -50,15 +51,57 @@ def eva_vision_shapes(cfg: EvaVisionConfig) -> dict:
     return shapes
 
 
-def random_eva_vision_state_dict(cfg: EvaVisionConfig = EvaVisionConfig(),
-                                 seed: int = 0) -> dict:
-    """Reference-named EVA vision state dict of float32 numpy arrays."""
+def eva_text_shapes(cfg: EvaTextConfig) -> dict:
+    """Reference key -> shape of every EVA text-tower tensor, tower-wide
+    tensors first, then blocks 0..layers-1."""
+    w, hidden = cfg.width, 4 * cfg.width
+    shapes = {
+        "token_embedding.weight": (cfg.vocab_size, w),
+        "positional_embedding": (cfg.context_length, w),
+        "ln_final.weight": (w,),
+        "ln_final.bias": (w,),
+        "text_projection": (w, cfg.embed_dim),
+    }
+    for i in range(cfg.layers):
+        r = f"transformer.resblocks.{i}"
+        shapes.update({
+            f"{r}.ln_1.weight": (w,),
+            f"{r}.ln_1.bias": (w,),
+            f"{r}.attn.in_proj_weight": (3 * w, w),
+            f"{r}.attn.in_proj_bias": (3 * w,),
+            f"{r}.attn.out_proj.weight": (w, w),
+            f"{r}.attn.out_proj.bias": (w,),
+            f"{r}.ln_2.weight": (w,),
+            f"{r}.ln_2.bias": (w,),
+            f"{r}.mlp.c_fc.weight": (hidden, w),
+            f"{r}.mlp.c_fc.bias": (hidden,),
+            f"{r}.mlp.c_proj.weight": (w, hidden),
+            f"{r}.mlp.c_proj.bias": (w,),
+        })
+    return shapes
+
+
+def _draw(shapes: dict, seed: int, norm_keys: tuple) -> dict:
     rng = np.random.default_rng(seed)
     sd = {}
-    for key, shape in eva_vision_shapes(cfg).items():
+    for key, shape in shapes.items():
         a = rng.standard_normal(shape, dtype=np.float32)
         a *= SCALE
-        if key.endswith(("norm.weight", "norm1.weight", "norm2.weight")):
+        if key.endswith(norm_keys):
             a += 1.0
         sd[key] = a
     return sd
+
+
+def random_eva_vision_state_dict(cfg: EvaVisionConfig = EvaVisionConfig(),
+                                 seed: int = 0) -> dict:
+    """Reference-named EVA vision state dict of float32 numpy arrays."""
+    return _draw(eva_vision_shapes(cfg), seed,
+                 ("norm.weight", "norm1.weight", "norm2.weight"))
+
+
+def random_eva_text_state_dict(cfg: EvaTextConfig = EvaTextConfig(),
+                               seed: int = 0) -> dict:
+    """Reference-named EVA text state dict of float32 numpy arrays."""
+    return _draw(eva_text_shapes(cfg), seed,
+                 ("ln_1.weight", "ln_2.weight", "ln_final.weight"))

@@ -1,6 +1,8 @@
-"""The port's K1 attention (hirest_tpu_torch/ops/attention.py) against the
-JAX package's fused_attention_qkv3 (Pallas, interpret mode) at the real
-EVA-g attention shape [2, 257, 4224], H=16, d=88.
+"""The port's attention kernels (hirest_tpu_torch/ops/attention.py) against
+the JAX package's Pallas kernels (interpret mode): K1 and K3
+(fused_attention_qkv3) at the real EVA-g attention shape [2, 257, 4224],
+H=16, d=88, and at the padded head width 128; K6 (fused_attention) and K7
+(fused_attention_packed) at the JAX package's own test shapes and EVA-g's.
 
 On the CPU the port's wrapper takes its plain version, so these tests hold
 the plain version's arithmetic against the TPU kernel's; the CUDA kernel is
@@ -13,9 +15,16 @@ import pytest
 import torch
 from torch_port_util import assert_codes_close
 
+from hirest_tpu.ops.attention import fused_attention as jax_fused_attention
+from hirest_tpu.ops.attention import \
+    fused_attention_packed as jax_fused_attention_packed
 from hirest_tpu.ops.attention import fused_attention_qkv3 as jax_qkv3
-from hirest_tpu_torch.ops.attention import (fused_attention_qkv3,
-                                            fused_attention_qkv3_ref)
+from hirest_tpu_torch.ops.attention import (fused_attention,
+                                            fused_attention_packed,
+                                            fused_attention_packed_ref,
+                                            fused_attention_qkv3,
+                                            fused_attention_qkv3_ref,
+                                            fused_attention_ref)
 
 B, S, H, D = 2, 257, 16, 88
 SCALE = D ** -0.5
@@ -134,3 +143,161 @@ def test_cpu_quant_call_counts_nothing():
     assert torch.equal(q, rq) and torch.equal(s, rs)
     assert (fused_attention_qkv3.launches,
             fused_attention_qkv3.quant_launches) == before
+
+
+# --- K1 and K3 at the padded head width -----------------------------------
+
+D128 = 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_v3_at_padded_head_width(dtype):
+    """K1's plain version at d=128 (heads padded by models/eva_pad.py)
+    against the JAX v3 kernel: f32 at 2e-5, bf16 at K1's bar."""
+    x = (np.random.default_rng(20).normal(size=(B, S, 3 * H * D128))
+         * 0.5).astype(np.float32)
+    scale = D128 ** -0.5
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jax_qkv3(jnp.asarray(x, jdt), scale, H,
+                               interpret=True).astype(jnp.float32))
+    got = fused_attention_qkv3(torch.from_numpy(x).to(tdt), scale, H)
+    assert got.shape == (B, S, H * D128)
+    tol = (2e-5, 2e-5) if dtype == "float32" else (2 ** -7, 2 ** -12)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol[0],
+                               atol=tol[1])
+
+
+def test_quant_out_plain_matches_jax_v3_at_padded_head_width():
+    """K3's plain version at d=128: scales within 2e-5, codes within one and
+    equal on 99.9 %, in f32."""
+    x = (np.random.default_rng(21).normal(size=(B, S, 3 * H * D128))
+         * 0.5).astype(np.float32)
+    scale = D128 ** -0.5
+    jq, js = jax_qkv3(jnp.asarray(x), scale, H, interpret=True,
+                      quant_out=True)
+    q, sc = fused_attention_qkv3(torch.from_numpy(x), scale, H,
+                                 quant_out=True)
+    np.testing.assert_allclose(sc.numpy(), np.asarray(js), rtol=2e-5)
+    assert_codes_close(q.numpy(), np.asarray(jq), 0.999)
+
+
+# --- K6 and K7: split-heads and packed-heads attention ---------------------
+
+# (B, H, Sq, Sk, D, valid keys or None): the JAX package's own test shapes
+# (tests/test_pallas_attention.py), the caption decoder's cross-attention
+# [2, 12, 48, 64] over 20 keys, and one real EVA-g head set
+SPLIT_CASES = {
+    "square": (2, 4, 17, 17, 8, None),
+    "masked": (2, 12, 48, 48, 64, 43),
+    "rectangular": (2, 12, 48, 20, 64, None),
+    "masked_rectangular": (2, 12, 48, 20, 64, 15),
+    "eva_g": (1, 16, 257, 257, 88, None),
+}
+PACKED_CASES = {**SPLIT_CASES, "eva_g_padded": (1, 16, 257, 257, 128, None)}
+
+
+def _split_inputs(case, seed):
+    b, h, sq, sk, d, n_valid = case
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, h, sk, d)).astype(np.float32)
+            for _ in range(2))
+    mask = None if n_valid is None else (
+        np.arange(sk) < n_valid)[None].repeat(b, 0).astype(np.int32)
+    return q, k, v, mask, d ** -0.5
+
+
+def _pack(x):
+    """[B, H, S, D] -> [B, S, H*D]."""
+    b, h, s, d = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3)).reshape(b, s, h * d)
+
+
+def _assert_attention_close(got, want, dtype):
+    """f32 within 2e-5, the JAX package's Pallas-vs-XLA bar
+    (test_pallas_attention.py); bf16 within one bf16 ulp of the output's
+    largest magnitude (p may round the other way at a bf16 boundary under
+    another summation order, and the output rounds once to bf16)."""
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got, want, rtol=0, atol=ulp)
+
+
+def _dtypes(dtype):
+    return ((jnp.float32, torch.float32) if dtype == "float32"
+            else (jnp.bfloat16, torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_heads_plain_matches_jax_pallas(case, dtype):
+    """K6's plain version against the JAX Pallas kernel `fused_attention`
+    (interpret mode)."""
+    q, k, v, mask, scale = _split_inputs(SPLIT_CASES[case], seed=30)
+    jdt, tdt = _dtypes(dtype)
+    want = jax_fused_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), scale,
+        key_mask=None if mask is None else jnp.asarray(mask),
+        use_pallas=True, interpret=True).astype(jnp.float32)
+    got = fused_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                          scale, None if mask is None
+                          else torch.from_numpy(mask))
+    assert got.dtype == tdt and got.shape == q.shape
+    _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(PACKED_CASES))
+def test_packed_heads_plain_matches_jax_pallas(case, dtype):
+    """K7's plain version against the JAX Pallas kernel
+    `fused_attention_packed` (interpret mode)."""
+    q, k, v, mask, scale = _split_inputs(PACKED_CASES[case], seed=31)
+    h = q.shape[1]
+    q, k, v = _pack(q), _pack(k), _pack(v)
+    jdt, tdt = _dtypes(dtype)
+    want = jax_fused_attention_packed(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), scale, h,
+        key_mask=None if mask is None else jnp.asarray(mask),
+        use_pallas=True, interpret=True).astype(jnp.float32)
+    got = fused_attention_packed(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), scale, h,
+        None if mask is None else torch.from_numpy(mask))
+    assert got.dtype == tdt and got.shape == q.shape
+    _assert_attention_close(got, want, dtype)
+
+
+def test_split_and_packed_are_one_function():
+    """K7 is K6 with the heads left in place; the mask matters; a query
+    tile whose keys are all masked attends uniformly, as -1e30 gives."""
+    q, k, v, mask, scale = _split_inputs(SPLIT_CASES["masked_rectangular"],
+                                         seed=32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tm = torch.from_numpy(mask)
+    split = fused_attention(tq, tk, tv, scale, tm)
+    packed = fused_attention_packed(*(torch.from_numpy(_pack(a))
+                                      for a in (q, k, v)), scale, q.shape[1],
+                                    tm)
+    torch.testing.assert_close(packed, split.transpose(1, 2).flatten(2),
+                               rtol=0, atol=0)
+    assert (split - fused_attention(tq, tk, tv, scale)).abs().max() > 1e-3
+    none = fused_attention(tq, tk, tv, scale, torch.zeros_like(tm))
+    torch.testing.assert_close(none, tv.mean(2, keepdim=True).expand_as(none),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_split_cpu_calls_take_plain_versions_without_counting():
+    q, k, v, mask, scale = _split_inputs(SPLIT_CASES["square"], seed=33)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    before = (fused_attention.launches, fused_attention_packed.launches)
+    assert torch.equal(fused_attention(tq, tk, tv, scale),
+                       fused_attention_ref(tq, tk, tv, scale))
+    pq, pk, pv = (torch.from_numpy(_pack(a)) for a in (q, k, v))
+    assert torch.equal(fused_attention_packed(pq, pk, pv, scale, 4),
+                       fused_attention_packed_ref(pq, pk, pv, scale, 4))
+    assert (fused_attention.launches,
+            fused_attention_packed.launches) == before

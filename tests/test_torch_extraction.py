@@ -10,6 +10,7 @@ from torch_port_util import TINY224, configs, eva_state_dict, jax_params
 
 from hirest_tpu.extraction.features import \
     extract_video_features as jax_extract
+from hirest_tpu.models.eva_clip import EvaVisionTower as FlaxEvaVisionTower
 from hirest_tpu.models.eva_clip import preprocess_image as jax_preprocess
 from hirest_tpu.models.eva_scan import \
     build_scanned_vision_apply as jax_build
@@ -125,3 +126,47 @@ def test_int8_encoder_writes_jax_int8_features(frames_and_ckpt):
                                    rtol=1e-5)
         np.testing.assert_allclose(got, np.load(root / "jax8" / f"{vid}.npy"),
                                    rtol=2e-3, atol=2e-3)
+
+
+def test_unrolled_encoder_writes_flax_tower_features(frames_and_ckpt):
+    """make_eva_encoder(scan=False) on the CPU writes the features of the
+    JAX package's unrolled flax tower (use_pallas=True, K6 in interpret
+    mode) at 2e-4; int8 is ignored on that path, as in the JAX encoder."""
+    root, sd = frames_and_ckpt
+    jcfg, tcfg = configs(TINY224)
+    tower = FlaxEvaVisionTower(jcfg, use_pallas=True, interpret=True)
+    params = jax_params(sd, TINY224)
+    jax_extract(str(root / "frames"), str(root / "jax_unrolled"),
+                lambda im: tower.apply(params, jnp.asarray(im)),
+                jax_preprocess, batch_size=4)
+    enc, pre = make_eva_encoder(str(root / "pre"), dtype_name="float32",
+                                scan=False, int8=True, device="cpu",
+                                cfg=tcfg)
+    out = root / "port_unrolled"
+    assert extract_video_features(str(root / "frames"), str(out), enc, pre,
+                                  batch_size=4) == 2
+    for vid in FRAMES:
+        np.testing.assert_allclose(
+            np.load(out / f"{vid}.npy"),
+            np.load(root / "jax_unrolled" / f"{vid}.npy"), rtol=2e-4,
+            atol=2e-4)
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scanned", "unrolled"])
+def test_padded_heads_encoder_writes_the_same_features(frames_and_ckpt,
+                                                       scan):
+    """padded_heads=True (heads 32 -> 128 here) is an identity: the same
+    features as the unpadded encoder at 2e-5, f32."""
+    root, _ = frames_and_ckpt
+    tcfg = configs(TINY224)[1]
+    feats = {}
+    for padded in (False, True):
+        enc, pre = make_eva_encoder(str(root / "pre"), dtype_name="float32",
+                                    padded_heads=padded, scan=scan,
+                                    device="cpu", cfg=tcfg)
+        out = root / f"padded_{padded}_{scan}"
+        extract_video_features(str(root / "frames"), str(out), enc, pre,
+                               batch_size=8, video_ids=["v1"])
+        feats[padded] = np.load(out / "v1.npy")
+    np.testing.assert_allclose(feats[True], feats[False], rtol=2e-5,
+                               atol=2e-5)

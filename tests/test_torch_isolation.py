@@ -1,7 +1,8 @@
 """The port stands alone: every hirest_tpu_torch module imports and tiny
-bf16 and int8 forwards run with jax and flax blocked, without loading any
-hirest_tpu module; its entry points refuse to fall back to the CPU on their
-own; and chip_smoke.py refuses to report success where there is no GPU."""
+bf16, int8, unrolled and text forwards run with jax and flax blocked,
+without loading any hirest_tpu module; its entry points refuse to fall back
+to the CPU on their own; and chip_smoke.py refuses to report success where
+there is no GPU."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from hirest_tpu_torch.extraction.features import make_eva_encoder
+from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
 from hirest_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -27,7 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(hirest_tpu_torch.__path__,
                                                "hirest_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-from hirest_tpu_torch.config import EvaVisionConfig
+from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
+from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
 from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
 from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
 cfg = EvaVisionConfig(image_size=28, layers=2, width=64, head_width=16,
@@ -35,6 +38,13 @@ cfg = EvaVisionConfig(image_size=28, layers=2, width=64, head_width=16,
 outs = [build_scanned_vision_apply(random_eva_vision_state_dict(cfg), cfg,
                                    int8=int8, device="cpu")(
             np.zeros((2, 28, 28, 3))) for int8 in (False, True)]
+tcfg = EvaTextConfig(context_length=8, vocab_size=50, width=32, heads=2,
+                     layers=1, embed_dim=32)
+model, _ = build_eva_model_and_transforms(text_config=tcfg,
+                                          vision_config=cfg, scan=False,
+                                          device="cpu")
+outs += [model.encode_image(np.zeros((2, 28, 28, 3))),
+         model.encode_text(np.array([[3, 49, 0, 0, 0, 0, 0, 0]] * 2))]
 loaded = [m for m in sys.modules
           if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
 print(json.dumps({"modules": names,
@@ -57,9 +67,11 @@ def test_port_imports_and_runs_without_jax():
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
-    assert got["shapes"] == [[2, 32], [2, 32]] and got["finite"]
+    assert got["shapes"] == [[2, 32]] * 4 and got["finite"]
     for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
                 "hirest_tpu_torch.ops.quant",
+                "hirest_tpu_torch.models.eva_clip",
+                "hirest_tpu_torch.models.eva_pad",
                 "hirest_tpu_torch.models.eva_scan",
                 "hirest_tpu_torch.extraction.features",
                 "hirest_tpu_torch.data.prefetch"):
@@ -82,6 +94,13 @@ def test_encoder_refuses_cpu_fallback(monkeypatch, tmp_path, int8):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eva_encoder(str(tmp_path), int8=int8)
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_factory_refuses_cpu_fallback(monkeypatch, scan):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_eva_model_and_transforms(scan=scan)
 
 
 def test_chip_smoke_fails_without_gpu():
