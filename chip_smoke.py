@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (hirest_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py      # needs one CUDA GPU and nvcc
+    python3 chip_smoke.py                 # needs one CUDA GPU and nvcc
+    python3 chip_smoke.py --kernels-only  # build and kernels phases only
+    python3 chip_smoke.py --time-attention  # K1, K6 and K7 ms alone
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -14,7 +16,11 @@ Phases; any failure exits non-zero before the result line is printed:
             both activations), K6 (split heads [B, 16, 257, 88] as views of
             one qkv projection, and a masked [2, 12, 48, 64] over 20 keys)
             and K7 (packed [B, 257, 16 * 128], and a masked 48 x 20-key
-            shape), B = 2 and 128, M = 257 B.
+            shape), K5 (act_quant, [M, 6144] with both GELUs and
+            [M, 1408] without one), K8 (v1, [B, 257, 4224] with nonzero
+            q/v biases, bf16 and int8 out), K9 (v2, bf16 and int8 out, and
+            int8 padded to S = 264 with n_real = 257) and K10 (ln_bf16,
+            [M, 1408]), B = 2 and 128, M = 257 B.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -31,18 +37,27 @@ Phases; any failure exits non-zero before the result line is printed:
             128) and padded scanned int8 (80 K2, 40 K3 at 128, 40 K4), each
             with the counts zeroed before and read after, and no other
             kernel launched.
-5. depth    the same weights cut to 2 layers, on the card in bf16 against the
+5. ladder   the kernel flag configurations of build_scanned_vision_apply
+            (bench.py's ladder without its TPU layout flags) at full width
+            on one staged bf16 and one staged int8 tower: bf16 (v1, K8),
+            bf16+v2 (K9), bf16+v3+lnk (K1, K10), int8 dyn (K8), int8+fq
+            (K2, K5, K8 int8), int8+fq+v2 (K2, K5, K9 int8) and int8+fq+v3
+            (K2, K3, K5), two forwards each with the counts zeroed before
+            and read after; each one's 2-layer cut on the card against the
+            CPU f32 path with the same flags.
+6. depth    the same weights cut to 2 layers, on the card in bf16 against the
             plain path on the CPU in f32: bf16 vs float at cosine >= 0.99;
             int8 vs int8 at >= 0.99 and int8 vs float at >= 0.98; the text
             tower, the unrolled tower, and the padded unrolled and padded
             scanned towers against the unpadded CPU paths at >= 0.99.
-6. timing   frames/s at B=128 for every encoder and factory forward, text
-            prompts/s, and each kernel's ms per call beside its plain
-            version, one library call computing the same function (or its
-            int8 products, for K4), and the card's bound.
-7. profile  where one forward's device time goes, by group of kernels, and
-            the device's idle share, for each precision and for the
-            unrolled towers; each plain per-layer op timed alone.
+7. timing   frames/s at B=128 for every encoder, factory and ladder
+            forward, text prompts/s, and each kernel's ms per call beside
+            its plain version, one library call computing the same function
+            (or its int8 products, for K4), and the card's bound.
+8. profile  where one forward's device time goes, by group of kernels, and
+            the device's idle share, for each precision, the unrolled
+            towers and the ladder's bf16 (K8) and int8+fq+v3 (K5) forwards;
+            each plain per-layer op timed alone.
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -128,15 +143,24 @@ def counters() -> dict:
     """Kernel -> (wrapper, attribute) of its launch count."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv2,
                                                 fused_attention_qkv3)
-    from hirest_tpu_torch.ops.quant import fused_mlp_int8, ln_quant
+    from hirest_tpu_torch.ops.quant import (act_quant, fused_mlp_int8,
+                                            ln_bf16, ln_quant)
 
     return {"K1": (fused_attention_qkv3, "launches"),
             "K2": (ln_quant, "launches"),
             "K3": (fused_attention_qkv3, "quant_launches"),
             "K4": (fused_mlp_int8, "launches"),
+            "K5": (act_quant, "launches"),
             "K6": (fused_attention, "launches"),
-            "K7": (fused_attention_packed, "launches")}
+            "K7": (fused_attention_packed, "launches"),
+            "K8": (fused_attention_qkv, "launches"),
+            "K8q": (fused_attention_qkv, "quant_launches"),
+            "K9": (fused_attention_qkv2, "launches"),
+            "K9q": (fused_attention_qkv2, "quant_launches"),
+            "K10": (ln_bf16, "launches")}
 
 
 def expect(**per_forward) -> dict:
@@ -232,6 +256,22 @@ def check_codes(tag: str, got, want, min_equal: float, scale_rel: float):
     return err
 
 
+def biases(hd: int, seed: int):
+    """Nonzero q and v biases [hd], of the qkv values' size."""
+    g = gen(seed)
+    return [(torch.randn(hd, generator=g, device="cuda") * 0.5).bfloat16()
+            for _ in range(2)]
+
+
+def fc1_inputs(m: int, seed: int, c: int = 6144):
+    """What the int8 MLP hands act_quant: an fc1 output with a per-row
+    spread (or, at c = 1408, an attention output)."""
+    g = gen(seed)
+    return (torch.randn((m, c), generator=g, device="cuda")
+            * torch.rand((m, 1), generator=g, device="cuda").mul_(2.5)
+            .add_(0.5)).bfloat16()
+
+
 def check_close(tag: str, got, want) -> float:
     """A bf16 attention output against its plain version: within 2^-7 of
     the output's largest magnitude, one to two bf16 ulps there (p may round
@@ -252,15 +292,22 @@ def phase_kernels(cfg) -> dict:
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_attention_packed_ref,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv2,
+                                                fused_attention_qkv2_ref,
                                                 fused_attention_qkv3,
                                                 fused_attention_qkv3_ref,
+                                                fused_attention_qkv_ref,
                                                 fused_attention_ref)
-    from hirest_tpu_torch.ops.quant import (fused_mlp_int8,
-                                            fused_mlp_int8_ref, ln_quant,
+    from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
+                                            fused_mlp_int8,
+                                            fused_mlp_int8_ref, ln_bf16,
+                                            ln_bf16_ref, ln_quant,
                                             ln_quant_ref)
 
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K7": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0,
+             "K6": 0.0, "K7": 0.0}
     for d in (88, 128):  # the native head width, and the padded one
         for batch in (2, BATCH):
             qkv = attention_inputs(batch, seed=batch + d - 88, hd=heads * d)
@@ -345,6 +392,68 @@ def phase_kernels(cfg) -> dict:
                     f"fused_mlp_int8 [{batch * TOKENS}] {act} off its plain "
                     f"version")
             worst["K4"] = max(worst["K4"], err)
+
+    # K5 at K2's bars (codes within one, equal on 99.9 %, scales within
+    # 1e-6): the fc1 output of the int8 MLP with each GELU, and an
+    # attention output with none
+    m = BATCH * TOKENS
+    for c, acts in ((6144, ("gelu_poly", "gelu")), (1408, ("none",))):
+        x = fc1_inputs(m, seed=70 + c, c=c)
+        for act in acts:
+            worst["K5"] = max(worst["K5"], check_codes(
+                f"K5 act_quant [{m},{c}] act={act}", act_quant(x, act=act),
+                act_quant_ref(x, act=act), 0.999, 1e-6))
+
+    # K8 with nonzero biases: bf16 out at K6's bar, int8 out at K3's
+    qkv = attention_inputs(BATCH, seed=80)
+    qb, vb = biases(heads * cfg.head_width, seed=81)
+    worst["K8"] = check_close(
+        f"K8 fused_attention_qkv [{BATCH},{TOKENS},{qkv.shape[-1]}] biased",
+        fused_attention_qkv(qkv, qb, vb, scale, heads),
+        fused_attention_qkv_ref(qkv, qb, vb, scale, heads))
+    worst["K8q"] = check_codes(
+        f"K8 fused_attention_qkv quant_out [{BATCH},{TOKENS},"
+        f"{qkv.shape[-1]}] biased",
+        fused_attention_qkv(qkv, qb, vb, scale, heads, quant_out=True),
+        fused_attention_qkv_ref(qkv, qb, vb, scale, heads, quant_out=True),
+        0.99, 2 ** -7)
+
+    # K9 at K1's and K3's bars, also padded to 264 tokens with n_real
+    qkv = attention_inputs(BATCH, seed=82)
+    worst["K9"] = check_close(
+        f"K9 fused_attention_qkv2 [{BATCH},{TOKENS},{qkv.shape[-1]}]",
+        fused_attention_qkv2(qkv, scale, heads),
+        fused_attention_qkv2_ref(qkv, scale, heads))
+    worst["K9q"] = 0.0
+    for batch, tokens, n_real in ((BATCH, TOKENS, 0), (2, 264, TOKENS)):
+        qkv = attention_inputs(batch, seed=83 + batch, tokens=tokens)
+        worst["K9q"] = max(worst["K9q"], check_codes(
+            f"K9 fused_attention_qkv2 quant_out [{batch},{tokens},"
+            f"{qkv.shape[-1]}] n_real={n_real}",
+            fused_attention_qkv2(qkv, scale, heads, quant_out=True,
+                                 n_real=n_real),
+            fused_attention_qkv2_ref(qkv, scale, heads, quant_out=True,
+                                     n_real=n_real), 0.99, 2 ** -7))
+
+    # K10 within one bf16 ulp of each output plus 1e-5: the row reductions
+    # run in another order and rsqrtf is not correctly rounded, which moves
+    # the f32 LayerNorm by ~1e-6; where (x - mean) r g cancels against b,
+    # that is many bf16 ulps of an output near zero
+    x, w, b = ln_inputs(m, seed=90)
+    got, want = ln_bf16(x, w, b, EPS), ln_bf16_ref(x, w, b, EPS)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    ulp = torch.ldexp(torch.ones_like(diff),
+                      torch.frexp(want.float())[1] - 8)
+    off = diff > ulp
+    worst["K10"] = diff.max().item()
+    top = want.float().abs()[off].max().item() if off.any() else 0.0
+    print(f"[kernels] K10 ln_bf16 [{m},1408]: max_abs_err={worst['K10']}; "
+          f"{int(off.sum().item())} outputs more than one bf16 ulp off, "
+          f"all with |want| <= {top}, by at most "
+          f"{(diff - ulp).max().item()} over the ulp (<= 1e-5)")
+    require(bool(got.isfinite().all()) and bool((diff <= ulp + 1e-5).all()),
+            "K10 ln_bf16 off its plain version")
     return worst
 
 
@@ -520,6 +629,106 @@ def phase_factory(cfg, text_cfg, weights: dict) -> dict:
             "launches": launches}
 
 
+# ladder configuration -> (flags of build_scanned_vision_apply, launches
+# per forward); bench.py's ladder tags (:817-823) less the TPU layout flags
+LADDER = {
+    "bf16": ({}, dict(K8=1)),
+    "bf16+v2": (dict(attn_v2=True), dict(K9=1)),
+    "bf16+v3+lnk": (dict(attn_v3=True, fused_ln=True), dict(K1=1, K10=2)),
+    "int8": (dict(int8=True), dict(K8=1)),
+    "int8+fq": (dict(int8=True, fused_quant=True), dict(K2=2, K5=1, K8q=1)),
+    "int8+fq+v2": (dict(int8=True, fused_quant=True, attn_v2=True),
+                   dict(K2=2, K5=1, K9q=1)),
+    "int8+fq+v3": (dict(int8=True, fused_quant=True, attn_v3=True),
+                   dict(K2=2, K3=1, K5=1)),
+}
+LADDER_FORWARDS = 2  # image forwards of B=128 per ladder configuration
+
+
+def phase_ladder(cfg, weights: dict) -> dict:
+    """Every configuration of LADDER at full width, on one bf16 and one int8
+    tower staged once (stage_scanned_params), LADDER_FORWARDS forwards of
+    B=128 each with the launch counts zeroed before and read after. Returns
+    the forwards, their frames and the launches summed over the runs."""
+    from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+                                                  stage_scanned_params)
+
+    frames = normalize_frames(np.random.default_rng(5).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8))
+    staged = {}
+    for int8 in (False, True):
+        t0 = time.perf_counter()
+        staged[int8] = stage_scanned_params(weights, cfg, int8=int8,
+                                            device="cuda")
+        torch.cuda.synchronize()
+        print(f"[ladder] {'int8' if int8 else 'bf16'} tower staged in "
+              f"{time.perf_counter() - t0:.1f} s")
+    fns, feats, launches = {}, {}, {}
+    for tag, (flags, per_forward) in LADDER.items():
+        fns[tag] = build_scanned_vision_apply(
+            None, cfg, staged=staged[bool(flags.get("int8"))], device="cuda",
+            **flags)
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(LADDER_FORWARDS):
+            out = fns[tag](frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expect(**{k: v * cfg.layers * LADDER_FORWARDS
+                         for k, v in per_forward.items()})
+        print(f"[ladder] {tag}: {LADDER_FORWARDS} forwards of {BATCH} frames "
+              f"in {time.perf_counter() - t0:.2f} s; launches {counts}")
+        require(counts == want, f"ladder {tag} launches {counts}, expected "
+                                f"{want}")
+        require(tuple(out.shape) == (BATCH, cfg.embed_dim)
+                and bool(out.isfinite().all()), f"ladder {tag}: output "
+                                                f"{tuple(out.shape)}")
+        feats[tag] = out.cpu().numpy()
+        for k, n in counts.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+    for tag, (flags, _) in LADDER.items():
+        bar = COS_INT8_VS_FLOAT if flags.get("int8") else COS_MIN
+        cos = cosine(feats[tag], feats["bf16"]).min()
+        print(f"[ladder] {tag} vs bf16 at full depth: min cosine {cos:.6f} "
+              f"(>= {bar})")
+        require(cos >= bar, f"ladder {tag} off the bf16 forward")
+    return {"fns": fns, "frames": frames, "launches": launches}
+
+
+def phase_ladder_depth(cfg, frames) -> None:
+    """Each LADDER configuration cut to 2 layers, on the card in bf16
+    against the plain path on the CPU in f32 with the same flags: cosine
+    >= 0.99 (bf16 vs float, int8 vs int8), and int8 >= 0.98 against the
+    CPU float forward."""
+    from dataclasses import replace
+
+    from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
+    from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
+
+    cut = replace(cfg, layers=2)
+    sd = random_eva_vision_state_dict(cut, seed=0)
+    cpu_float = None
+    for tag, (flags, _) in LADDER.items():
+        ref = build_scanned_vision_apply(sd, cut, device="cpu",
+                                         dtype=torch.float32,
+                                         **flags)(frames).numpy()
+        got = build_scanned_vision_apply(sd, cut, device="cuda",
+                                         **flags)(frames).cpu().numpy()
+        cpu_float = ref if cpu_float is None else cpu_float
+        checks = [("card vs f32 CPU plain, same flags", ref, COS_MIN)]
+        if flags.get("int8"):
+            checks.append(("card vs float f32 CPU plain", cpu_float,
+                           COS_INT8_VS_FLOAT))
+        for what, want, bar in checks:
+            cos = cosine(got, want).min()
+            print(f"[depth] 2 layers, ladder {tag}, {what}: cosine "
+                  f"min={cos:.6f} (>= {bar})")
+            require(got.shape == (len(frames), cfg.embed_dim)
+                    and bool(cos >= bar), f"2-layer ladder {tag} {what} "
+                                          f"below {bar}")
+
+
 def phase_depth(cfg, pretrained: Path) -> np.ndarray:
     """The same weights at 2 layers: the card's bf16 and int8 forwards
     against the plain path on the CPU in f32. Returns the 4 frames used."""
@@ -539,8 +748,9 @@ def phase_depth(cfg, pretrained: Path) -> np.ndarray:
 
     def run(device, int8):
         dtype = torch.bfloat16 if device == "cuda" else torch.float32
-        out = build_scanned_vision_apply(sd, cut, int8=int8, device=device,
-                                         dtype=dtype)(frames)
+        out = build_scanned_vision_apply(sd, cut, int8=int8, attn_v3=True,
+                                         fused_quant=int8, fused_mlp=int8,
+                                         device=device, dtype=dtype)(frames)
         return out.cpu().numpy()
 
     cpu_float, cpu_int8 = run("cpu", False), run("cpu", True)
@@ -651,7 +861,22 @@ def time_factory(factory: dict, card: str) -> None:
             print(f"[timing] {card}: {label} B={n}: {rate:.2f} {what}/s")
 
 
-def phase_timing(cfg, main: dict, factory: dict, card: str) -> dict:
+def time_ladder(ladder: dict, card: str) -> None:
+    """Frames/s of every ladder configuration at B=128, as time_factory."""
+    for tag, fn in ladder["fns"].items():
+        fn(ladder["frames"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iters = 5
+        for _ in range(iters):
+            fn(ladder["frames"])
+        torch.cuda.synchronize()
+        fps = BATCH * iters / (time.perf_counter() - t0)
+        print(f"[timing] {card}: ladder {tag} B={BATCH}: {fps:.2f} frames/s")
+
+
+def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
+                 card: str) -> dict:
     """Frames/s, and each kernel's ms beside its plain version, a library
     yardstick and the bound, at the main path's B=128 shapes."""
     import torch.nn.functional as F
@@ -660,15 +885,22 @@ def phase_timing(cfg, main: dict, factory: dict, card: str) -> dict:
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_attention_packed_ref,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv2,
+                                                fused_attention_qkv2_ref,
                                                 fused_attention_qkv3,
                                                 fused_attention_qkv3_ref,
+                                                fused_attention_qkv_ref,
                                                 fused_attention_ref)
-    from hirest_tpu_torch.ops.quant import (fused_mlp_int8,
-                                            fused_mlp_int8_ref, ln_quant,
+    from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
+                                            fused_mlp_int8,
+                                            fused_mlp_int8_ref, ln_bf16,
+                                            ln_bf16_ref, ln_quant,
                                             ln_quant_ref)
 
     time_encoders(main, card)
     time_factory(factory, card)
+    time_ladder(ladder, card)
     res = {}
     scale, heads, d = cfg.head_width ** -0.5, cfg.num_heads, cfg.head_width
     m, w, hid = BATCH * TOKENS, cfg.width, cfg.mlp_hidden
@@ -755,7 +987,68 @@ def phase_timing(cfg, main: dict, factory: dict, card: str) -> dict:
             "library_ms": None,
             **bound(qkv128.numel() * 2 + m * PADDED_HD + m * 4, flops128,
                     BF16_FLOP_PER_S)}}
-    for name, r in {**res, **padded}.items():
+    # K9 on K1's and K3's inputs: the same kernel under its own wrapper
+    res["K9"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv2(qkv, scale, heads), 20),
+        "plain_ms": cuda_ms(
+            lambda: fused_attention_qkv2_ref(qkv, scale, heads), 5),
+        "library_ms": res["K1"]["library_ms"],
+        **bound(qkv.numel() * 2 + m * w * 2, attn_flops, BF16_FLOP_PER_S)}
+    res["K9q"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv2(
+            qkv, scale, heads, quant_out=True), 20),
+        "plain_ms": cuda_ms(lambda: fused_attention_qkv2_ref(
+            qkv, scale, heads, quant_out=True), 5),
+        "library_ms": None,
+        **bound(qkv.numel() * 2 + m * w + m * 4, attn_flops,
+                BF16_FLOP_PER_S)}
+    # K8 on a qkv projection without bias and nonzero q/v biases; its
+    # library yardstick runs on the heads with the biases already added
+    qkv8 = attention_inputs(BATCH, seed=13)
+    qb, vb = biases(w, seed=14)
+    q, k, v = (split_heads(t, heads) for t in qkv8.chunk(3, -1))
+    qbh, vbh = (split_heads(t + bias, heads) for t, bias in
+                ((qkv8[..., :w], qb), (qkv8[..., 2 * w:], vb)))
+    res["K8"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv(qkv8, qb, vb, scale,
+                                                  heads), 20),
+        "plain_ms": cuda_ms(lambda: fused_attention_qkv_ref(
+            qkv8, qb, vb, scale, heads), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qbh, k, vbh, scale=scale), 20),
+        **bound(qkv8.numel() * 2 + 2 * w * 2 + m * w * 2, attn_flops,
+                BF16_FLOP_PER_S)}
+    res["K8q"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv(qkv8, qb, vb, scale, heads,
+                                                  quant_out=True), 20),
+        "plain_ms": cuda_ms(lambda: fused_attention_qkv_ref(
+            qkv8, qb, vb, scale, heads, quant_out=True), 5),
+        "library_ms": None,
+        **bound(qkv8.numel() * 2 + 2 * w * 2 + m * w + m * 4, attn_flops,
+                BF16_FLOP_PER_S)}
+    # K5 on the int8 MLP's fc1 output (about 26 f32 operations an element
+    # with gelu_bf16_poly), and on an attention output without activation
+    h6 = fc1_inputs(m, seed=15, c=hid)
+    res["K5"] = {
+        "ms": cuda_ms(lambda: act_quant(h6, act="gelu_poly"), 20),
+        "plain_ms": cuda_ms(lambda: act_quant_ref(h6, act="gelu_poly"), 5),
+        "library_ms": None,
+        **bound(m * hid * 3 + m * 4, 26 * m * hid, F32_FLOP_PER_S)}
+    h1 = fc1_inputs(m, seed=16, c=w)
+    extra = {"K5 act=none [M,1408]": {
+        "ms": cuda_ms(lambda: act_quant(h1), 20),
+        "plain_ms": cuda_ms(lambda: act_quant_ref(h1), 5),
+        "library_ms": None,
+        **bound(m * w * 3 + m * 4, 3 * m * w, F32_FLOP_PER_S)}}
+    # K10 against F.layer_norm on the same bf16 rows
+    x10, g10, b10 = ln_inputs(m, seed=17)
+    res["K10"] = {
+        "ms": cuda_ms(lambda: ln_bf16(x10, g10, b10, EPS), 20),
+        "plain_ms": cuda_ms(lambda: ln_bf16_ref(x10, g10, b10, EPS), 5),
+        "library_ms": cuda_ms(lambda: F.layer_norm(
+            x10, (w,), g10.bfloat16(), b10.bfloat16(), EPS), 20),
+        **bound(m * w * 2 * 2 + 2 * w * 4, 8 * m * w, F32_FLOP_PER_S)}
+    for name, r in {**res, **padded, **extra}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
@@ -772,13 +1065,30 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          ("elementwise", "reduce")),
     ),
     "int8": (
-        ("K2 ln_quant (CUDA)", ("ln_quant",)),
+        ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
-         ("attention_qkv3", "attention_quant_rows")),
+         ("attention_qkv3", "quant_rows")),
         ("K4 fused_mlp_int8 (CUDA)", ("fused_mlp_int8",)),
         ("int8 qkv/out GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("elementwise (int8_mm dequant epilogue, residual, casts)",
+         ("elementwise", "reduce")),
+    ),
+    "ladder bf16": (
+        ("K8 attention_split (CUDA)", ("attention_split",)),
+        ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+        ("layer_norm", ("layer_norm",)),
+        ("elementwise (GELU chain, casts, residual)",
+         ("elementwise", "reduce")),
+    ),
+    "ladder int8": (
+        ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
+        ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
+         ("attention_qkv3", "quant_rows")),
+        ("K5 act_quant (CUDA)", ("act_quant",)),
+        ("int8 GEMMs (torch._int_mm)",
+         ("nvjet", "gemm", "cutlass", "xmma", "imma")),
+        ("elementwise (int8_mm dequant epilogues, residual, casts)",
          ("elementwise", "reduce")),
     ),
     "unrolled": (
@@ -826,7 +1136,8 @@ def profile_forward(tag: str, enc, batch: np.ndarray, card: str,
         print(f"[profile]     kernel {name[:110]}: {ms:.2f} ms")
 
 
-def phase_profile(cfg, main: dict, factory: dict, card: str) -> None:
+def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
+                  card: str) -> None:
     """Where one float-front-end forward's time goes, for each precision and
     for the factory's bf16 image configurations, and each plain per-layer
     op timed alone at the main path's shapes with CUDA events."""
@@ -840,6 +1151,10 @@ def phase_profile(cfg, main: dict, factory: dict, card: str) -> None:
     batch = normalize_frames(main["frames"]["vid_a"][:BATCH])
     for tag, encoders in main["encoders"].items():
         profile_forward(tag, encoders[False], batch, card, tag)
+    for tag, groups in (("bf16", "ladder bf16"),
+                        ("int8+fq+v3", "ladder int8")):
+        profile_forward(f"ladder {tag}", ladder["fns"][tag], batch, card,
+                        groups)
     for tag in ("unrolled", "padded_unrolled", "padded_scanned"):
         profile_forward(f"factory {tag}", factory["models"][tag].encode_image,
                         batch, card, "bf16" if "scanned" in tag
@@ -904,7 +1219,45 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "K7": ("fused_attention_packed",
            "hirest_tpu_torch/ops/csrc/attention_split.cu",
            "hirest_tpu/ops/attention.py:188"),
+    "K5": ("act_quant", "hirest_tpu_torch/ops/csrc/act_quant.cu",
+           "hirest_tpu/ops/quant.py:176"),
+    "K8": ("fused_attention_qkv",
+           "hirest_tpu_torch/ops/csrc/attention_split.cu",
+           "hirest_tpu/ops/attention.py:551"),
+    "K8q": ("fused_attention_qkv(quant_out=True)",
+            "hirest_tpu_torch/ops/csrc/attention_split.cu",
+            "hirest_tpu/ops/attention.py:585"),
+    "K9": ("fused_attention_qkv2",
+           "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
+           "hirest_tpu/ops/attention.py:349"),
+    "K9q": ("fused_attention_qkv2(quant_out=True)",
+            "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
+            "hirest_tpu/ops/attention.py:378"),
+    "K10": ("ln_bf16", "hirest_tpu_torch/ops/csrc/ln_quant.cu",
+            "hirest_tpu/ops/quant.py:220"),
 }
+
+
+def time_attention(cfg, card: str) -> None:
+    """K1, K6 and K7 ms per call at B=128 and nothing else, through the
+    wrappers that earlier versions of the port have too, so that this file
+    copied into an earlier checkout times that checkout's kernels."""
+    from hirest_tpu_torch.ops import build
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_qkv3)
+
+    build.build(("attention_qkv3", "attention_split"))
+    scale, heads = cfg.head_width ** -0.5, cfg.num_heads
+    qkv = attention_inputs(BATCH, seed=7)
+    q, k, v = split_views(attention_inputs(BATCH, seed=11))
+    pq, pk, pv = attention_inputs(BATCH, seed=12, hd=PADDED_HD).chunk(3, -1)
+    ms = {"K1": cuda_ms(lambda: fused_attention_qkv3(qkv, scale, heads), 50),
+          "K6": cuda_ms(lambda: fused_attention(q, k, v, scale), 50),
+          "K7": cuda_ms(lambda: fused_attention_packed(
+              pq, pk, pv, 128 ** -0.5, heads), 50)}
+    print(f"[time-attention] {card}: {REPO}: " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in ms.items()))
 
 
 def main() -> int:
@@ -921,6 +1274,9 @@ def main() -> int:
     cfg, text_cfg = EvaVisionConfig(), EvaTextConfig()
     pretrained = REPO / "pretrained_weights"
 
+    if "--time-attention" in sys.argv[1:]:
+        time_attention(cfg, card)
+        return 0
     t0 = time.perf_counter()
     logs = build.build()
     print(f"[build] {len(logs)} CUDA sources compiled in "
@@ -929,14 +1285,20 @@ def main() -> int:
         print(f"[build] {name}:\n{log.strip()}")
 
     errs = phase_kernels(cfg)
+    if "--kernels-only" in sys.argv[1:]:
+        print(f"chip_smoke: build and kernels phases passed on {card}")
+        return 0
     main_res = phase_main(cfg, pretrained)
     weights = factory_weights(cfg, text_cfg, pretrained)
     factory = phase_factory(cfg, text_cfg, weights)
+    ladder = phase_ladder(cfg, weights)
     frames = phase_depth(cfg, pretrained)
     phase_factory_depth(cfg, text_cfg, weights, frames)
-    timing = phase_timing(cfg, main_res, factory, card)
-    phase_profile(cfg, main_res, factory, card)
-    launches = {**factory["launches"], **main_res["launches"]}
+    phase_ladder_depth(cfg, frames)
+    timing = phase_timing(cfg, main_res, factory, ladder, card)
+    phase_profile(cfg, main_res, factory, ladder, card)
+    launches = {**ladder["launches"], **factory["launches"],
+                **main_res["launches"]}
 
     print(card)
     print(json.dumps({"kernels": [{

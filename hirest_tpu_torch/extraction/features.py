@@ -138,8 +138,9 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
     weights otherwise. encode_image_fn returns [B, embed_dim] f32 on the
     device.
 
-    The default is the production bf16 forward (scan=True) with the
-    batched-heads attention kernel at the native head width 88.
+    The default is the production bf16 forward (scan=True):
+    build_scanned_vision_apply with attn_v3, the batched-heads attention
+    kernel (K1) at the native head width 88, as the JAX encoder builds it.
     `padded_heads=True` pads the heads to 128 (models/eva_pad.py), an
     identity on the outputs that runs the attention at head width 128.
     `scan=False` builds the unrolled tower (the JAX package's flax tower:
@@ -147,8 +148,10 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
     ignores `int8` and `uint8_frontend`, as the JAX encoder does, and takes
     normalised float frames.
     `int8=True` is the quantized throughput mode: int8 projections with
-    per-channel weight and per-row activation scales, through the ln_quant,
-    int8-epilogue attention and fused int8 MLP kernels.
+    per-channel weight and per-row activation scales, built with
+    fused_quant=fused_mlp=True besides attn_v3 (the JAX package's
+    production int8 configuration): the ln_quant, int8-epilogue attention
+    and fused int8 MLP kernels (K2, K3, K4).
     `uint8_frontend=True` ships raw uint8 frames to the device and runs pixel
     normalization inside the patch-embed matmul."""
     from hirest_tpu_torch.models.eva_clip import (build_unrolled_vision_apply,
@@ -177,6 +180,8 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
         return (build_unrolled_vision_apply(sd, cfg, dtype=dtype,
                                             device=device), preprocess_image)
     apply = build_scanned_vision_apply(sd, cfg, dtype=dtype, int8=int8,
+                                       attn_v3=True, fused_quant=int8,
+                                       fused_mlp=int8,
                                        uint8_input=uint8_frontend,
                                        device=device)
     return apply, (preprocess_image_u8 if uint8_frontend else preprocess_image)

@@ -6,13 +6,15 @@ reference's own (EVA_clip/vit_model.py:248-351 for `visual.*`,
 EVA_clip/eva_model.py:177-250 for `text.*`), so the two parts of
 `eva_clip_psz14.pt` load with `load_state_dict` directly.
 
-- `EvaVisionTower` (with `Block`) is the production bf16 tower of
+- `EvaVisionTower` (with `Block`) is the bf16 tower of
   hirest_tpu/models/eva_scan.py (the int8 block, models/eva_scan.py::
   Int8Block, is built from this one): LayerNorms computed in f32 and cast
-  to the working dtype, the q/v biases folded into the qkv projection's
-  bias, the batched-heads attention kernel (K1), and the short erf
-  polynomial for GELU when `fast_gelu` (the default). Its working dtype is
-  the dtype of the parameters; the output is f32.
+  to the working dtype (or through `ln_bf16`, K10, with `fused_ln`), the
+  attention that `BlockOptions.attn` selects (`scanned_attention`: K8,
+  K9 or K1), and the short erf polynomial for GELU when `fast_gelu`. The
+  options are set once when the forward is built and passed to every
+  block. Its working dtype is the dtype of the parameters; the output is
+  f32.
 - `UnrolledEvaVisionTower` (with `VisionBlock`) is the JAX package's flax
   `EvaVisionTower` with `use_pallas=True` (the factory's `scan=False`), on
   the same state dict: flax's LayerNorm arithmetic (`layer_norm_fast_var`),
@@ -27,6 +29,7 @@ EVA_clip/eva_model.py:177-250 for `text.*`), so the two parts of
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Mapping, Optional, Union
 
@@ -42,9 +45,42 @@ from hirest_tpu_torch.models.convert import (eva_text_state_dict,
                                              patch_kernel)
 from hirest_tpu_torch.models.layers import (MultiHeadAttention, causal_mask,
                                             gelu, gelu_bf16_poly,
-                                            layer_norm_fast_var)
-from hirest_tpu_torch.ops.attention import fused_attention_qkv3
+                                            layer_norm_fast_var, merge_heads,
+                                            split_heads)
+from hirest_tpu_torch.ops.attention import (fused_attention,
+                                            fused_attention_qkv,
+                                            fused_attention_qkv2,
+                                            fused_attention_qkv3)
+from hirest_tpu_torch.ops.quant import act_quant, ln_bf16
 from hirest_tpu_torch.utils.device import resolve_device
+
+ATTENTIONS = ("v1", "v2", "v3", "split")
+
+
+@dataclass(frozen=True)
+class BlockOptions:
+    """The kernel flags of the scanned forward, resolved once by
+    models/eva_scan.py::build_scanned_vision_apply and handed to every
+    block's forward (the defaults are the JAX forward's).
+
+    attn: "v1" (K8: the q/v biases added in the kernel), "v2" (K9) or
+    "v3" (K1/K3), both with the biases folded into the qkv projection, or
+    "split", the JAX forward's path for head rows that are not 128-wide
+    multiples (biases added after the split, K6).
+    fused_ln: the bf16 block's LayerNorms through `ln_bf16` (K10).
+    fused_quant, fused_mlp: the int8 block's quantizing kernels (K2, K5)
+    and the one-kernel MLP (K4); see models/eva_scan.py::Int8Block."""
+
+    fast_gelu: bool = True
+    attn: str = "v1"
+    fused_ln: bool = False
+    fused_quant: bool = False
+    fused_mlp: bool = False
+
+    def __post_init__(self):
+        if self.attn not in ATTENTIONS:
+            raise ValueError(f"attn must be one of {ATTENTIONS}, got "
+                             f"{self.attn!r}")
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -53,6 +89,36 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
                      norm.bias.float(), norm.eps)
     return y.to(x.dtype)
+
+
+def fused_layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """`layer_norm`'s function through `ln_bf16` (K10)."""
+    return ln_bf16(x, norm.weight, norm.bias, norm.eps)
+
+
+def scanned_attention(qkv: torch.Tensor, q_bias: torch.Tensor,
+                      v_bias: torch.Tensor, scale: float, heads: int,
+                      attn: str, *, quant_out: bool = False):
+    """The scanned block's attention on its qkv projection [B, S, 3*H*d],
+    as eva_scan.py:390-430 dispatches it: "v3" and "v2" take qkv with the
+    q/v biases already added (K1/K3, K9), "v1" adds them in the kernel
+    (K8), "split" adds them in qkv's dtype and runs K6 on the split heads.
+    Returns [B, S, H*d], or with quant_out its int8 codes and f32 row
+    scales [B, S, 1]: the kernels' epilogue, or for "split" act_quant
+    (K5) on the output, as the JAX forward quantizes it."""
+    if attn == "v3":
+        return fused_attention_qkv3(qkv, scale, heads, quant_out=quant_out)
+    if attn == "v2":
+        return fused_attention_qkv2(qkv, scale, heads, quant_out=quant_out)
+    if attn == "v1":
+        return fused_attention_qkv(qkv, q_bias, v_bias, scale, heads,
+                                   quant_out=quant_out)
+    q, k, v = qkv.chunk(3, -1)
+    q, v = q + q_bias.to(qkv.dtype), v + v_bias.to(qkv.dtype)
+    out = merge_heads(fused_attention(split_heads(q, heads),
+                                      split_heads(k, heads),
+                                      split_heads(v, heads), scale))
+    return act_quant(out.contiguous(), act="none") if quant_out else out
 
 
 class Attention(nn.Module):
@@ -68,12 +134,15 @@ class Attention(nn.Module):
         self.v_bias = nn.Parameter(torch.zeros(inner))
         self.proj = nn.Linear(inner, width)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        # [q_bias | 0 | v_bias] rides on the projection (eva_scan._bias3)
-        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                          self.v_bias])
+    def forward(self, h: torch.Tensor, attn: str) -> torch.Tensor:
+        bias = None
+        if attn in ("v2", "v3"):
+            # [q_bias | 0 | v_bias] rides on the projection (eva_scan._bias3)
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
+                              self.v_bias])
         qkv = F.linear(h, self.qkv.weight, bias)
-        return self.proj(fused_attention_qkv3(qkv, self.scale, self.heads))
+        return self.proj(scanned_attention(qkv, self.q_bias, self.v_bias,
+                                           self.scale, self.heads, attn))
 
 
 class Mlp(nn.Module):
@@ -93,10 +162,11 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
         self.mlp = Mlp(cfg.width, cfg.mlp_hidden)
 
-    def forward(self, x: torch.Tensor, fast_gelu: bool) -> torch.Tensor:
-        act = gelu_bf16_poly if fast_gelu else gelu
-        x = x + self.attn(layer_norm(x, self.norm1))
-        h = act(self.mlp.fc1(layer_norm(x, self.norm2)))
+    def forward(self, x: torch.Tensor, opts: BlockOptions) -> torch.Tensor:
+        act = gelu_bf16_poly if opts.fast_gelu else gelu
+        ln = fused_layer_norm if opts.fused_ln else layer_norm
+        x = x + self.attn(ln(x, self.norm1), opts.attn)
+        h = act(self.mlp.fc1(ln(x, self.norm2)))
         return x + self.mlp.fc2(h)
 
 
@@ -112,11 +182,9 @@ class EvaVisionTower(nn.Module):
 
     block = Block
 
-    def __init__(self, cfg: EvaVisionConfig = EvaVisionConfig(),
-                 fast_gelu: bool = True):
+    def __init__(self, cfg: EvaVisionConfig = EvaVisionConfig()):
         super().__init__()
         self.cfg = cfg
-        self.fast_gelu = fast_gelu
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
         self.pos_embed = nn.Parameter(
@@ -144,10 +212,11 @@ class EvaVisionTower(nn.Module):
         x = torch.cat([self.cls_token.expand(b, 1, cfg.width), x], 1)
         return x + self.pos_embed
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                opts: BlockOptions = BlockOptions()) -> torch.Tensor:
         x = self.embed(images)
         for blk in self.blocks:
-            x = blk(x, self.fast_gelu)
+            x = blk(x, opts)
         x = layer_norm(x, self.norm)
         return self.head(x[:, 0]).float()
 
@@ -323,11 +392,12 @@ def build_eva_model_and_transforms(
     towers get seeded random weights (loudly).
     padded_heads: pad the vision heads 88 -> 128 (models/eva_pad.py), an
     identity on the outputs.
-    scan: True is the production forward (build_scanned_vision_apply: K1,
-    or with int8 K2-K4); False the unrolled tower (K6, or K7 with padded
-    heads), which ignores int8 as the JAX factory does. The JAX factory's
-    `use_pallas` has no counterpart: a CUDA tensor always takes the
-    kernels, a CPU tensor their plain versions."""
+    scan: True is the production forward (build_scanned_vision_apply with
+    attn_v3 and, with int8, fused_quant and fused_mlp, as the JAX factory
+    passes them: K1, or with int8 K2-K4); False the unrolled tower (K6, or
+    K7 with padded heads), which ignores int8 as the JAX factory does. The
+    JAX factory's `use_pallas` has no counterpart: a CUDA tensor always
+    takes the kernels, a CPU tensor their plain versions."""
     from hirest_tpu_torch.models.eva_pad import pad_vision_head_params
     from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
     from hirest_tpu_torch.utils.init import (random_eva_text_state_dict,
@@ -357,7 +427,8 @@ def build_eva_model_and_transforms(
                         "EVA text", device, dtype)
     if scan:
         encode_image = build_scanned_vision_apply(
-            vision_sd, vision_cfg, dtype=dtype, int8=int8, device=device)
+            vision_sd, vision_cfg, dtype=dtype, int8=int8, attn_v3=True,
+            fused_quant=int8, fused_mlp=int8, device=device)
     else:
         encode_image = build_unrolled_vision_apply(
             vision_sd, vision_cfg, dtype=dtype, device=device)

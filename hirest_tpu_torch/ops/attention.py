@@ -3,19 +3,26 @@
 Counterparts of hirest_tpu/ops/attention.py:
 
 - `fused_attention_qkv3` (v3), with its pad-key mask (n_real) and its int8
-  epilogue (quant_out): the scanned trunk. It launches the CUDA kernel
-  `csrc/attention_qkv3.cu` on a CUDA tensor: K1 for bf16 output, K3 for
-  int8 codes and row scales.
+  epilogue (quant_out): the production scanned trunk. It launches the CUDA
+  kernel `csrc/attention_qkv3.cu` on a CUDA tensor: K1 for bf16 output, K3
+  for int8 codes and row scales.
+- `fused_attention_qkv2` (v2, K9): the same function, which the TPU kernel
+  computes one head at a time. That loop is TPU scheduling, so it launches
+  the same CUDA kernel, under its own launch counts.
+- `fused_attention_qkv` (v1, K8): the scanned trunk's default, on the fused
+  qkv projection with the q/v biases added in the kernel, bf16 out or int8
+  (quant_out).
 - `fused_attention` (`_pallas_attention`, K6) over split heads
   [B, H, S, D] and `fused_attention_packed` (`_pallas_attention_packed`,
   K7) over packed [B, S, H*D]: the unrolled tower, at the native and the
-  padded head width. Both launch `csrc/attention_split.cu`, one kernel
-  that takes strides, so the head views cost no copy.
+  padded head width.
 
-Each takes its plain PyTorch version (`*_ref`) only for a tensor on the
-CPU. Their softmaxes differ, as the TPU kernels' do: v3 rounds the
-unnormalised exp2 probabilities to the input dtype and divides after PV;
-K6 and K7 scale the f32 scores, normalise p in f32 and then round it.
+K6, K7 and K8 launch `csrc/attention_split.cu`, one kernel that takes
+strides, so the head views cost no copy. Each wrapper takes its plain
+PyTorch version (`*_ref`) only for a tensor on the CPU. Their softmaxes
+differ, as the TPU kernels' do: v2 and v3 round the unnormalised exp2
+probabilities to the input dtype and divide after PV; K6, K7 and K8 scale
+the f32 scores, normalise p in f32 and then round it.
 """
 
 from __future__ import annotations
@@ -87,22 +94,9 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
-                         num_heads: int, *, quant_out: bool = False,
-                         n_real: int = 0):
-    """Batched-heads attention over [B, S, 3*H*d] fused qkv with the q/v
-    biases pre-added -> [B, S, H*d], or with quant_out the int8 codes and
-    f32 row scales [B, S, 1] of the f32 output. Keys >= n_real are masked
-    when n_real > 0.
-
-    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with head width 88 or 128 (padded heads) and launches the kernel
-    on the current stream;
-    anything else raises. `fused_attention_qkv3.launches` counts bf16-out
-    launches (K1), `fused_attention_qkv3.quant_launches` int8-out ones (K3)."""
-    if not _on_cuda(qkv_biased):
-        return fused_attention_qkv3_ref(qkv_biased, scale, num_heads,
-                                        quant_out=quant_out, n_real=n_real)
+def _launch_qkv3(qkv_biased: torch.Tensor, scale: float, num_heads: int,
+                 quant_out: bool, n_real: int):
+    """Launch attention_qkv3.cu on bias-complete [B, S, 3*H*d] qkv."""
     if qkv_biased.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got "
                          f"{tuple(qkv_biased.shape)}")
@@ -132,16 +126,37 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
                 qkv_biased.data_ptr(), ws.data_ptr(), rowmax.data_ptr(),
                 q.data_ptr(), sc.data_ptr(), b, s, num_heads, d, n_keys, c,
                 stream)
+            out = (q, sc)
         else:
             out = torch.empty((b, s, hd), dtype=qkv_biased.dtype, device=dev)
             err = lib.hirest_attention_qkv3_bf16(
                 qkv_biased.data_ptr(), out.data_ptr(), b, s, num_heads, d,
                 n_keys, c, stream)
     build.check(lib, err, "attention_qkv3 launch")
+    return out
+
+
+def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
+                         num_heads: int, *, quant_out: bool = False,
+                         n_real: int = 0):
+    """Batched-heads attention over [B, S, 3*H*d] fused qkv with the q/v
+    biases pre-added -> [B, S, H*d], or with quant_out the int8 codes and
+    f32 row scales [B, S, 1] of the f32 output. Keys >= n_real are masked
+    when n_real > 0.
+
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
+    bf16 with head width 88 or 128 (padded heads) and launches the kernel
+    on the current stream;
+    anything else raises. `fused_attention_qkv3.launches` counts bf16-out
+    launches (K1), `fused_attention_qkv3.quant_launches` int8-out ones (K3)."""
+    if not _on_cuda(qkv_biased):
+        return fused_attention_qkv3_ref(qkv_biased, scale, num_heads,
+                                        quant_out=quant_out, n_real=n_real)
+    out = _launch_qkv3(qkv_biased, scale, num_heads, quant_out, n_real)
     if quant_out:
         fused_attention_qkv3.quant_launches += 1
-        return q, sc
-    fused_attention_qkv3.launches += 1
+    else:
+        fused_attention_qkv3.launches += 1
     return out
 
 
@@ -149,7 +164,51 @@ fused_attention_qkv3.launches = 0
 fused_attention_qkv3.quant_launches = 0
 
 
+# --- K9: v2, the same function head by head on the TPU --------------------
+
+# K9's TPU kernel computes K1/K3's function, so their plain version is its
+fused_attention_qkv2_ref = fused_attention_qkv3_ref
+
+
+def fused_attention_qkv2(qkv_biased: torch.Tensor, scale: float,
+                         num_heads: int, *, quant_out: bool = False,
+                         n_real: int = 0):
+    """The v2 attention (K9): `fused_attention_qkv3`'s arguments, function
+    and conditions. Its TPU kernel walks the heads one at a time where v3
+    batches them; that is TPU scheduling, and attention_qkv3.cu already
+    runs one block per (batch row, head), so a CUDA tensor launches that
+    kernel. `rows_per_cell` (grid cells per launch on the TPU) is not
+    carried. A CPU tensor takes the plain version.
+    `fused_attention_qkv2.launches` counts bf16-out launches,
+    `.quant_launches` int8-out ones."""
+    if not _on_cuda(qkv_biased):
+        return fused_attention_qkv2_ref(qkv_biased, scale, num_heads,
+                                        quant_out=quant_out, n_real=n_real)
+    out = _launch_qkv3(qkv_biased, scale, num_heads, quant_out, n_real)
+    if quant_out:
+        fused_attention_qkv2.quant_launches += 1
+    else:
+        fused_attention_qkv2.launches += 1
+    return out
+
+
+fused_attention_qkv2.launches = 0
+fused_attention_qkv2.quant_launches = 0
+
+
 # --- K6 and K7: softmax attention over split or packed heads ---------------
+
+
+def _softmax_attention_f32(q, k, v, scale: float, key_mask=None):
+    """K6's arithmetic up to the f32 PV product: q [B, H, Sq, D], k/v
+    [B, H, Sk, D] -> [B, H, Sq, D] f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if key_mask is not None:
+        valid = (key_mask > 0).to(s.device)[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(q.dtype)
+    return torch.matmul(p.float(), v.float())
 
 
 def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,13 +218,7 @@ def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     compute it: f32 scores q k^T multiplied by scale, keys whose mask is 0
     set to -1e30, exp(s - rowmax) / rowsum in f32, p rounded to the input
     dtype, f32 PV, the output rounded to the input dtype."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if key_mask is not None:
-        valid = (key_mask > 0).to(s.device)[:, None, None, :]
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = (e / e.sum(-1, keepdim=True)).to(q.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return _softmax_attention_f32(q, k, v, scale, key_mask).to(q.dtype)
 
 
 def fused_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
@@ -179,16 +232,20 @@ def fused_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
 
 def _split_lib() -> ctypes.CDLL:
     lib = build.load("attention_split")
-    lib.hirest_attention_split.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+    ints = [ctypes.c_int] * 5  # B, H, Sq, Sk, D
+    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+            ctypes.c_void_p]
+    lib.hirest_attention_split.argtypes = [ctypes.c_void_p] * 7 + ints + tail
+    lib.hirest_attention_split_quant.argtypes = (
+        [ctypes.c_void_p] * 10 + ints + tail)
     lib.hirest_attention_split.restype = ctypes.c_int
+    lib.hirest_attention_split_quant.restype = ctypes.c_int
     return lib
 
 
-def _launch_split(q, k, v, key_mask, out, scale: float) -> None:
-    """Launch attention_split.cu on [B, H, S, D] views (any batch, head and
-    row strides, unit last stride) into the [B, H, Sq, D] view `out`."""
+def _check_split(q, k, v, key_mask):
+    """Check [B, H, S, D] views for attention_split.cu -> ((B, H, Sq, Sk,
+    D), the int32 key mask on q's device or None)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
@@ -211,16 +268,62 @@ def _launch_split(q, k, v, key_mask, out, scale: float) -> None:
             raise ValueError(f"key_mask must be [B, Sk] = {(b, sk)}, got "
                              f"{tuple(key_mask.shape)}")
         mask = key_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    return (b, h, sq, sk, d), mask
+
+
+def _bias_arg(bias, n: int, device):
+    """A q/v bias as the kernel takes it: contiguous bf16 [n] on device,
+    16-byte aligned (rounded to bf16 here, as the reference casts it)."""
+    if bias.numel() != n:
+        raise ValueError(f"expected a bias of {n} values, got "
+                         f"{tuple(bias.shape)}")
+    t = bias.reshape(n).to(device=device, dtype=torch.bfloat16).contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError("a bias must be 16-byte aligned")
+    return t
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_split(q, k, v, key_mask, out, scale: float, q_bias=None,
+                  v_bias=None) -> None:
+    """Launch attention_split.cu on [B, H, S, D] views (any batch, head and
+    row strides, unit last stride) into the [B, H, Sq, D] view `out`, with
+    the bf16 biases [H*D] (or None) added to q and v."""
+    (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
     lib = _split_lib()
     with torch.cuda.device(q.device):
         err = lib.hirest_attention_split(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, h, sq, sk, d, strides, scale,
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            _ptr(q_bias), _ptr(v_bias), out.data_ptr(), b, h, sq, sk, d,
+            strides, scale, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "attention_split launch")
+
+
+def _launch_split_quant(q, k, v, scale: float, q_bias, v_bias):
+    """attention_split.cu with the int8 epilogue: [B, H, S, D] views ->
+    (int8 codes [B, Sq, H*D], f32 row scales [B, Sq, 1])."""
+    (b, h, sq, sk, d), _ = _check_split(q, k, v, None)
+    dev = q.device
+    ws = torch.empty((b, sq, h * d), dtype=torch.float32, device=dev)
+    rowmax = torch.empty((b, sq), dtype=torch.int32, device=dev)
+    codes = torch.empty((b, sq, h * d), dtype=torch.int8, device=dev)
+    scales = torch.empty((b, sq, 1), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 9)(
+        *(st for t in (q, k, v) for st in t.stride()[:3]))
+    lib = _split_lib()
+    with torch.cuda.device(dev):
+        err = lib.hirest_attention_split_quant(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, _ptr(q_bias),
+            _ptr(v_bias), ws.data_ptr(), rowmax.data_ptr(), codes.data_ptr(),
+            scales.data_ptr(), b, h, sq, sk, d, strides, scale,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "attention_split quant launch")
+    return codes, scales
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -269,3 +372,63 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention.launches = 0
 fused_attention_packed.launches = 0
+
+
+# --- K8: v1, fused qkv with the q/v biases added in the kernel ------------
+
+
+def fused_attention_qkv_ref(qkv: torch.Tensor, q_bias: torch.Tensor,
+                            v_bias: torch.Tensor, scale: float,
+                            num_heads: int, *, quant_out: bool = False):
+    """Plain version of `fused_attention_qkv`: qkv [B, S, 3*H*d] (thirds
+    q | k | v, no bias), q_bias and v_bias [H*d] cast to qkv's dtype and
+    added in that dtype, then K6's softmax attention per head -> [B, S, H*d]
+    in qkv's dtype, or with quant_out the int8 codes and f32 row scales
+    [B, S, 1] of the f32 output (one scale over all heads of a row)."""
+    _split(qkv, num_heads)
+    q, k, v = qkv.chunk(3, -1)
+    q = q + q_bias.to(qkv.dtype)
+    v = v + v_bias.to(qkv.dtype)
+    o = merge_heads(_softmax_attention_f32(
+        *(split_heads(t, num_heads) for t in (q, k, v)), scale))
+    if quant_out:
+        return dyn_quant_rows(o)
+    return o.to(qkv.dtype)
+
+
+def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
+                        v_bias: torch.Tensor, scale: float, num_heads: int, *,
+                        quant_out: bool = False):
+    """The v1 attention (K8), the scanned trunk's default: self-attention
+    straight off the fused qkv projection, qkv [B, S, 3*H*d] without bias,
+    q_bias and v_bias [H*d] -> [B, S, H*d], or with quant_out the int8
+    codes and f32 row scales [B, S, 1] of the f32 output.
+
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
+    bf16 with head width 64, 88 or 128, and launches attention_split.cu on
+    the q, k and v thirds as views, the biases added as the kernel loads q
+    and stages v; anything else raises. `fused_attention_qkv.launches`
+    counts bf16-out launches, `.quant_launches` int8-out ones."""
+    if not _on_cuda(qkv):
+        return fused_attention_qkv_ref(qkv, q_bias, v_bias, scale, num_heads,
+                                       quant_out=quant_out)
+    if qkv.dim() != 3:
+        raise ValueError(f"expected [B, S, 3*H*d], got {tuple(qkv.shape)}")
+    b, s, hd, d = _split(qkv, num_heads)
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 qkv, got "
+                        f"{qkv.dtype}")
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
+    qb, vb = (_bias_arg(t, hd, qkv.device) for t in (q_bias, v_bias))
+    if quant_out:
+        out = _launch_split_quant(q, k, v, scale, qb, vb)
+        fused_attention_qkv.quant_launches += 1
+        return out
+    out = torch.empty((b, s, hd), dtype=qkv.dtype, device=qkv.device)
+    _launch_split(q, k, v, None, split_heads(out, num_heads), scale, qb, vb)
+    fused_attention_qkv.launches += 1
+    return out
+
+
+fused_attention_qkv.launches = 0
+fused_attention_qkv.quant_launches = 0

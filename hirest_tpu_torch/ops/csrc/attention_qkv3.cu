@@ -1,11 +1,15 @@
 // K1 and K3: batched-heads softmax attention over fused, bias-complete qkv
 // rows, with bf16 output (K1) or an int8 row-quantization epilogue (K3).
+// K9 launches the same entry points.
 //
 // Replaces hirest_tpu/ops/attention.py::fused_attention_qkv3 (kernel bodies
 // _attn_heads_batched via _attn_kernel_qkv3, and _attn_kernel_qkv3_quant
-// with the pad-key mask _mask_pad_keys). For each (b, h), with q/k/v the
-// head-h column slices of qkv[b] and n_keys = min(n_real, S) (S when
-// n_real is 0):
+// with the pad-key mask _mask_pad_keys), and fused_attention_qkv2 (K9,
+// bodies _attn_kernel_qkv2 and _attn_kernel_qkv2_quant), which computes the
+// same function one head at a time: the loop over heads is TPU scheduling,
+// and this kernel's blocks are already one per (b, h). For each (b, h),
+// with q/k/v the head-h column slices of qkv[b] and n_keys = min(n_real, S)
+// (S when n_real is 0):
 //   s   = q k^T            f32, unscaled; keys >= n_keys excluded
 //   m   = rowmax(s)
 //   p   = bf16(exp2((s - m) * c)),  c = scale * log2(e)
@@ -44,9 +48,10 @@
 //   compute. Each block writes its f32 head output to a [B, S, H*D] workspace
 //   and folds its per-row max |o| into a zeroed [B, S] buffer with atomicMax
 //   on the bits of the non-negative float (monotone as unsigned integers).
-//   A second kernel then quantizes the workspace rows. This moves 370 MB
-//   more than the bound counts; a 16-block cluster reducing the row max in
-//   distributed shared memory would not.
+//   A second kernel then quantizes the workspace rows (rowquant.cuh, shared
+//   with K8's epilogue in attention_split.cu). This moves 370 MB more than
+//   the bound counts; a 16-block cluster reducing the row max in distributed
+//   shared memory would not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +59,7 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "rowquant.cuh"
 
 namespace {
 
@@ -171,27 +177,17 @@ __global__ void __launch_bounds__(kThreads, D > 96 ? 1 : 2)
     }
 
     if constexpr (kQuant) {
-      float* w0 = ws + ((size_t)b * S + r0) * hd + h * D + 2 * t;
-      float* w1 = w0 + 8 * (size_t)hd;
-      float a0 = 0.f, a1 = 0.f;
 #pragma unroll
       for (int dt = 0; dt < T::kOTiles; ++dt) {
-        const float y0 = __fdiv_rn(o[dt][0], l0), y1 = __fdiv_rn(o[dt][1], l0);
-        const float y2 = __fdiv_rn(o[dt][2], l1), y3 = __fdiv_rn(o[dt][3], l1);
-        a0 = fmaxf(a0, fmaxf(fabsf(y0), fabsf(y1)));
-        a1 = fmaxf(a1, fmaxf(fabsf(y2), fabsf(y3)));
-        if (r0 < S) *reinterpret_cast<float2*>(w0 + dt * 8) = make_float2(y0, y1);
-        if (r1 < S) *reinterpret_cast<float2*>(w1 + dt * 8) = make_float2(y2, y3);
+        o[dt][0] = __fdiv_rn(o[dt][0], l0);
+        o[dt][1] = __fdiv_rn(o[dt][1], l0);
+        o[dt][2] = __fdiv_rn(o[dt][2], l1);
+        o[dt][3] = __fdiv_rn(o[dt][3], l1);
       }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, off));
-        a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, off));
-      }
-      if (t == 0) {
-        if (r0 < S) atomicMax(rowmax + (size_t)b * S + r0, __float_as_uint(a0));
-        if (r1 < S) atomicMax(rowmax + (size_t)b * S + r1, __float_as_uint(a1));
-      }
+      float* w0 = ws + ((size_t)b * S + r0) * hd + h * D + 2 * t;
+      unsigned int* m0 = rowmax + (size_t)b * S + r0;
+      park_f32_tile<T::kOTiles>(o, w0, w0 + 8 * (size_t)hd, r0 < S, r1 < S,
+                                m0, m0 + 8, t);
     } else {
       __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * hd + h * D + 2 * t;
       __nv_bfloat16* o1 = o0 + 8 * (size_t)hd;
@@ -208,33 +204,6 @@ __global__ void __launch_bounds__(kThreads, D > 96 ? 1 : 2)
       }
     }
   }
-}
-
-// K3's second step: one warp per token row of the f32 workspace [rows, hd]
-// -> int8 codes and the row's scale, from the row max the first step left.
-__global__ void __launch_bounds__(kThreads)
-    attention_quant_rows_kernel(const float* __restrict__ ws,
-                                const unsigned int* __restrict__ rowmax,
-                                int8_t* __restrict__ q, float* __restrict__ s,
-                                int rows, int hd) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const float sc = fmaxf(__fdiv_rn(__uint_as_float(rowmax[row]), 127.f), 1e-8f);
-  const float4* src = reinterpret_cast<const float4*>(ws + (size_t)row * hd);
-  uint32_t* dst = reinterpret_cast<uint32_t*>(q + (size_t)row * hd);
-  for (int i = lane; i < hd / 4; i += 32) {
-    const float4 y = src[i];
-    const float yy[4] = {y.x, y.y, y.z, y.w};
-    uint32_t packed = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int code = max(-127, min(127, __float2int_rn(__fdiv_rn(yy[k], sc))));
-      packed |= (uint32_t)(uint8_t)(int8_t)code << (8 * k);
-    }
-    dst[i] = packed;
-  }
-  if (lane == 0) s[row] = sc;
 }
 
 template <int D, bool kQuant>
@@ -300,10 +269,9 @@ extern "C" int hirest_attention_qkv3_quant(const void* qkv, void* ws,
                                static_cast<unsigned int*>(rowmax), B, S, H, D,
                                n_keys, c, st);
   if (err != cudaSuccess) return (int)err;
-  attention_quant_rows_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const unsigned int*>(rowmax),
-      static_cast<int8_t*>(q), static_cast<float*>(s), rows, H * D);
-  return (int)cudaGetLastError();
+  return (int)launch_quant_rows(static_cast<const float*>(ws),
+                                static_cast<const unsigned int*>(rowmax), q, s,
+                                rows, H * D, st);
 }
 
 extern "C" const char* hirest_cuda_error_string(int err) {

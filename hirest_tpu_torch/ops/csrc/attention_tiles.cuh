@@ -1,6 +1,7 @@
 // Tensor-core pieces shared by the attention kernels (attention_qkv3.cu,
 // attention_split.cu): mma.sync m16n8k16 bf16 with f32 accumulation, the
-// shared-memory layout of a staged head, and one 16x8 tile of QK^T.
+// shared-memory layout of a staged head, one 16x8 tile of QK^T, and the
+// bf16 bias adds of K8 as q is loaded and v staged.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,17 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Two bf16 pairs added as PyTorch adds bf16 tensors: the f32 sum of each
+// pair, rounded once to bf16.
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&b);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(__fadd_rn(__low2float(x), __low2float(y)),
+                            __fadd_rn(__high2float(x), __high2float(y)));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // One 16x8 tile of scores: query rows of the warp's tile against keys
 // [8*nt, 8*nt + 8) of k staged row-major with row stride Tile<D>::kKStride.
 // Lane (g, t) holds rows g and g+8, keys 2t and 2t+1.
@@ -52,31 +64,48 @@ __device__ __forceinline__ void qk_tile(float (&s)[4],
     mma_bf16(s, qa[kc], ld_u32(krow + kc * 16), ld_u32(krow + kc * 16 + 8));
 }
 
+// One pair of q values (row r, columns c and c + 1), plus the pair of the
+// bias when there is one; zero past `rows` and past D.
+template <int D>
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qg,
+                                           long long rs, int r, int c,
+                                           int rows,
+                                           const __nv_bfloat16* bias) {
+  if (r >= rows || c >= D) return 0u;
+  const uint32_t x = ld_u32(qg + r * rs + c);
+  return bias == nullptr ? x : add_bf16x2(x, ld_u32(bias + c));
+}
+
 // Load the A fragments of a 16-row query tile (rows r0 and r0 + 8 of this
-// lane, row stride `rs`), zero past `rows` and past D.
+// lane, row stride `rs`), zero past `rows` and past D. With `bias` (the
+// head's D values) each q value gets its bias added in bf16.
 template <int D>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[Tile<D>::kChunks][4],
                                        const __nv_bfloat16* qg, long long rs,
-                                       int r0, int rows, int t) {
+                                       int r0, int rows, int t,
+                                       const __nv_bfloat16* bias = nullptr) {
   const int r1 = r0 + 8;
 #pragma unroll
   for (int kc = 0; kc < Tile<D>::kChunks; ++kc) {
     const int c0 = kc * 16 + 2 * t, c1 = c0 + 8;
-    qa[kc][0] = (r0 < rows && c0 < D) ? ld_u32(qg + r0 * rs + c0) : 0u;
-    qa[kc][1] = (r1 < rows && c0 < D) ? ld_u32(qg + r1 * rs + c0) : 0u;
-    qa[kc][2] = (r0 < rows && c1 < D) ? ld_u32(qg + r0 * rs + c1) : 0u;
-    qa[kc][3] = (r1 < rows && c1 < D) ? ld_u32(qg + r1 * rs + c1) : 0u;
+    qa[kc][0] = q_pair<D>(qg, rs, r0, c0, rows, bias);
+    qa[kc][1] = q_pair<D>(qg, rs, r1, c0, rows, bias);
+    qa[kc][2] = q_pair<D>(qg, rs, r0, c1, rows, bias);
+    qa[kc][3] = q_pair<D>(qg, rs, r1, c1, rows, bias);
   }
 }
 
 // Stage one head's k (row-major, rows >= n zero) and v^T (columns >= n
 // zero) in shared memory, and zero k's padded columns D..kKStride. Row
-// strides ks_g / vs_g in elements; 16-byte aligned rows.
+// strides ks_g / vs_g in elements; 16-byte aligned rows. With `vbias` (the
+// head's D values, 16-byte aligned) each v value of rows < n gets its bias
+// added in bf16.
 template <int D, int kThreads>
 __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
                                          const __nv_bfloat16* kg, long long ks_g,
                                          const __nv_bfloat16* vg, long long vs_g,
-                                         int n, int s_pad, int vt_stride) {
+                                         int n, int s_pad, int vt_stride,
+                                         const __nv_bfloat16* vbias = nullptr) {
   using T = Tile<D>;
   for (int i = threadIdx.x; i < s_pad * T::kVecs; i += kThreads) {
     const int r = i / T::kVecs, c = i % T::kVecs;
@@ -84,6 +113,11 @@ __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
     if (r < n) {
       kv = *reinterpret_cast<const uint4*>(kg + r * ks_g + c * 8);
       vv = *reinterpret_cast<const uint4*>(vg + r * vs_g + c * 8);
+      if (vbias != nullptr) {
+        const uint4 bv = *reinterpret_cast<const uint4*>(vbias + c * 8);
+        vv = make_uint4(add_bf16x2(vv.x, bv.x), add_bf16x2(vv.y, bv.y),
+                        add_bf16x2(vv.z, bv.z), add_bf16x2(vv.w, bv.w));
+      }
     }
     *reinterpret_cast<uint4*>(ks + r * T::kKStride + c * 8) = kv;
     const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);

@@ -1,30 +1,38 @@
-// K2: LayerNorm in f32 followed by per-row symmetric int8 quantization.
+// K2: LayerNorm in f32 followed by per-row symmetric int8 quantization, and
+// K10: the same LayerNorm written back in bf16.
 //
-// Replaces hirest_tpu/ops/quant.py::ln_quant (kernel body _ln_quant_kernel).
-// For each row x of [M, C] (bf16 in), with g, b the f32 LayerNorm params:
+// K2 replaces hirest_tpu/ops/quant.py::ln_quant (kernel body
+// _ln_quant_kernel), K10 hirest_tpu/ops/quant.py::ln_bf16 (kernel body
+// _ln_kernel_flat). For each row x of [M, C] (bf16 in), with g, b the f32
+// LayerNorm params:
 //   mu  = mean(x),  xc = x - mu,  var = mean(xc * xc)          (two passes)
-//   y   = (xc * rsqrt(var + eps)) * g + b                       (f32, never bf16)
-//   s   = max(max|y| / 127, 1e-8)
-//   q   = clamp(round_half_even(y / s), -127, 127)              (IEEE division)
+//   y   = (xc * rsqrt(var + eps)) * g + b                       (f32)
+// K2: s = max(max|y| / 127, 1e-8), q = clamp(round_half_even(y / s), +-127)
+//     (IEEE division; y is never rounded to bf16).
+// K10: out = bf16(y), which is eva_scan._ln's arithmetic.
 //
-// Bound on an H100 SXM (EVA-g, M = 128 * 257 = 32896, C = 1408): the call
-// reads x (92.6 MB) and writes q (46.3 MB) and s: 139 MB, 0.0415 ms at
-// 3.35 TB/s; its few f32 operations per element are far below the f32 rate.
-// It is bound by memory.
+// Bound on an H100 SXM (EVA-g, M = 128 * 257 = 32896, C = 1408): K2 reads
+// x (92.6 MB) and writes q (46.3 MB) and s: 139 MB, 0.0415 ms at 3.35 TB/s;
+// K10 reads x and writes 92.6 MB of bf16: 185.3 MB, 0.0553 ms. Their few f32
+// operations per element are far below the f32 rate. Both are bound by
+// memory.
 //
 // Design: one warp per row. The row stays in registers (C / 32 values a
-// lane) between the passes, so x is read from device memory once and q
-// written once: the traffic is the bound's. Loads are 8 bytes a lane,
-// neighbouring lanes on neighbouring addresses. Products and sums that the
-// reference rounds one by one use __fmul_rn / __fadd_rn, so nvcc cannot
-// contract them into FMAs; the row reductions run in another order than the
-// plain version's, and rsqrtf is not correctly rounded, so a code may differ
-// by one from it.
+// lane) between the passes, so x is read from device memory once and the
+// output written once: the traffic is the bound's. Loads and stores are 8
+// bytes a lane (4 values), neighbouring lanes on neighbouring addresses.
+// Products and sums that the reference rounds one by one use __fmul_rn /
+// __fadd_rn, so nvcc cannot contract them into FMAs; the row reductions run
+// in another order than the plain version's, and rsqrtf is not correctly
+// rounded, so a code may differ by one from it, and a K10 output by one
+// bf16 ulp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "rowquant.cuh"
 
 namespace {
 
@@ -46,22 +54,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t code4(const float (&y)[4], float s) {
-  uint32_t packed = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int c = __float2int_rn(__fdiv_rn(y[k], s));
-    c = max(-127, min(127, c));
-    packed |= (uint32_t)(uint8_t)(int8_t)c << (8 * k);
-  }
-  return packed;
-}
-
+// kQuant: codes to q and scales to s (K2); else bf16 to y (K10).
+template <bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-    ln_quant_kernel(const __nv_bfloat16* __restrict__ x,
-                    const float* __restrict__ g, const float* __restrict__ b,
-                    int8_t* __restrict__ q, float* __restrict__ s, int M,
-                    int C, float eps) {
+    ln_kernel(const __nv_bfloat16* __restrict__ x,
+              const float* __restrict__ g, const float* __restrict__ b,
+              int8_t* __restrict__ q, float* __restrict__ s,
+              __nv_bfloat16* __restrict__ y, int M, int C, float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= M) return;
@@ -118,15 +117,33 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  const float sc = fmaxf(__fdiv_rn(warp_max(amax), 127.f), 1e-8f);
 
-  uint32_t* qr = reinterpret_cast<uint32_t*>(q + (size_t)row * C);
+  if constexpr (kQuant) {
+    const float sc = row_scale(warp_max(amax));
+    uint32_t* qr = reinterpret_cast<uint32_t*>(q + (size_t)row * C);
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    const int vi = i * 32 + lane;
-    if (vi < nvec) qr[vi] = code4(v[i], sc);
+    for (int i = 0; i < kMaxVecs; ++i) {
+      const int vi = i * 32 + lane;
+      if (vi < nvec) qr[vi] = code4(v[i], sc);
+    }
+    if (lane == 0) s[row] = sc;
+  } else {
+    uint2* yr = reinterpret_cast<uint2*>(y + (size_t)row * C);
+#pragma unroll
+    for (int i = 0; i < kMaxVecs; ++i) {
+      const int vi = i * 32 + lane;
+      if (vi < nvec) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[i][0], v[i][1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[i][2], v[i][3]);
+        yr[vi] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                            *reinterpret_cast<const uint32_t*>(&hi));
+      }
+    }
   }
-  if (lane == 0) s[row] = sc;
+}
+
+bool bad_shape(int M, int C) {
+  return M <= 0 || C <= 0 || C % 4 || C > kMaxVecs * 128;
 }
 
 }  // namespace
@@ -136,13 +153,24 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int hirest_ln_quant(const void* x, const void* g, const void* b,
                                void* q, void* s, int M, int C, float eps,
                                void* stream) {
-  if (M <= 0 || C <= 0 || C % 4 || C > kMaxVecs * 128)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(M, C)) return (int)cudaErrorInvalidValue;
   const int blocks = (M + kWarps - 1) / kWarps;
-  ln_quant_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  ln_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
       static_cast<const float*>(b), static_cast<int8_t*>(q),
-      static_cast<float*>(s), M, C, eps);
+      static_cast<float*>(s), nullptr, M, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// As above with the LayerNorm written to y [M, C] bf16 (K10).
+extern "C" int hirest_ln_bf16(const void* x, const void* g, const void* b,
+                              void* y, int M, int C, float eps, void* stream) {
+  if (bad_shape(M, C)) return (int)cudaErrorInvalidValue;
+  const int blocks = (M + kWarps - 1) / kWarps;
+  ln_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(b), nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(y), M, C, eps);
   return (int)cudaGetLastError();
 }
 

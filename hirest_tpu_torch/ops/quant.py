@@ -1,12 +1,14 @@
-"""Int8 pieces of the EVA vision trunk.
+"""Int8 pieces of the EVA vision trunk, and its bf16 LayerNorm kernel.
 
-Counterpart of hirest_tpu/ops/quant.py (ln_quant, fused_mlp_int8) and of the
-int8 helpers of hirest_tpu/models/eva_scan.py (_quantize_stacked,
-_dyn_quant_rows, _int8_mm). Weights keep nn.Linear's [out, in] layout, so
-both operands of every int8 product are contiguous along the reduced axis.
+Counterpart of hirest_tpu/ops/quant.py (ln_quant, act_quant, ln_bf16,
+fused_mlp_int8) and of the int8 helpers of hirest_tpu/models/eva_scan.py
+(_quantize_stacked, _dyn_quant_rows, _int8_mm). Weights keep nn.Linear's
+[out, in] layout, so both operands of every int8 product are contiguous
+along the reduced axis.
 
-Two kernels live here, each a hand-written CUDA kernel with a plain PyTorch
-version beside it: `ln_quant` (K2, csrc/ln_quant.cu) and `fused_mlp_int8`
+Four kernels live here, each a hand-written CUDA kernel with a plain
+PyTorch version beside it: `ln_quant` (K2) and `ln_bf16` (K10), both in
+csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu) and `fused_mlp_int8`
 (K4, csrc/fused_mlp_int8.cu). A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises. The qkv and out projections
 (`int8_mm`) are int8 x int8 -> int32 products that the JAX package leaves
@@ -30,8 +32,10 @@ from hirest_tpu_torch.ops import build
 
 N_CHUNK = 1024  # hidden units per requant scale in the fused MLP
 ACTS = {"gelu_poly": 0, "gelu": 1}  # activation name -> kernel selector
+QUANT_ACTS = {**ACTS, "none": 2}  # act_quant also quantizes without one
 KERNEL_WIDTH = 1408  # trunk width the fused-MLP kernel is built for
 LN_MAX_WIDTH = 2048  # widest row the ln_quant kernel holds in registers
+ACT_MAX_WIDTH = 8192  # widest row the act_quant kernel holds in a block
 
 
 def _scale_and_codes(y: torch.Tensor, dim: int = -1):
@@ -69,50 +73,69 @@ def int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype) -> torch.Tensor:
     return out.to(out_dtype)
 
 
-# --- K2: LayerNorm + per-row int8 quantization ---------------------------
+# --- K2 and K10: LayerNorm, quantized per row or written back -------------
 
 
-def ln_quant_ref(x, weight, bias, eps: float):
-    """Plain version of K2: f32 two-pass LayerNorm of x [M, C], kept in f32
-    into the row quantization -> (q int8 [M, C], s f32 [M, 1])."""
+def _ln_f32(x, weight, bias, eps: float):
+    """eva_scan._ln's arithmetic, kept in f32: two-pass mean and variance of
+    x [..., C], then (x - mean) * rsqrt(var + eps) * weight + bias."""
     x32 = x.float()
     xc = x32 - x32.mean(-1, keepdim=True)
     var = (xc * xc).mean(-1, keepdim=True)
-    y = xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
-    return _scale_and_codes(y)
+    return xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
 
 
-def _ln_quant_fn():
-    fn = build.load("ln_quant").hirest_ln_quant
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
+def ln_quant_ref(x, weight, bias, eps: float):
+    """Plain version of K2: f32 two-pass LayerNorm of x [..., C], kept in
+    f32 into the row quantization -> (q int8 like x, s f32 [..., 1])."""
+    return _scale_and_codes(_ln_f32(x, weight, bias, eps))
+
+
+def ln_bf16_ref(x, weight, bias, eps: float):
+    """Plain version of K10: the f32 two-pass LayerNorm of x [..., C] cast
+    to x's dtype, eva_scan._ln exactly."""
+    return _ln_f32(x, weight, bias, eps).to(x.dtype)
+
+
+def _ln_fn(entry: str, n_outputs: int):
+    fn = getattr(build.load("ln_quant"), entry)
+    fn.argtypes = [ctypes.c_void_p] * (3 + n_outputs) + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def ln_quant(x, weight, bias, eps: float):
-    """LayerNorm + per-row int8 quantization of x [M, C] -> (q int8 [M, C],
-    s f32 [M, 1]); weight and bias [C] are applied in f32.
+def _bf16_rows(x, what: str, max_width: int = LN_MAX_WIDTH):
+    """x as the contiguous bf16 [M, C] rows the row kernels (K2, K5, K10)
+    take, C a multiple of 4 up to max_width."""
+    _require_cuda(x)
+    if x.dim() < 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise TypeError(f"{what}'s kernel takes contiguous bf16 [..., C], "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    c = x.shape[-1]
+    if c % 4 or c > max_width:
+        raise ValueError(f"{what}'s kernel takes C % 4 == 0 and C <= "
+                         f"{max_width}, got {c}")
+    return x.view(-1, c)
 
-    A CPU tensor takes the plain version. A CUDA tensor must be a
-    contiguous bf16 [M, C] with C a multiple of 4 up to 2048, and launches
-    the kernel; anything else raises. `ln_quant.launches` counts launches."""
+
+def ln_quant(x, weight, bias, eps: float):
+    """LayerNorm + per-row int8 quantization of x [..., C] -> (q int8 like
+    x, s f32 [..., 1]); weight and bias [C] are applied in f32.
+
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
+    bf16 with C a multiple of 4 up to 2048, and launches the kernel;
+    anything else raises. `ln_quant.launches` counts launches."""
     if x.device.type == "cpu":
         return ln_quant_ref(x, weight, bias, eps)
-    _require_cuda(x)
-    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise TypeError(f"ln_quant's kernel takes contiguous bf16 [M, C], "
-                        f"got {x.dtype} {tuple(x.shape)}")
-    m, c = x.shape
-    if c % 4 or c > LN_MAX_WIDTH:
-        raise ValueError(f"ln_quant's kernel takes C % 4 == 0 and C <= "
-                         f"{LN_MAX_WIDTH}, got {c}")
+    rows = _bf16_rows(x, "ln_quant")
+    m, c = rows.shape
     g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
-    q = torch.empty((m, c), dtype=torch.int8, device=x.device)
-    s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    fn = _ln_quant_fn()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    fn = _ln_fn("hirest_ln_quant", 2)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
+        err = fn(rows.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
                  s.data_ptr(), m, c, eps,
                  torch.cuda.current_stream().cuda_stream)
     build.check(build.load("ln_quant"), err, "ln_quant launch")
@@ -120,15 +143,84 @@ def ln_quant(x, weight, bias, eps: float):
     return q, s
 
 
+def ln_bf16(x, weight, bias, eps: float):
+    """LayerNorm of x [..., C] in f32, written back in x's dtype (the bf16
+    trunk's `fused_ln`); weight and bias [C] are applied in f32.
+
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
+    bf16 with C a multiple of 4 up to 2048, and launches the kernel;
+    anything else raises. `ln_bf16.launches` counts launches."""
+    if x.device.type == "cpu":
+        return ln_bf16_ref(x, weight, bias, eps)
+    rows = _bf16_rows(x, "ln_bf16")
+    m, c = rows.shape
+    g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
+    y = torch.empty_like(x)
+    fn = _ln_fn("hirest_ln_bf16", 1)
+    with torch.cuda.device(x.device):
+        err = fn(rows.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 m, c, eps, torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("ln_quant"), err, "ln_bf16 launch")
+    ln_bf16.launches += 1
+    return y
+
+
 ln_quant.launches = 0
+ln_bf16.launches = 0
+
+
+# --- K5: optional activation + per-row int8 quantization -----------------
+
+
+def act_quant_ref(x, *, act: str = "none"):
+    """Plain version of K5: act ("gelu_poly", "gelu" or "none") of x
+    [..., C] in f32, then per-row int8 -> (codes shaped like x, f32 scales
+    [..., 1])."""
+    return _scale_and_codes(_act(act, QUANT_ACTS)(x.float()))
+
+
+def _act_quant_fn():
+    fn = build.load("act_quant").hirest_act_quant
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def act_quant(x, *, act: str = "none"):
+    """Optional GELU and per-row int8 quantization of x [..., C] ->
+    (q int8 like x, s f32 [..., 1]), q * s ~= act(x); act is "gelu_poly"
+    (gelu_bf16_poly), "gelu" (exact erf) or "none".
+
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
+    bf16 with C a multiple of 4 up to 8192, and launches the kernel;
+    anything else raises. `act_quant.launches` counts launches."""
+    if x.device.type == "cpu":
+        return act_quant_ref(x, act=act)
+    _act(act, QUANT_ACTS)
+    m, c = _bf16_rows(x, "act_quant", ACT_MAX_WIDTH).shape
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    fn = _act_quant_fn()
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), m, c,
+                 QUANT_ACTS[act], torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("act_quant"), err, "act_quant launch")
+    act_quant.launches += 1
+    return q, s
+
+
+act_quant.launches = 0
 
 
 # --- K4: fc1 -> act -> per-(row, chunk) requant -> fc2 -> + residual ------
 
 
-def _act(name: str):
-    if name not in ACTS:
-        raise ValueError(f"act must be one of {sorted(ACTS)}, got {name!r}")
+def _act(name: str, acts=ACTS):
+    if name not in acts:
+        raise ValueError(f"act must be one of {sorted(acts)}, got {name!r}")
+    if name == "none":
+        return lambda y: y
     return gelu_bf16_poly if name == "gelu_poly" else (
         lambda y: F.gelu(y, approximate="none"))
 

@@ -2,7 +2,9 @@
 the JAX package's Pallas kernels (interpret mode): K1 and K3
 (fused_attention_qkv3) at the real EVA-g attention shape [2, 257, 4224],
 H=16, d=88, and at the padded head width 128; K6 (fused_attention) and K7
-(fused_attention_packed) at the JAX package's own test shapes and EVA-g's.
+(fused_attention_packed) at the JAX package's own test shapes and EVA-g's;
+K8 (fused_attention_qkv, v1) and K9 (fused_attention_qkv2, v2) at EVA-g's
+shape and a small one.
 
 On the CPU the port's wrapper takes its plain version, so these tests hold
 the plain version's arithmetic against the TPU kernel's; the CUDA kernel is
@@ -18,12 +20,18 @@ from torch_port_util import assert_codes_close
 from hirest_tpu.ops.attention import fused_attention as jax_fused_attention
 from hirest_tpu.ops.attention import \
     fused_attention_packed as jax_fused_attention_packed
+from hirest_tpu.ops.attention import fused_attention_qkv as jax_qkv1
+from hirest_tpu.ops.attention import fused_attention_qkv2 as jax_qkv2
 from hirest_tpu.ops.attention import fused_attention_qkv3 as jax_qkv3
 from hirest_tpu_torch.ops.attention import (fused_attention,
                                             fused_attention_packed,
                                             fused_attention_packed_ref,
+                                            fused_attention_qkv,
+                                            fused_attention_qkv2,
+                                            fused_attention_qkv2_ref,
                                             fused_attention_qkv3,
                                             fused_attention_qkv3_ref,
+                                            fused_attention_qkv_ref,
                                             fused_attention_ref)
 
 B, S, H, D = 2, 257, 16, 88
@@ -301,3 +309,152 @@ def test_split_cpu_calls_take_plain_versions_without_counting():
                        fused_attention_packed_ref(pq, pk, pv, scale, 4))
     assert (fused_attention.launches,
             fused_attention_packed.launches) == before
+
+
+# --- K8: v1 attention, q/v biases added in the kernel ----------------------
+
+# (B, S, H, d): EVA-g's attention and a small one of the JAX tests' kind
+QKV_CASES = {"eva_g": (2, 257, 16, 88), "small": (2, 17, 4, 8)}
+
+
+def _qkv_and_biases(case, seed):
+    b, s, h, d = QKV_CASES[case]
+    rng = np.random.default_rng(seed)
+    qkv = (rng.normal(size=(b, s, 3 * h * d)) * 0.5).astype(np.float32)
+    # nonzero biases of the size the qkv values have, so that adding them
+    # moves the scores
+    qb, vb = (rng.normal(size=h * d).astype(np.float32) * 0.5
+              for _ in range(2))
+    return qkv, qb, vb, h, d ** -0.5
+
+
+@pytest.mark.parametrize("quant_out", [False, True], ids=["bf16out", "quant"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(QKV_CASES))
+def test_qkv_v1_plain_matches_jax_pallas(case, dtype, quant_out):
+    """K8's plain version against the JAX Pallas kernel
+    `fused_attention_qkv` (interpret mode), biases nonzero. f32 within
+    1e-5 (K6's softmax in another summation order); bf16 at K6's bar, one
+    bf16 ulp of the output's largest magnitude (the biases are added in
+    bf16 in both, p may round the other way at a boundary). quant_out:
+    scales within 1e-5 (f32) or 2**-7 (bf16), codes within one and equal on
+    99.9 % (f32) or 99 % (bf16), K3's bars."""
+    x, qb, vb, h, scale = _qkv_and_biases(case, seed=40)
+    jdt, tdt = _dtypes(dtype)
+    want = jax_qkv1(jnp.asarray(x, jdt), jnp.asarray(qb), jnp.asarray(vb),
+                    scale, h, interpret=True, quant_out=quant_out)
+    got = fused_attention_qkv(torch.from_numpy(x).to(tdt),
+                              torch.from_numpy(qb), torch.from_numpy(vb),
+                              scale, h, quant_out=quant_out)
+    f32 = dtype == "float32"
+    if quant_out:
+        (q, sc), (jq, js) = got, want
+        assert q.dtype == torch.int8 and q.shape == (*x.shape[:2],
+                                                     x.shape[-1] // 3)
+        assert sc.dtype == torch.float32 and sc.shape == (*x.shape[:2], 1)
+        np.testing.assert_allclose(sc.numpy(), np.asarray(js),
+                                   rtol=1e-5 if f32 else 2 ** -7)
+        assert_codes_close(q.numpy(), np.asarray(jq), 0.999 if f32 else 0.99)
+    else:
+        assert got.dtype == tdt and got.shape == (*x.shape[:2],
+                                                  x.shape[-1] // 3)
+        want = np.asarray(want.astype(jnp.float32))
+        if f32:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            _assert_attention_close(got, want, dtype)
+
+
+def test_qkv_v1_is_split_attention_on_biased_thirds():
+    """K8 adds the biases in qkv's dtype and then computes K6's function:
+    bit-equal in f32 to K7's plain version on the biased thirds, and the
+    biases matter. The v1 softmax is not v3's: they differ beyond f32
+    rounding in bf16."""
+    x, qb, vb, h, scale = _qkv_and_biases("small", seed=41)
+    t = torch.from_numpy(x)
+    q, k, v = t.chunk(3, -1)
+    tqb, tvb = torch.from_numpy(qb), torch.from_numpy(vb)
+    got = fused_attention_qkv(t, tqb, tvb, scale, h)
+    assert torch.equal(got, fused_attention_packed_ref(q + tqb, k, v + tvb,
+                                                       scale, h))
+    zero = torch.zeros_like(tqb)
+    assert (got - fused_attention_qkv(t, zero, zero, scale, h)).abs().max() > 0.1
+    tb = t.bfloat16()
+    v1 = fused_attention_qkv(tb, zero, zero, scale, h).float()
+    v3 = fused_attention_qkv3(tb, scale, h).float()
+    assert not torch.equal(v1, v3)
+
+
+def test_qkv_v1_cpu_calls_count_nothing():
+    x, qb, vb, h, scale = _qkv_and_biases("small", seed=42)
+    t, tqb, tvb = (torch.from_numpy(a) for a in (x, qb, vb))
+    before = (fused_attention_qkv.launches,
+              fused_attention_qkv.quant_launches)
+    for quant_out in (False, True):
+        got = fused_attention_qkv(t, tqb, tvb, scale, h, quant_out=quant_out)
+        want = fused_attention_qkv_ref(t, tqb, tvb, scale, h,
+                                       quant_out=quant_out)
+        for a, w in zip(*((got, want) if quant_out else ((got,), (want,)))):
+            assert torch.equal(a, w)
+    assert (fused_attention_qkv.launches,
+            fused_attention_qkv.quant_launches) == before
+
+
+# --- K9: v2 attention, K1/K3's function head by head on the TPU ------------
+
+
+@pytest.mark.parametrize("s,n_real", [(257, 0), (264, 257)])
+@pytest.mark.parametrize("quant_out", [False, True], ids=["bf16out", "quant"])
+def test_qkv_v2_plain_matches_jax_pallas(quant_out, s, n_real):
+    """K9's plain version against the JAX Pallas kernel
+    `fused_attention_qkv2` (interpret mode) at EVA-g's shape, unpadded and
+    token-padded to 264 with the pad keys masked, in f32 at K1/K3's bars:
+    outputs within 2e-5, scales within 2e-5 and codes within one and equal
+    on 99.9 %."""
+    x = (np.random.default_rng(43).normal(size=(B, s, 3 * H * D))
+         * 0.5).astype(np.float32)
+    want = jax_qkv2(jnp.asarray(x), SCALE, H, interpret=True,
+                    quant_out=quant_out, n_real=n_real)
+    got = fused_attention_qkv2(torch.from_numpy(x), SCALE, H,
+                               quant_out=quant_out, n_real=n_real)
+    if quant_out:
+        (q, sc), (jq, js) = got, want
+        assert q.dtype == torch.int8 and q.shape == (B, s, H * D)
+        np.testing.assert_allclose(sc.numpy(), np.asarray(js), rtol=2e-5)
+        assert_codes_close(q.numpy(), np.asarray(jq), 0.999)
+    else:
+        assert got.shape == (B, s, H * D)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_qkv_v2_bf16_plain_matches_jax_pallas():
+    """bf16 in and out at K1's bar (rtol 2**-7, atol 2**-12)."""
+    x = _qkv(44)
+    want = np.asarray(jax_qkv2(jnp.asarray(x, jnp.bfloat16), SCALE, H,
+                               interpret=True).astype(jnp.float32))
+    got = fused_attention_qkv2(torch.from_numpy(x).bfloat16(), SCALE, H)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=2 ** -12)
+
+
+def test_qkv_v2_is_v3_and_counts_apart():
+    """v2 and v3 are one function (their plain versions are one), and a
+    CPU call counts neither kernel's launches."""
+    x = torch.from_numpy(_qkv(45)).bfloat16()
+    before = (fused_attention_qkv2.launches,
+              fused_attention_qkv2.quant_launches,
+              fused_attention_qkv3.launches,
+              fused_attention_qkv3.quant_launches)
+    assert fused_attention_qkv2_ref is fused_attention_qkv3_ref
+    assert torch.equal(fused_attention_qkv2(x, SCALE, H),
+                       fused_attention_qkv3(x, SCALE, H))
+    q2, s2 = fused_attention_qkv2(x, SCALE, H, quant_out=True, n_real=200)
+    q3, s3 = fused_attention_qkv3(x, SCALE, H, quant_out=True, n_real=200)
+    assert torch.equal(q2, q3) and torch.equal(s2, s3)
+    assert (fused_attention_qkv2.launches,
+            fused_attention_qkv2.quant_launches,
+            fused_attention_qkv3.launches,
+            fused_attention_qkv3.quant_launches) == before

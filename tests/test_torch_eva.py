@@ -56,7 +56,7 @@ def test_forward_matches_jax_v3_forward(fast_gelu):
                                 use_pallas=True, attn_v3=True,
                                 interpret=True, dtype=jnp.float32,
                                 fast_gelu=fast_gelu)(jnp.asarray(im)))
-    got = _port(sd, PACKED, fast_gelu=fast_gelu)(im).numpy()
+    got = _port(sd, PACKED, attn_v3=True, fast_gelu=fast_gelu)(im).numpy()
     assert got.shape == (4, PACKED["embed_dim"]) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
@@ -109,7 +109,7 @@ def test_bf16_forward_close_to_f32_reference():
                                 use_pallas=True, attn_v3=True,
                                 interpret=True,
                                 dtype=jnp.float32)(jnp.asarray(im)))
-    got = _port(sd, PACKED, dtype=torch.bfloat16)(im)
+    got = _port(sd, PACKED, attn_v3=True, dtype=torch.bfloat16)(im)
     assert got.dtype == torch.float32
     assert np.all(cosine(got.numpy(), want) > 0.99)
 
@@ -179,6 +179,8 @@ WIDE = dict(image_size=28, layers=2, width=512, head_width=32, mlp_ratio=4.0,
 JAX_INT8 = dict(int8=True, fused_quant=True, attn_v3=True, flat2d=True,
                 pad_tokens=True, fused_mlp=True, use_pallas=True,
                 interpret=True)
+# and the port's: the same flags less the TPU layout ones
+PORT_INT8 = dict(int8=True, fused_quant=True, attn_v3=True, fused_mlp=True)
 
 
 def _jax_int8(sd, spec, images_, **kw):
@@ -196,7 +198,7 @@ def test_int8_forward_matches_jax(spec, fast_gelu):
     (test_eva_scan.py:111, :216)."""
     sd, im = eva_state_dict(spec, seed=11), images(spec, 4, seed=11)
     want = _jax_int8(sd, spec, im, fast_gelu=fast_gelu)
-    got = _port(sd, spec, int8=True, fast_gelu=fast_gelu)(im).numpy()
+    got = _port(sd, spec, **PORT_INT8, fast_gelu=fast_gelu)(im).numpy()
     assert got.shape == (4, spec["embed_dim"]) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
 
@@ -206,7 +208,7 @@ def test_int8_bf16_forward_close_to_jax():
     within the JAX int8 bar (cosine > 0.98, test_eva_scan.py:57) of the f32
     float forward."""
     sd, im = eva_state_dict(WIDE, seed=12), images(WIDE, 4, seed=12)
-    got = _port(sd, WIDE, int8=True, dtype=torch.bfloat16)(im).numpy()
+    got = _port(sd, WIDE, **PORT_INT8, dtype=torch.bfloat16)(im).numpy()
     assert np.all(cosine(got, _jax_int8(sd, WIDE, im)) > 0.99)
     assert np.all(cosine(got, _port(sd, WIDE)(im).numpy()) > 0.98)
 
@@ -218,7 +220,7 @@ def test_int8_uint8_input_matches_jax():
     u8 = np.random.default_rng(13).integers(0, 256, size=(3, 28, 28, 3),
                                             dtype=np.uint8)
     want = _jax_int8(sd, PACKED, u8, uint8_input=True)
-    got = _port(sd, PACKED, int8=True, uint8_input=True)(u8).numpy()
+    got = _port(sd, PACKED, **PORT_INT8, uint8_input=True)(u8).numpy()
     assert np.all(cosine(got, want) > 0.99)
 
 

@@ -233,8 +233,10 @@ def test_padded_scanned_matches_jax(mode):
     want = np.asarray(jax_build(jparams, jcfg, use_pallas=True,
                                 interpret=True, dtype=jnp.float32,
                                 **flags)(jnp.asarray(im)))
+    int8 = mode == "int8"
     got = build_scanned_vision_apply(
-        psd, pcfg, device="cpu", int8=mode == "int8",
+        psd, pcfg, device="cpu", int8=int8, attn_v3=True, fused_quant=int8,
+        fused_mlp=int8,
         dtype=torch.bfloat16 if mode == "bf16" else torch.float32)(im)
     got = got.numpy()
     if mode == "bf16":

@@ -1,5 +1,6 @@
 """The port stands alone: every hirest_tpu_torch module imports and tiny
-bf16, int8, unrolled and text forwards run with jax and flax blocked,
+forwards (the scanned tower in each kernel flag configuration, unrolled,
+text) run with jax and flax blocked,
 without loading any hirest_tpu module; its entry points refuse to fall back
 to the CPU on their own; and chip_smoke.py refuses to report success where
 there is no GPU."""
@@ -33,11 +34,17 @@ from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
 from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
 from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
 from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
-cfg = EvaVisionConfig(image_size=28, layers=2, width=64, head_width=16,
+cfg = EvaVisionConfig(image_size=28, layers=2, width=128, head_width=32,
                       mlp_ratio=4.0, patch_size=14, embed_dim=32)
-outs = [build_scanned_vision_apply(random_eva_vision_state_dict(cfg), cfg,
-                                   int8=int8, device="cpu")(
-            np.zeros((2, 28, 28, 3))) for int8 in (False, True)]
+sd = random_eva_vision_state_dict(cfg)
+# the defaults (v1), then each kernel flag configuration of the ladder,
+# the production int8 one last
+flag_sets = [{}, dict(attn_v2=True), dict(attn_v3=True, fused_ln=True),
+             dict(int8=True), dict(int8=True, fused_quant=True),
+             dict(int8=True, fused_quant=True, attn_v2=True),
+             dict(int8=True, fused_quant=True, attn_v3=True, fused_mlp=True)]
+outs = [build_scanned_vision_apply(sd, cfg, device="cpu", **flags)(
+            np.zeros((2, 28, 28, 3))) for flags in flag_sets]
 tcfg = EvaTextConfig(context_length=8, vocab_size=50, width=32, heads=2,
                      layers=1, embed_dim=32)
 model, _ = build_eva_model_and_transforms(text_config=tcfg,
@@ -67,7 +74,7 @@ def test_port_imports_and_runs_without_jax():
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
-    assert got["shapes"] == [[2, 32]] * 4 and got["finite"]
+    assert got["shapes"] == [[2, 32]] * 9 and got["finite"]
     for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
                 "hirest_tpu_torch.ops.quant",
                 "hirest_tpu_torch.models.eva_clip",

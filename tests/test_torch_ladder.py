@@ -1,0 +1,276 @@
+"""The kernel flag configurations of the scanned forward
+(hirest_tpu_torch/models/eva_scan.py::build_scanned_vision_apply) against
+the JAX package's: the forward of each configuration, which wrapper each
+block calls, and the staged-parameter guard.
+
+The configurations are the JAX bench ladder's (bench.py:817-823) with the
+TPU layout flags dropped. JAX runs its Pallas kernels in interpret mode;
+the port's wrappers take their plain versions on CPU tensors.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_util import (PACKED, TEXT_TINY, TINY, TINY224, configs,
+                             eva_state_dict, images, jax_params,
+                             text_configs)
+
+import hirest_tpu.models.eva_scan as jax_eva_scan
+import hirest_tpu.ops.quant as jax_quant
+import hirest_tpu_torch.models.eva_clip as eva_clip
+import hirest_tpu_torch.models.eva_scan as eva_scan
+from hirest_tpu.models.eva_scan import \
+    build_scanned_vision_apply as jax_build
+from hirest_tpu_torch.extraction.features import make_eva_encoder
+from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+                                              stage_scanned_params)
+
+# configuration -> flags, as chip_smoke.py's ladder phase names them
+LADDER = {
+    "bf16": {},
+    "bf16+v2": dict(attn_v2=True),
+    "bf16+v3+lnk": dict(attn_v3=True, fused_ln=True),
+    "int8": dict(int8=True),
+    "int8+fq": dict(int8=True, fused_quant=True),
+    "int8+fq+v2": dict(int8=True, fused_quant=True, attn_v2=True),
+    "int8+fq+v3": dict(int8=True, fused_quant=True, attn_v3=True),
+    "int8+v3": dict(int8=True, attn_v3=True),
+}
+
+
+def _jax(sd, spec, im, **flags):
+    return np.asarray(jax_build(jax_params(sd, spec), configs(spec)[0],
+                                use_pallas=True, interpret=True,
+                                dtype=jnp.float32, **flags)(jnp.asarray(im)))
+
+
+def _port(sd, spec, im, **flags):
+    return build_scanned_vision_apply(sd, configs(spec)[1], device="cpu",
+                                      dtype=torch.float32, **flags)(im).numpy()
+
+
+# both GELUs where the configuration computes one outside a kernel or in
+# K5: the fused-quant MLP without the fused kernel, and int8 dyn
+GELUS = [(name, fast) for name in LADDER
+         for fast in ((True, False) if name.startswith("int8") else (True,))]
+
+
+@pytest.mark.parametrize("name,fast_gelu", GELUS,
+                         ids=[f"{n}-{'poly' if f else 'erf'}"
+                              for n, f in GELUS])
+def test_configuration_matches_jax(name, fast_gelu):
+    """Each configuration in f32 at PACKED (128 wide, so v2 and v3 take
+    their kernels) against the JAX forward with the same flags: 2e-4 for
+    the float ones (the JAX package's Pallas-vs-XLA bar,
+    test_eva_scan.py:93), 2e-3 for int8 (its fused-quant bar,
+    test_eva_scan.py:111): a code that lands on the other side of a
+    rounding boundary moves an output by more than f32 rounding does."""
+    flags = LADDER[name]
+    sd, im = eva_state_dict(PACKED, seed=50), images(PACKED, 3, seed=50)
+    want = _jax(sd, PACKED, im, fast_gelu=fast_gelu, **flags)
+    got = _port(sd, PACKED, im, fast_gelu=fast_gelu, **flags)
+    assert got.shape == (3, PACKED["embed_dim"]) and np.isfinite(got).all()
+    tol = 2e-3 if flags.get("int8") else 2e-4
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_v1_and_v3_differ_and_v2_is_v3():
+    """v1 is another function than v3 (in bf16, where p's rounding shows),
+    while v2 computes v3's exactly."""
+    sd, im = eva_state_dict(PACKED, seed=51), images(PACKED, 3, seed=51)
+    run = {name: build_scanned_vision_apply(
+        sd, configs(PACKED)[1], device="cpu", **flags)(im)
+        for name, flags in (("v1", {}), ("v2", dict(attn_v2=True)),
+                            ("v3", dict(attn_v3=True)))}
+    assert torch.equal(run["v2"], run["v3"])
+    assert not torch.equal(run["v1"], run["v3"])
+
+
+# --- which wrapper each block calls ----------------------------------------
+
+# (spec, flags) -> the wrappers one block calls, and how often: JAX's
+# dispatch (eva_scan.py:296-430). ":quant" marks an int8 epilogue,
+# act_quant carries its activation.
+DISPATCH = {
+    "bf16": (PACKED, {}, {"fused_attention_qkv": 1}),
+    "bf16+v2": (PACKED, dict(attn_v2=True), {"fused_attention_qkv2": 1}),
+    "bf16+v3+lnk": (PACKED, dict(attn_v3=True, fused_ln=True),
+                    {"fused_attention_qkv3": 1, "ln_bf16": 2}),
+    "bf16+v2+v3": (PACKED, dict(attn_v2=True, attn_v3=True),
+                   {"fused_attention_qkv3": 1}),
+    "int8": (PACKED, dict(int8=True),
+             {"fused_attention_qkv": 1, "dyn_quant_rows": 4}),
+    "int8+lnk+fm": (PACKED, dict(int8=True, fused_ln=True, fused_mlp=True),
+                    {"fused_attention_qkv": 1, "dyn_quant_rows": 4}),
+    "int8+v3": (PACKED, dict(int8=True, attn_v3=True),
+                {"fused_attention_qkv3": 1, "dyn_quant_rows": 4}),
+    "int8+fq": (PACKED, dict(int8=True, fused_quant=True),
+                {"ln_quant": 2, "fused_attention_qkv:quant": 1,
+                 "act_quant:gelu_poly": 1}),
+    "int8+fq+v2": (PACKED, dict(int8=True, fused_quant=True, attn_v2=True),
+                   {"ln_quant": 2, "fused_attention_qkv2:quant": 1,
+                    "act_quant:gelu_poly": 1}),
+    "int8+fq+v3": (PACKED, dict(int8=True, fused_quant=True, attn_v3=True),
+                   {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
+                    "act_quant:gelu_poly": 1}),
+    "int8+fq+v3+erf": (PACKED, dict(int8=True, fused_quant=True,
+                                    attn_v3=True, fast_gelu=False),
+                       {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
+                        "act_quant:gelu": 1}),
+    "int8+fq+v3+fm": (PACKED, dict(int8=True, fused_quant=True, attn_v3=True,
+                                   fused_mlp=True),
+                      {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
+                       "fused_mlp_int8": 1}),
+    # head rows 64 wide: v2 and v3 fall back to v1 on split heads (K6)
+    "unpacked+v3": (TINY, dict(attn_v3=True), {"fused_attention": 1}),
+    "unpacked+int8+fq+v3": (TINY, dict(int8=True, fused_quant=True,
+                                       attn_v3=True),
+                            {"ln_quant": 2, "fused_attention": 1,
+                             "act_quant:none": 1, "act_quant:gelu_poly": 1}),
+}
+
+PORT_WRAPPERS = {eva_clip: ("fused_attention", "fused_attention_qkv",
+                            "fused_attention_qkv2", "fused_attention_qkv3",
+                            "act_quant", "ln_bf16"),
+                 eva_scan: ("act_quant", "dyn_quant_rows", "fused_mlp_int8",
+                            "ln_quant")}
+# JAX's names, module by module, and the port's name for each
+JAX_WRAPPERS = {jax_eva_scan: {"fused_attention": "fused_attention",
+                               "fused_attention_qkv": "fused_attention_qkv",
+                               "fused_attention_qkv2": "fused_attention_qkv2",
+                               "fused_attention_qkv3": "fused_attention_qkv3",
+                               "_dyn_quant_rows": "dyn_quant_rows"},
+                jax_quant: {n: n for n in ("act_quant", "ln_quant", "ln_bf16",
+                                           "fused_mlp_int8")}}
+
+
+def _record(monkeypatch, module, attr, name, calls):
+    """Count the calls of module.attr under `name` in calls. A call made
+    from inside another call of the same wrapper (JAX's quant wrappers
+    take a [B, S, C] input by calling themselves on its [B*S, C] view)
+    is not counted again."""
+    fn = getattr(module, attr)
+    inside = []
+
+    def recorded(*args, **kwargs):
+        if inside:
+            return fn(*args, **kwargs)
+        key = name
+        if name == "act_quant":
+            key += ":" + kwargs.get("act", "none")
+        elif kwargs.get("quant_out"):
+            key += ":quant"
+        calls[key] = calls.get(key, 0) + 1
+        inside.append(key)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(module, attr, recorded)
+
+
+@pytest.mark.parametrize("case", list(DISPATCH))
+def test_each_block_calls_the_wrappers_jax_calls(monkeypatch, case):
+    """The wrappers each block of the port calls against the JAX block's
+    (its scan body is traced once, so JAX's count is one block's), and
+    both against the table. With the defaults the bf16 forward reaches v1
+    (K8), not v3 (K1)."""
+    spec, flags, per_block = DISPATCH[case]
+    sd, im = eva_state_dict(spec, seed=52), images(spec, 1, seed=52)
+    jax_calls = {}
+    for module, names in JAX_WRAPPERS.items():
+        for attr, name in names.items():
+            _record(monkeypatch, module, attr, name, jax_calls)
+    port_calls = _record_port(monkeypatch)
+    _jax(sd, spec, im, **flags)
+    _port(sd, spec, im, **flags)
+    layers = spec["layers"]
+    assert jax_calls == per_block
+    assert port_calls == {k: v * layers for k, v in per_block.items()}
+
+
+def _record_port(monkeypatch):
+    calls = {}
+    for module, names in PORT_WRAPPERS.items():
+        for name in names:
+            _record(monkeypatch, module, name, name, calls)
+    return calls
+
+
+# the production configurations the JAX entry points build
+# (extraction/features.py:176-183, models/eva_clip.py:255-262)
+PRODUCTION = {False: {"fused_attention_qkv3": 1},
+              True: {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
+                     "fused_mlp_int8": 1}}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_encoder_builds_the_production_configuration(monkeypatch, tmp_path,
+                                                     int8):
+    """make_eva_encoder passes attn_v3 and, with int8, fused_quant and
+    fused_mlp, as the JAX encoder does: its blocks call K1, or K2, K3 and
+    K4, and not the JAX function's defaults."""
+    cfg = configs(TINY224)[1]
+    enc, pre = make_eva_encoder(str(tmp_path), int8=int8, device="cpu",
+                                cfg=cfg, dtype_name="float32")
+    calls = _record_port(monkeypatch)
+    enc(images(TINY224, 1))
+    assert calls == {k: v * cfg.layers for k, v in PRODUCTION[int8].items()}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_factory_builds_the_production_configuration(monkeypatch, int8):
+    """build_eva_model_and_transforms(scan=True) passes the same flags."""
+    cfg = configs(TINY224)[1]
+    model, _ = eva_clip.build_eva_model_and_transforms(
+        text_config=text_configs(TEXT_TINY)[1], vision_config=cfg, scan=True,
+        int8=int8, dtype=torch.float32, device="cpu")
+    calls = _record_port(monkeypatch)
+    model.encode_image(images(TINY224, 1))
+    assert calls == {k: v * cfg.layers for k, v in PRODUCTION[int8].items()}
+
+
+# --- staged parameters -------------------------------------------------------
+
+
+def test_staged_flag_mismatch_rejected():
+    """A staged tower reused with other int8, dtype or uint8_input flags
+    fails loudly (a uint8_input mismatch would otherwise silently corrupt
+    embeddings); matching flags use it; a staged tower without its meta is
+    refused (test_eva_scan.py:262-285)."""
+    sd, cfg = eva_state_dict(TINY), configs(TINY)[1]
+    staged = stage_scanned_params(sd, cfg, dtype=torch.float32,
+                                  uint8_input=True, device="cpu")
+    for other in (dict(), dict(uint8_input=True, int8=True),
+                  dict(uint8_input=True, dtype=torch.bfloat16)):
+        kw = {"dtype": torch.float32, **other}
+        with pytest.raises(ValueError, match="uint8_input"):
+            build_scanned_vision_apply(sd, cfg, device="cpu", staged=staged,
+                                       **kw)
+    apply = build_scanned_vision_apply(None, cfg, dtype=torch.float32,
+                                       uint8_input=True, device="cpu",
+                                       staged=staged)
+    u8 = np.zeros((1, 28, 28, 3), np.uint8)
+    assert torch.isfinite(apply(u8)).all()
+    with pytest.raises(ValueError, match="meta"):
+        build_scanned_vision_apply(None, cfg, dtype=torch.float32,
+                                   uint8_input=True, device="cpu",
+                                   staged=staged[:1])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_one_staged_tower_serves_every_configuration(int8):
+    """One staged tower of a precision gives each configuration of that
+    precision exactly what a build that stages its own gives."""
+    sd, im = eva_state_dict(PACKED, seed=53), images(PACKED, 2, seed=53)
+    cfg = configs(PACKED)[1]
+    staged = stage_scanned_params(sd, cfg, int8=int8, device="cpu")
+    for flags in LADDER.values():
+        if bool(flags.get("int8")) != int8:
+            continue
+        shared = build_scanned_vision_apply(None, cfg, device="cpu",
+                                            staged=staged, **flags)(im)
+        own = build_scanned_vision_apply(sd, cfg, device="cpu", **flags)(im)
+        assert torch.equal(shared, own), flags

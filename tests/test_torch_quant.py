@@ -1,7 +1,8 @@
 """The port's int8 pieces (hirest_tpu_torch/ops/quant.py) against the JAX
 package's: weight quantization, row quantization and the int8 products of
-eva_scan, and the plain versions of K2 (ln_quant) and K4 (fused_mlp_int8)
-against the Pallas kernels in interpret mode, at EVA-g's real widths.
+eva_scan, and the plain versions of K2 (ln_quant), K4 (fused_mlp_int8), K5
+(act_quant) and K10 (ln_bf16) against the Pallas kernels in interpret
+mode, at EVA-g's real widths.
 
 On the CPU the port's wrappers take their plain versions, so these tests
 hold the plain versions' arithmetic against the TPU kernels'; the CUDA
@@ -18,13 +19,17 @@ from hirest_tpu.models.eva_scan import _dyn_quant_rows as jax_dyn_quant_rows
 from hirest_tpu.models.eva_scan import _int8_mm as jax_int8_mm
 from hirest_tpu.models.eva_scan import \
     _quantize_stacked as jax_quantize_stacked
+from hirest_tpu.models.eva_scan import _ln as jax_ln
+from hirest_tpu.ops.quant import act_quant as jax_act_quant
 from hirest_tpu.ops.quant import fused_mlp_int8 as jax_fused_mlp
+from hirest_tpu.ops.quant import ln_bf16 as jax_ln_bf16
 from hirest_tpu.ops.quant import ln_quant as jax_ln_quant
 from hirest_tpu.ops.quant import quantize_weight as jax_quantize_weight
-from hirest_tpu_torch.ops.quant import (dyn_quant_rows, fused_mlp_int8,
+from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
+                                        dyn_quant_rows, fused_mlp_int8,
                                         fused_mlp_int8_ref, int8_mm,
-                                        ln_quant, ln_quant_ref,
-                                        quantize_weight)
+                                        ln_bf16, ln_bf16_ref, ln_quant,
+                                        ln_quant_ref, quantize_weight)
 
 C, F, EPS = 1408, 6144, 1e-6  # EVA-g trunk width, MLP width, LayerNorm eps
 
@@ -131,6 +136,104 @@ def test_ln_quant_keeps_the_layernorm_in_f32():
     assert_codes_close(q.numpy(), dyn_quant_rows(y)[0].numpy(), 0.999)
     rounded = dyn_quant_rows(y.bfloat16())[0]
     assert not torch.equal(q, rounded)
+
+
+# --- K10 ln_bf16 -----------------------------------------------------------
+
+
+def _jax_dtype(dtype):
+    return jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_bf16_plain_matches_jax(dtype):
+    """[2*257, 1408] against the Pallas kernel: f32 within 1e-6 (the two
+    reduce in another order), bf16 within one bf16 ulp of each output plus
+    that 1e-6 (an f32 difference that straddles a rounding boundary, which
+    near zero is finer than 1e-6); the output keeps the input dtype."""
+    x, g, b = _ln_inputs(15, 2 * 257)
+    xt = torch.from_numpy(x).to(dtype)
+    want = np.asarray(jax_ln_bf16(
+        jnp.asarray(xt.float().numpy()).astype(_jax_dtype(dtype)),
+        jnp.asarray(g), jnp.asarray(b), EPS, interpret=True,
+        row_block=257).astype(jnp.float32))
+    got = ln_bf16(xt, torch.from_numpy(g), torch.from_numpy(b), EPS)
+    assert got.dtype == dtype and got.shape == (2 * 257, C)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+        assert np.all(np.abs(got.float().numpy() - want) <= ulp + 1e-6)
+
+
+def test_ln_bf16_is_eva_scan_ln():
+    """K10's plain version is eva_scan._ln, on a [B, S, C] trunk: f32
+    within 1e-6."""
+    x, g, b = _ln_inputs(16, 3 * 40)
+    x3 = x.reshape(3, 40, C)
+    want = np.asarray(jax_ln(jnp.asarray(x3), jnp.asarray(g), jnp.asarray(b),
+                             EPS))
+    got = ln_bf16_ref(torch.from_numpy(x3), torch.from_numpy(g),
+                      torch.from_numpy(b), EPS)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+# --- K5 act_quant -----------------------------------------------------------
+
+
+def _fc1_output(seed, m, c=F):
+    """What the int8 MLP hands act_quant: an fc1 output of order one, with
+    a per-row spread."""
+    rng = _rng(seed)
+    return (rng.normal(size=(m, c)) * rng.uniform(0.5, 3, (m, 1))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["gelu_poly", "gelu", "none"])
+def test_act_quant_plain_matches_jax(act, dtype):
+    """[2*257, 6144] (the fc1 output of EVA-g's MLP) against the Pallas
+    kernel, at K2's bars: scales within rtol 1e-6, codes within one and
+    equal on 99.9 % (exact GELU's erf may round differently by an ulp,
+    which can move a code at a rounding boundary)."""
+    x = _fc1_output(17, 2 * 257)
+    xt = torch.from_numpy(x).to(dtype)
+    jq, js = jax_act_quant(jnp.asarray(xt.float().numpy()).astype(
+        _jax_dtype(dtype)), act=act, interpret=True, row_block=257)
+    q, s = act_quant(xt, act=act)
+    assert q.dtype == torch.int8 and q.shape == (2 * 257, F)
+    assert s.dtype == torch.float32 and s.shape == (2 * 257, 1)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+    assert_codes_close(q.numpy(), np.asarray(jq), 0.999)
+
+
+def test_act_quant_keeps_leading_dims_and_rejects_bad_act():
+    """A [B, S, C] attention output quantizes row by row as its [B*S, C]
+    view does, with scales [B, S, 1]; an unknown activation raises."""
+    x = torch.from_numpy(_fc1_output(18, 6 * 16, c=128)).view(6, 16, 128)
+    q, s = act_quant(x)
+    q2, s2 = act_quant(x.view(96, 128))
+    assert q.shape == (6, 16, 128) and s.shape == (6, 16, 1)
+    assert torch.equal(q.view(96, 128), q2) and torch.equal(s.view(96, 1), s2)
+    assert torch.equal(q, dyn_quant_rows(x)[0])
+    with pytest.raises(ValueError, match="act must be"):
+        act_quant(x, act="relu")
+
+
+def test_act_quant_and_ln_bf16_cpu_calls_count_nothing():
+    x = torch.from_numpy(_fc1_output(19, 8, c=C)).bfloat16()
+    g, b = torch.ones(C), torch.zeros(C)
+    before = (act_quant.launches, ln_bf16.launches)
+    for act in ("gelu_poly", "gelu", "none"):
+        got, want = act_quant(x, act=act), act_quant_ref(x, act=act)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert torch.equal(ln_bf16(x, g, b, EPS), ln_bf16_ref(x, g, b, EPS))
+    assert (act_quant.launches, ln_bf16.launches) == before
+    meta = torch.empty((4, C), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        act_quant(meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        ln_bf16(meta, g, b, EPS)
 
 
 # --- K4 fused_mlp_int8 ----------------------------------------------------
