@@ -3,7 +3,15 @@
 
     python3 chip_smoke.py                 # needs one CUDA GPU and nvcc
     python3 chip_smoke.py --kernels-only  # build and kernels phases only
-    python3 chip_smoke.py --time-attention  # K1, K6 and K7 ms alone
+    python3 chip_smoke.py --time-attention  # K1, K6, K7, K8 ms alone
+
+--time-attention times K1, K6, K7 and K8 (bf16 out) and nothing else, so a
+copy of this file run from a `git archive` of an earlier commit times that
+commit's kernels: run parent, change, change, parent in one call to compare
+two trees on one card. Where attention_split.cu has its arithmetic variants
+(HIREST_SPLIT_ARITH), it also times K6 and K7 under each (exp2f or expf for
+ex2.approx.ftz, __fdiv_rn for the reciprocal multiply), each held against
+its plain version.
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -16,11 +24,14 @@ Phases; any failure exits non-zero before the result line is printed:
             both activations), K6 (split heads [B, 16, 257, 88] as views of
             one qkv projection, and a masked [2, 12, 48, 64] over 20 keys)
             and K7 (packed [B, 257, 16 * 128], and a masked 48 x 20-key
-            shape), K5 (act_quant, [M, 6144] with both GELUs and
-            [M, 1408] without one), K8 (v1, [B, 257, 4224] with nonzero
-            q/v biases, bf16 and int8 out), K9 (v2, bf16 and int8 out, and
-            int8 padded to S = 264 with n_real = 257) and K10 (ln_bf16,
-            [M, 1408]), B = 2 and 128, M = 257 B.
+            shape), each also with one batch row's keys all masked and
+            with 33 queries over 600 keys (d = 88 masked, d = 128), and
+            the streamed body's blocks an SM; K5 (act_quant, [M, 6144]
+            with both GELUs and [M, 1408] without one), K8 (v1,
+            [B, 257, 4224] with nonzero q/v biases, bf16 and int8 out), K9
+            (v2, bf16 and int8 out, and int8 padded to S = 264 with
+            n_real = 257) and K10 (ln_bf16, [M, 1408]), B = 2 and 128,
+            M = 257 B.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -196,14 +207,17 @@ def split_views(qkv, heads: int = 16):
     return [split_heads(t, heads) for t in qkv.chunk(3, -1)]
 
 
-def masked_inputs(seed: int, sq: int = 48, sk: int = 20, valid: int = 15,
-                  heads: int = 12, d: int = 64):
-    """The caption decoder's cross-attention shape: q [2, H, sq, d] over
-    k/v [2, H, sk, d], the keys from `valid` on masked."""
+def masked_inputs(seed: int, sq: int = 48, sk: int = 20,
+                  valid: tuple = (15, 15), heads: int = 12, d: int = 64):
+    """The caption decoder's cross-attention shape: q [B, H, sq, d] over
+    k/v [B, H, sk, d], B = len(valid), batch row i's keys from valid[i] on
+    masked."""
     g = gen(seed)
-    q, k, v = (torch.randn((2, heads, n, d), generator=g, device="cuda")
-               .to(torch.bfloat16) for n in (sq, sk, sk))
-    mask = (torch.arange(sk, device="cuda") < valid).int()[None].repeat(2, 1)
+    q, k, v = (torch.randn((len(valid), heads, n, d), generator=g,
+                           device="cuda").to(torch.bfloat16)
+               for n in (sq, sk, sk))
+    keys = torch.arange(sk, device="cuda")
+    mask = torch.stack([keys < n for n in valid]).int()
     return q, k, v, mask
 
 
@@ -298,7 +312,8 @@ def phase_kernels(cfg) -> dict:
                                                 fused_attention_qkv3,
                                                 fused_attention_qkv3_ref,
                                                 fused_attention_qkv_ref,
-                                                fused_attention_ref)
+                                                fused_attention_ref,
+                                                split_occupancy)
     from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
                                             fused_mlp_int8,
                                             fused_mlp_int8_ref, ln_bf16,
@@ -362,6 +377,38 @@ def phase_kernels(cfg) -> dict:
         "K7 fused_attention_packed [2,48,16*128] over 20 keys, 15 valid",
         fused_attention_packed(*packed, 128 ** -0.5, heads, mask),
         fused_attention_packed_ref(*packed, 128 ** -0.5, heads, mask)))
+    # the streamed body's edges: a batch row whose keys are all masked
+    # (uniform p, as -1e30 gives), and 600 keys (past what a staged head
+    # fits in shared memory) over 33 queries (a 3-tile block, its last
+    # tile one row)
+    q, k, v, mask = masked_inputs(seed=62, valid=(15, 0))
+    worst["K6"] = max(worst["K6"], check_close(
+        "K6 fused_attention [2,12,48,64] over 20 keys, 15 and 0 valid",
+        fused_attention(q, k, v, 0.125, mask),
+        fused_attention_ref(q, k, v, 0.125, mask)))
+    q, k, v, mask = masked_inputs(seed=63, valid=(15, 0), heads=16, d=128)
+    packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v)]
+    worst["K7"] = max(worst["K7"], check_close(
+        "K7 fused_attention_packed [2,48,16*128] over 20 keys, 15 and 0 "
+        "valid", fused_attention_packed(*packed, 128 ** -0.5, heads, mask),
+        fused_attention_packed_ref(*packed, 128 ** -0.5, heads, mask)))
+    q, k, v, mask = masked_inputs(seed=64, sq=33, sk=600, valid=(590, 600),
+                                  heads=16, d=88)
+    worst["K6"] = max(worst["K6"], check_close(
+        "K6 fused_attention [2,16,33,88] over 600 keys, 590 and 600 valid",
+        fused_attention(q, k, v, scale, mask),
+        fused_attention_ref(q, k, v, scale, mask)))
+    q, k, v, _ = masked_inputs(seed=65, sq=33, sk=600, heads=16, d=128)
+    packed = [t.transpose(1, 2).flatten(2) for t in (q, k, v)]
+    worst["K7"] = max(worst["K7"], check_close(
+        "K7 fused_attention_packed [2,33,16*128] over 600 keys",
+        fused_attention_packed(*packed, 128 ** -0.5, heads),
+        fused_attention_packed_ref(*packed, 128 ** -0.5, heads)))
+    for d in (88, 128):
+        occ = split_occupancy(d, TOKENS)
+        print(f"[kernels] K6/K7 streamed body, d={d}, Sq={TOKENS}: "
+              f"{occ['threads']} threads and {occ['smem_bytes']} bytes of "
+              f"shared memory a block, {occ['blocks_per_sm']} blocks an SM")
 
     # K2: codes within one, equal on 99.9 %, scales within 1e-6 (the row
     # reductions run in another order; rsqrtf is not correctly rounded)
@@ -1238,26 +1285,76 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
 }
 
 
+ARITH_VARIANTS = {  # attention_split.cu's HIREST_SPLIT_ARITH -> its softmax
+    0: "ex2.approx.ftz, reciprocal (shipped)", 4: "exp2f, reciprocal",
+    1: "expf, reciprocal", 2: "ex2.approx.ftz, __fdiv_rn",
+    3: "expf, __fdiv_rn"}
+
+
 def time_attention(cfg, card: str) -> None:
-    """K1, K6 and K7 ms per call at B=128 and nothing else, through the
-    wrappers that earlier versions of the port have too, so that this file
-    copied into an earlier checkout times that checkout's kernels."""
-    from hirest_tpu_torch.ops import build
+    """K1, K6, K7 and K8 (bf16 out) ms per call at B=128 and nothing else,
+    through the wrappers that earlier versions of the port have too, so
+    that this file copied into an earlier checkout times that checkout's
+    kernels. Where the checkout's attention_split.cu has arithmetic
+    variants, K6 and K7 are timed again under each, and each held against
+    its plain version at K6's bar."""
+    import inspect
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hirest_tpu_torch.ops import attention, build
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
-                                                fused_attention_qkv3)
+                                                fused_attention_packed_ref,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv3,
+                                                fused_attention_ref)
 
-    build.build(("attention_qkv3", "attention_split"))
+    variants = "defines" in inspect.signature(build.load).parameters
+    flags = {k: (f"-DHIREST_SPLIT_ARITH={k}",) for k in ARITH_VARIANTS if k}
+    with ThreadPoolExecutor(8) as pool:
+        jobs = [pool.submit(build.build,
+                            ("attention_qkv3", "attention_split"))]
+        if variants:
+            jobs += [pool.submit(build.build, ("attention_split",), f)
+                     for f in flags.values()]
+        for job in jobs:
+            job.result()
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
+    p128 = 128 ** -0.5
     qkv = attention_inputs(BATCH, seed=7)
     q, k, v = split_views(attention_inputs(BATCH, seed=11))
     pq, pk, pv = attention_inputs(BATCH, seed=12, hd=PADDED_HD).chunk(3, -1)
+    qkv8 = attention_inputs(BATCH, seed=13)
+    qb, vb = biases(heads * cfg.head_width, seed=14)
     ms = {"K1": cuda_ms(lambda: fused_attention_qkv3(qkv, scale, heads), 50),
           "K6": cuda_ms(lambda: fused_attention(q, k, v, scale), 50),
           "K7": cuda_ms(lambda: fused_attention_packed(
-              pq, pk, pv, 128 ** -0.5, heads), 50)}
+              pq, pk, pv, p128, heads), 50),
+          "K8": cuda_ms(lambda: fused_attention_qkv(qkv8, qb, vb, scale,
+                                                    heads), 50)}
     print(f"[time-attention] {card}: {REPO}: " + ", ".join(
         f"{name} {t:.4f} ms" for name, t in ms.items()))
+    if not variants:
+        return
+    want6 = fused_attention_ref(q, k, v, scale)
+    want7 = fused_attention_packed_ref(pq, pk, pv, p128, heads)
+    shipped = attention._split_lib
+    try:
+        for k_arith, name in [*ARITH_VARIANTS.items(), (0, ARITH_VARIANTS[0])]:
+            defines = flags.get(k_arith, ())
+            attention._split_lib = lambda: shipped(defines)
+            err6 = check_close(f"K6 {name}", fused_attention(q, k, v, scale),
+                               want6)
+            err7 = check_close(f"K7 {name}", fused_attention_packed(
+                pq, pk, pv, p128, heads), want7)
+            t6 = cuda_ms(lambda: fused_attention(q, k, v, scale), 50)
+            t7 = cuda_ms(lambda: fused_attention_packed(pq, pk, pv, p128,
+                                                        heads), 50)
+            print(f"[time-attention] {card}: softmax {name}: K6 {t6:.4f} ms "
+                  f"(max_abs_err {err6}), K7 {t7:.4f} ms (max_abs_err "
+                  f"{err7})")
+    finally:
+        attention._split_lib = shipped
 
 
 def main() -> int:

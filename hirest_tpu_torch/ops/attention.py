@@ -17,8 +17,10 @@ Counterparts of hirest_tpu/ops/attention.py:
   K7) over packed [B, S, H*D]: the unrolled tower, at the native and the
   padded head width.
 
-K6, K7 and K8 launch `csrc/attention_split.cu`, one kernel that takes
-strides, so the head views cost no copy. Each wrapper takes its plain
+K6, K7 and K8 launch `csrc/attention_split.cu`, which takes strides, so
+the head views cost no copy: K6 and K7 its streamed body (key tiles
+through a cp.async ring, any number of keys), K8 its staged body (the
+whole head in shared memory). Each wrapper takes its plain
 PyTorch version (`*_ref`) only for a tensor on the CPU. Their softmaxes
 differ, as the TPU kernels' do: v2 and v3 round the unnormalised exp2
 probabilities to the input dtype and divide after PV; K6, K7 and K8 scale
@@ -230,8 +232,10 @@ def fused_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
     return merge_heads(fused_attention_ref(q, k, v, scale, key_mask))
 
 
-def _split_lib() -> ctypes.CDLL:
-    lib = build.load("attention_split")
+def _split_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """attention_split.cu's library; `defines` selects a timing variant
+    (`-DHIREST_SPLIT_ARITH=k`, see the source)."""
+    lib = build.load("attention_split", defines)
     ints = [ctypes.c_int] * 5  # B, H, Sq, Sk, D
     tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
             ctypes.c_void_p]
@@ -240,7 +244,23 @@ def _split_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 10 + ints + tail)
     lib.hirest_attention_split.restype = ctypes.c_int
     lib.hirest_attention_split_quant.restype = ctypes.c_int
+    lib.hirest_attention_split_occupancy.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+    lib.hirest_attention_split_occupancy.restype = ctypes.c_int
     return lib
+
+
+def split_occupancy(d: int, sq: int) -> dict:
+    """The streamed body's launch for K6/K7 at head width d and sq
+    queries (needs the card): threads and dynamic shared memory a block,
+    and the blocks an SM holds at once."""
+    lib = _split_lib()
+    blocks, threads, smem = (ctypes.c_int() for _ in range(3))
+    err = lib.hirest_attention_split_occupancy(
+        d, sq, ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem))
+    build.check(lib, err, "attention_split occupancy")
+    return {"blocks_per_sm": blocks.value, "threads": threads.value,
+            "smem_bytes": smem.value}
 
 
 def _check_split(q, k, v, key_mask):
@@ -332,11 +352,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, Sk, D], key_mask [B, Sk] or None (nonzero marks a valid key)
     -> [B, H, Sq, D] in q's dtype (K6).
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel:
-    bf16 views with a unit last stride, head width 64, 88 or 128, Sk up to
-    what shared memory holds (592 keys at d=88, 432 at d=128); anything
-    else raises. The output lies in [B, Sq, H, D] memory, so merging the
-    heads back is a view. `fused_attention.launches` counts launches."""
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    (K and V streamed through shared memory, so any Sk): bf16 views with a
+    unit last stride, head width 64, 88 or 128; anything else raises. The
+    output lies in [B, Sq, H, D] memory, so merging the heads back is a
+    view. `fused_attention.launches` counts launches."""
     if not _on_cuda(q):
         return fused_attention_ref(q, k, v, scale, key_mask)
     if q.dim() != 4:
@@ -405,10 +425,12 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
     codes and f32 row scales [B, S, 1] of the f32 output.
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with head width 64, 88 or 128, and launches attention_split.cu on
-    the q, k and v thirds as views, the biases added as the kernel loads q
-    and stages v; anything else raises. `fused_attention_qkv.launches`
-    counts bf16-out launches, `.quant_launches` int8-out ones."""
+    bf16 with head width 64, 88 or 128 and S up to what its staged body's
+    shared memory holds (592 tokens at d=88, 432 at d=128), and launches
+    attention_split.cu on the q, k and v thirds as views, the biases added
+    as the kernel loads q and stages v; anything else raises.
+    `fused_attention_qkv.launches` counts bf16-out launches,
+    `.quant_launches` int8-out ones."""
     if not _on_cuda(qkv):
         return fused_attention_qkv_ref(qkv, q_bias, v_bias, scale, num_heads,
                                        quant_out=quant_out)

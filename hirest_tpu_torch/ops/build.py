@@ -4,7 +4,9 @@ Each source `csrc/<name>.cu` exposes a plain C interface and compiles on its
 own into `build/kernels/lib<name>-<digest>.so` at the repository root (a
 directory git ignores). The digest covers the source, the shared headers
 `csrc/*.cuh` and the flags, so an edited source or header is rebuilt and
-never served from a stale library. Nothing is
+never served from a stale library. A caller may add `-D` defines, which
+make a library of their own (attention_split.cu's arithmetic variants,
+timed by chip_smoke.py --time-attention). Nothing is
 built when a module is imported: the first launch builds, or a caller that
 wants the build timed on its own calls `build()` first.
 """
@@ -25,7 +27,7 @@ SOURCES = ("attention_qkv3", "attention_split", "ln_quant", "fused_mlp_int8",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -40,20 +42,21 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=SOURCES) -> dict[str, str]:
+def build(names=SOURCES, defines: tuple[str, ...] = ()) -> dict[str, str]:
     """Compile every named source whose library is missing, one nvcc process
-    per source, all started together. Returns each compiled source's nvcc
-    output (register and shared-memory use from ptxas); raises on failure."""
-    todo = [n for n in names if not library_path(n).exists()]
+    per source, all started together, with `defines` (`-DNAME=value`) added
+    to the flags. Returns each compiled source's nvcc output (register and
+    shared-memory use from ptxas); raises on failure."""
+    todo = [n for n in names if not library_path(n, defines).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,9 +64,10 @@ def build(names=SOURCES) -> dict[str, str]:
     procs = {}
     try:
         for name in todo:
-            out = library_path(name)
+            out = library_path(name, defines)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, out)
@@ -83,15 +87,16 @@ def build(names=SOURCES) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` built with `defines`, built
+    first if needed."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([name], defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
         lib.hirest_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hirest_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[name, defines] = lib
     return lib
 
 

@@ -1,7 +1,8 @@
 // Tensor-core pieces shared by the attention kernels (attention_qkv3.cu,
 // attention_split.cu): mma.sync m16n8k16 bf16 with f32 accumulation, the
-// shared-memory layout of a staged head, one 16x8 tile of QK^T, and the
-// bf16 bias adds of K8 as q is loaded and v staged.
+// shared-memory layout of a staged head, one 16x8 tile of QK^T, the bf16
+// bias adds of K8 as q is loaded and v staged, and the cp.async and
+// ldmatrix pieces of the streamed body.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -127,4 +128,107 @@ __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
   constexpr int kPadCols = T::kKStride - D;
   for (int i = threadIdx.x; i < s_pad * kPadCols; i += kThreads)
     ks[(i / kPadCols) * T::kKStride + D + i % kPadCols] = __float2bfloat16(0.f);
+}
+
+// --- Asynchronous copies and ldmatrix (attention_split.cu's streamed body) --
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared without a register round trip; zero-filled
+// (nothing read from src) when !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 bytes, zero-filled when !in.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + kRows) of a [n, D] bf16 tensor (row stride rs elements,
+// 16-byte aligned rows) into shared memory with row stride Tile<D>::kKStride,
+// rows >= n zero-filled, by `nthreads` threads.
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long rs, int row0, int n,
+                                                int tid, int nthreads) {
+  using T = Tile<D>;
+  for (int i = tid; i < kRows * T::kVecs; i += nthreads) {
+    const int r = i / T::kVecs, c = i % T::kVecs;
+    const bool in = row0 + r < n;
+    cp_async16(dst + r * T::kKStride + c * 8,
+               src + (in ? row0 + r : 0) * rs + c * 8, in);
+  }
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and lane (g, t) gets row g, columns 2t and 2t+1 of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The same, transposed: lane (g, t) gets rows 2t and 2t+1 of column g.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two matrices, transposed; lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+// Two floats rounded to bf16 in one conversion, lo in the low half.
+__device__ __forceinline__ uint32_t pack_f32_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// qk_tile with k's B fragments read by ldmatrix.x4, two d-chunks a load,
+// from a tile staged row-major with row stride Tile<D>::kKStride.
+template <int D>
+__device__ __forceinline__ void qk_tile_ldm(
+    float (&s)[4], const uint32_t (&qa)[Tile<D>::kChunks][4],
+    const __nv_bfloat16* ks, int nt, int lane) {
+  static_assert(Tile<D>::kChunks % 2 == 0, "d-chunks are loaded in pairs");
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+  const __nv_bfloat16* row =
+      ks + (nt * 8 + (lane & 7)) * Tile<D>::kKStride + (lane >> 3) * 8;
+#pragma unroll
+  for (int kc = 0; kc < Tile<D>::kChunks; kc += 2) {
+    uint32_t b[4];
+    ldmatrix_x4(b, row + kc * 16);
+    mma_bf16(s, qa[kc], b[0], b[1]);
+    mma_bf16(s, qa[kc + 1], b[2], b[3]);
+  }
 }

@@ -23,7 +23,7 @@ from hirest_tpu.ops.attention import \
 from hirest_tpu.ops.attention import fused_attention_qkv as jax_qkv1
 from hirest_tpu.ops.attention import fused_attention_qkv2 as jax_qkv2
 from hirest_tpu.ops.attention import fused_attention_qkv3 as jax_qkv3
-from hirest_tpu_torch.ops.attention import (fused_attention,
+from hirest_tpu_torch.ops.attention import (LOG2E, fused_attention,
                                             fused_attention_packed,
                                             fused_attention_packed_ref,
                                             fused_attention_qkv,
@@ -36,6 +36,7 @@ from hirest_tpu_torch.ops.attention import (fused_attention,
 
 B, S, H, D = 2, 257, 16, 88
 SCALE = D ** -0.5
+LOG2E_F32 = torch.tensor(LOG2E, dtype=torch.float32)  # the kernels' log2(e)
 
 
 def _qkv(seed=0):
@@ -194,13 +195,18 @@ def test_quant_out_plain_matches_jax_v3_at_padded_head_width():
 
 # (B, H, Sq, Sk, D, valid keys or None): the JAX package's own test shapes
 # (tests/test_pallas_attention.py), the caption decoder's cross-attention
-# [2, 12, 48, 64] over 20 keys, and one real EVA-g head set
+# [2, 12, 48, 64] over 20 keys, one real EVA-g head set, and the streamed
+# CUDA body's edges: every key masked (uniform p), and 600 keys over 33
+# queries (more keys than a staged head fits in shared memory, a ragged
+# last query tile)
 SPLIT_CASES = {
     "square": (2, 4, 17, 17, 8, None),
     "masked": (2, 12, 48, 48, 64, 43),
     "rectangular": (2, 12, 48, 20, 64, None),
     "masked_rectangular": (2, 12, 48, 20, 64, 15),
     "eva_g": (1, 16, 257, 257, 88, None),
+    "all_masked": (2, 4, 17, 20, 64, 0),
+    "long_keys": (1, 2, 33, 600, 128, 590),
 }
 PACKED_CASES = {**SPLIT_CASES, "eva_g_padded": (1, 16, 257, 257, 128, None)}
 
@@ -296,6 +302,46 @@ def test_split_and_packed_are_one_function():
     none = fused_attention(tq, tk, tv, scale, torch.zeros_like(tm))
     torch.testing.assert_close(none, tv.mean(2, keepdim=True).expand_as(none),
                                rtol=1e-5, atol=1e-5)
+
+
+def _streamed_softmax_attention(q, k, v, scale, key_tile=64):
+    """The streamed CUDA body's arithmetic (no mask) in f32 on the CPU:
+    scores scaled and rounded on their own, a running (max, sum) folded one
+    64-key tile at a time (the tile's max first, the sum rescaled once), exp
+    as 2^(s log2e - m log2e) with m log2e rounded and the rest one fused
+    multiply-add (exact in f64, then rounded), p = bf16(e * r) with
+    r = 1/l rounded once a row, f32 PV, the output rounded to bf16."""
+
+    def exp(x, m):
+        return torch.exp2((x.double() * LOG2E_F32
+                           - (m * LOG2E_F32).double()).float())
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = torch.full(s.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    for k0 in range(0, s.shape[-1], key_tile):
+        tile = s[..., k0:k0 + key_tile]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        l = (l * torch.exp2((m - m_new) * LOG2E_F32)
+             + exp(tile, m_new).sum(-1, keepdim=True))
+        m = m_new
+    p = (exp(s, m) * torch.reciprocal(l)).bfloat16()
+    return torch.matmul(p.float(), v.float()).bfloat16()
+
+
+@pytest.mark.parametrize("case", ["eva_g", "eva_g_padded"])
+def test_streamed_arithmetic_within_the_card_bar(case):
+    """The arithmetic the CUDA kernel takes for K6 (d=88) and K7 (d=128),
+    emulated in f32, against the plain version at EVA-g's shapes (B=1, 257
+    tokens) in bf16: within chip_smoke.py's card bar, 2**-7 of the output's
+    largest magnitude. Its tolerance budget, checked before the card."""
+    q, k, v, _, scale = _split_inputs(PACKED_CASES[case], seed=34)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = _streamed_softmax_attention(tq, tk, tv, scale).float()
+    want = fused_attention_ref(tq, tk, tv, scale).float()
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2 ** -7 * top
+    assert not torch.equal(got, want)  # the arithmetic does differ
 
 
 def test_split_cpu_calls_take_plain_versions_without_counting():
