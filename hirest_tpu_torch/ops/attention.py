@@ -18,9 +18,9 @@ Counterparts of hirest_tpu/ops/attention.py:
   padded head width.
 
 K6, K7 and K8 launch `csrc/attention_split.cu`, which takes strides, so
-the head views cost no copy: K6 and K7 its streamed body (key tiles
-through a cp.async ring, any number of keys), K8 its staged body (the
-whole head in shared memory). Each wrapper takes its plain
+the head views cost no copy: one streamed body (key tiles through a
+cp.async ring, any number of keys), compiled apart for K6/K7's key mask and
+for K8's biases and int8 epilogue. Each wrapper takes its plain
 PyTorch version (`*_ref`) only for a tensor on the CPU. Their softmaxes
 differ, as the TPU kernels' do: v2 and v3 round the unnormalised exp2
 probabilities to the input dtype and divide after PV; K6, K7 and K8 scale
@@ -241,23 +241,26 @@ def _split_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
             ctypes.c_void_p]
     lib.hirest_attention_split.argtypes = [ctypes.c_void_p] * 7 + ints + tail
     lib.hirest_attention_split_quant.argtypes = (
-        [ctypes.c_void_p] * 10 + ints + tail)
+        [ctypes.c_void_p] * 9 + ints + tail)
     lib.hirest_attention_split.restype = ctypes.c_int
     lib.hirest_attention_split_quant.restype = ctypes.c_int
     lib.hirest_attention_split_occupancy.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.hirest_attention_split_occupancy.restype = ctypes.c_int
     return lib
 
 
-def split_occupancy(d: int, sq: int) -> dict:
-    """The streamed body's launch for K6/K7 at head width d and sq
-    queries (needs the card): threads and dynamic shared memory a block,
-    and the blocks an SM holds at once."""
+def split_occupancy(d: int, sq: int, *, bias: bool = False,
+                    quant: bool = False) -> dict:
+    """The streamed body's launch at head width d and sq queries (needs
+    the card), unmasked: K6/K7's instantiation, or with `bias` K8's (with
+    `quant` its int8 epilogue's). Threads and dynamic shared memory a
+    block, and the blocks an SM holds at once."""
     lib = _split_lib()
     blocks, threads, smem = (ctypes.c_int() for _ in range(3))
     err = lib.hirest_attention_split_occupancy(
-        d, sq, ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem))
+        d, sq, int(bias), int(quant), ctypes.byref(blocks),
+        ctypes.byref(threads), ctypes.byref(smem))
     build.check(lib, err, "attention_split occupancy")
     return {"blocks_per_sm": blocks.value, "threads": threads.value,
             "smem_bytes": smem.value}
@@ -311,7 +314,8 @@ def _launch_split(q, k, v, key_mask, out, scale: float, q_bias=None,
                   v_bias=None) -> None:
     """Launch attention_split.cu on [B, H, S, D] views (any batch, head and
     row strides, unit last stride) into the [B, H, Sq, D] view `out`, with
-    the bf16 biases [H*D] (or None) added to q and v."""
+    the bf16 biases [H*D] (or None) added to q and v; the kernel takes
+    biases or a key mask, not both."""
     (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
@@ -325,8 +329,9 @@ def _launch_split(q, k, v, key_mask, out, scale: float, q_bias=None,
 
 
 def _launch_split_quant(q, k, v, scale: float, q_bias, v_bias):
-    """attention_split.cu with the int8 epilogue: [B, H, S, D] views ->
-    (int8 codes [B, Sq, H*D], f32 row scales [B, Sq, 1])."""
+    """attention_split.cu with K8's biases and int8 epilogue, no key
+    mask: [B, H, S, D] views -> (int8 codes [B, Sq, H*D], f32 row scales
+    [B, Sq, 1])."""
     (b, h, sq, sk, d), _ = _check_split(q, k, v, None)
     dev = q.device
     ws = torch.empty((b, sq, h * d), dtype=torch.float32, device=dev)
@@ -338,10 +343,10 @@ def _launch_split_quant(q, k, v, scale: float, q_bias, v_bias):
     lib = _split_lib()
     with torch.cuda.device(dev):
         err = lib.hirest_attention_split_quant(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, _ptr(q_bias),
-            _ptr(v_bias), ws.data_ptr(), rowmax.data_ptr(), codes.data_ptr(),
-            scales.data_ptr(), b, h, sq, sk, d, strides, scale,
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_bias.data_ptr(),
+            v_bias.data_ptr(), ws.data_ptr(), rowmax.data_ptr(),
+            codes.data_ptr(), scales.data_ptr(), b, h, sq, sk, d, strides,
+            scale, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "attention_split quant launch")
     return codes, scales
 
@@ -425,10 +430,10 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
     codes and f32 row scales [B, S, 1] of the f32 output.
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with head width 64, 88 or 128 and S up to what its staged body's
-    shared memory holds (592 tokens at d=88, 432 at d=128), and launches
+    bf16 with head width 64, 88 or 128, any S, and launches
     attention_split.cu on the q, k and v thirds as views, the biases added
-    as the kernel loads q and stages v; anything else raises.
+    in bf16 as the kernel loads q and as each V tile lands in shared
+    memory; anything else raises.
     `fused_attention_qkv.launches` counts bf16-out launches,
     `.quant_launches` int8-out ones."""
     if not _on_cuda(qkv):

@@ -27,12 +27,14 @@
 // K7 on the padded tower, [128, 257, 16 * 128]: 4 x 134.7 MB = 539 MB,
 // 161 us, against 70 us for 69.3 GFLOP. All are bound by memory.
 //
-// Two bodies. A launch without biases (K6, K7) runs the streamed body,
-// attention_split_stream_kernel; a launch with biases (K8, bf16 or int8
-// out) runs the staged body, attention_split_kernel.
+// One body, attention_split_stream_kernel<D, kMask, kBias, kQuant>, in
+// three instantiations a width: K6/K7 (kMask either way), K8 with bf16 out
+// (kBias) and K8 with the int8 epilogue (kBias, kQuant). The options are
+// template parameters: as runtime branches, a bias branch cost K6 8 % and
+// K7 12 % (PERF.md).
 //
-// Both: p is normalised in f32 before it is rounded to bf16, so the row sum
-// is needed before the PV product. Pass 1 folds the scores into a running
+// p is normalised in f32 before it is rounded to bf16, so the row sum is
+// needed before the PV product. Pass 1 folds the scores into a running
 // (max, sum of exp) per lane and merges the four lanes of a row at the end;
 // pass 2 recomputes the scores, forms p and feeds it from registers into
 // PV on mma.sync m16n8k16 (the score tiles' C layout is PV's A layout). The
@@ -42,10 +44,7 @@
 // and never contracted into an FMA; q fragments go from device memory
 // straight into registers.
 //
-// The streamed body (K6, K7), against what held the staged body back at
-// d=128 (one 8-warp block an SM, 146,752 bytes of staged head; no compute
-// while a block loads 131 KB of K and V; 17 query tiles over 8 warps in 3
-// rounds; a 16-way bank conflict on each transposed V store):
+// Design:
 // - A block takes a group of a head's 16-row query tiles, one tile a warp:
 //   the ceil(Sq/16) tiles are cut into ceil(tiles/6) nearly equal groups
 //   (Sq=257: 6, 6 and 5). The groups of one (b, h) are adjacent in
@@ -73,23 +72,18 @@
 //   their place, to time them: PERF.md.)
 // - Masked keys score -1e30, keys past Sk -inf (left out): a row whose keys
 //   are all masked gets the reference's uniform p.
-//
-// The staged body (K8), simple first version in K1's layout:
-// - One block per (b, h), 8 warps. The block stages k_h row-major, v_h
-//   transposed and the keys' validity in shared memory (106,944 bytes at
-//   Sk=257, d=88: two blocks an SM; 146,752 at d=128: one), so every input
-//   byte is read from device memory once.
-// - Each warp walks 16-row query tiles.
 // - K8's biases are added as the operands arrive, rounded to bf16 as the
-//   reference adds them: q's to the fragments as they are loaded, v's to
-//   each 16-byte vector before it is staged. So the biased q and v never
-//   exist in device memory.
-// - Pass 1 folds each score with expf and a branch; pass 2 divides each p
-//   with a correctly rounded division.
-// - K8's int8 epilogue is K3's (rowquant.cuh): each block parks its f32
-//   head output in an [B*Sq, H*D] workspace and folds the rows' max |o|
-//   into a row maximum with atomicMax; a second kernel quantizes the rows.
-//   The workspace costs 370 MB of traffic more than the bound counts.
+//   reference adds them (add_bf16x2: the f32 sum, one rounding): q's to the
+//   fragments as they are loaded, v's in shared memory, to each 16-byte V
+//   chunk of a landed stage by the thread that copied it, before the ring's
+//   __syncthreads publishes the stage (no second barrier). So the biased q
+//   and v never exist in device memory.
+// - K8's int8 epilogue is K3's (rowquant.cuh): each warp parks its f32
+//   query tile of its head in an [B*Sq, H*D] workspace and folds the rows'
+//   max |o| into a row maximum with atomicMax; a second kernel quantizes
+//   the rows. The workspace costs 370 MB of traffic more than the bound
+//   counts: a row's 16 heads are 16 blocks, and their row maximum needs the
+//   workspace until they share it on chip.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,10 +94,6 @@
 #include "rowquant.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr size_t kMaxSmem = 232448;  // what one block may have on Hopper
 
 struct Strides {  // element strides (batch, head, row) of the [B, H, S, D] views
   long long q[3], k[3], v[3], o[3];
@@ -120,186 +110,6 @@ struct Args {
   Strides st;
   float scale;
 };
-
-template <int D>
-size_t smem_bytes(int Sk) {
-  const int s_pad = round_up16(Sk);
-  return sizeof(__nv_bfloat16) *
-             ((size_t)s_pad * Tile<D>::kKStride + (size_t)D * (s_pad + 8)) +
-         sizeof(int) * s_pad;
-}
-
-// A score as the reference sees it: scaled, or -1e30 for a masked key.
-__device__ __forceinline__ float scaled(float s, float scale, int keep) {
-  return keep ? __fmul_rn(s, scale) : -1e30f;
-}
-
-// Fold two scores of one row, each counted only if its key exists (keep
-// >= 0), into a running max m and sum l of exp(s - m). The sum is rescaled
-// only when the max grows, so most scores cost one expf.
-__device__ __forceinline__ void fold(float& m, float& l, float a, int ka,
-                                     float b, int kb) {
-  const float t = fmaxf(ka >= 0 ? a : -INFINITY, kb >= 0 ? b : -INFINITY);
-  if (t == -INFINITY) return;
-  if (t > m) {
-    l *= expf(m - t);  // 0 while m is still -inf
-    m = t;
-  }
-  l += (ka >= 0 ? expf(a - m) : 0.f) + (kb >= 0 ? expf(b - m) : 0.f);
-}
-
-// Merge the (max, sum) pairs of the four lanes that hold one row.
-__device__ __forceinline__ void merge_quad(float& m, float& l) {
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
-    const float mn = fmaxf(m, mo);
-    if (mn != -INFINITY) {
-      l = l * expf(m - mn) + lo * expf(mo - mn);
-      m = mn;
-    }
-  }
-}
-
-__device__ __forceinline__ __nv_bfloat16 prob(float s, float scale, int keep,
-                                              float m, float l) {
-  if (keep < 0) return __float2bfloat16_rn(0.f);
-  return __float2bfloat16_rn(__fdiv_rn(expf(scaled(s, scale, keep) - m), l));
-}
-
-// The staged body, which K8 runs with kBias (its q/v bias adds) set.
-template <int D, bool kBias, bool kQuant>
-__global__ void __launch_bounds__(kThreads, D > 96 ? 1 : 2)
-    attention_split_kernel(const Args a) {
-  using T = Tile<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Sq = a.Sq, Sk = a.Sk;
-  const Strides& st = a.st;
-  const int s_pad = round_up16(Sk);
-  const int vt_stride = s_pad + 8;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vt = ks + s_pad * T::kKStride;  // [D][vt_stride]
-  // per key: 1 valid, 0 masked (score -1e30), -1 past Sk (left out)
-  int* keep = reinterpret_cast<int*>(vt + D * vt_stride);
-
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const __nv_bfloat16* qg = a.q + b * st.q[0] + h * st.q[1];
-  const __nv_bfloat16* kg = a.k + b * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vg = a.v + b * st.v[0] + h * st.v[1];
-  const __nv_bfloat16* qb = kBias ? a.qbias + h * D : nullptr;
-  const __nv_bfloat16* vb = kBias ? a.vbias + h * D : nullptr;
-
-  stage_kv<D, kThreads>(ks, vt, kg, st.k[2], vg, st.v[2], Sk, s_pad,
-                        vt_stride, vb);
-  for (int j = threadIdx.x; j < s_pad; j += kThreads)
-    keep[j] = j >= Sk ? -1
-                      : (a.mask == nullptr || a.mask[(size_t)b * Sk + j] != 0);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const float scale = a.scale;
-
-  for (int qt = warp; qt * 16 < Sq; qt += kWarps) {
-    const int r0 = qt * 16 + g, r1 = r0 + 8;
-    uint32_t qa[T::kChunks][4];
-    load_q<D>(qa, qg, st.q[2], r0, Sq, t, qb);
-
-    // Pass 1: running row max and sum of exp over the keys that exist.
-    float m0 = -INFINITY, l0 = 0.f, m1 = -INFINITY, l1 = 0.f;
-    for (int nt = 0; nt < s_pad / 8; ++nt) {
-      float s[4];
-      qk_tile<D>(s, qa, ks, nt, g, t);
-      const int k0 = keep[nt * 8 + 2 * t], k1 = keep[nt * 8 + 2 * t + 1];
-      fold(m0, l0, scaled(s[0], scale, k0), k0, scaled(s[1], scale, k1), k1);
-      fold(m1, l1, scaled(s[2], scale, k0), k0, scaled(s[3], scale, k1), k1);
-    }
-    merge_quad(m0, l0);
-    merge_quad(m1, l1);
-
-    // Pass 2: p = bf16(exp(s - m) / l), o += p v.
-    float acc[T::kOTiles][4];
-#pragma unroll
-    for (int dt = 0; dt < T::kOTiles; ++dt)
-      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-    for (int kb = 0; kb < s_pad / 16; ++kb) {
-      float sa[4], sb[4];
-      qk_tile<D>(sa, qa, ks, 2 * kb, g, t);
-      qk_tile<D>(sb, qa, ks, 2 * kb + 1, g, t);
-      const int key = kb * 16 + 2 * t;
-      const int ka0 = keep[key], ka1 = keep[key + 1];
-      const int kb0 = keep[key + 8], kb1 = keep[key + 9];
-      // The score tiles' C layout is the A layout of the PV product.
-      const uint32_t pa[4] = {
-          pack_bf16(prob(sa[0], scale, ka0, m0, l0),
-                    prob(sa[1], scale, ka1, m0, l0)),
-          pack_bf16(prob(sa[2], scale, ka0, m1, l1),
-                    prob(sa[3], scale, ka1, m1, l1)),
-          pack_bf16(prob(sb[0], scale, kb0, m0, l0),
-                    prob(sb[1], scale, kb1, m0, l0)),
-          pack_bf16(prob(sb[2], scale, kb0, m1, l1),
-                    prob(sb[3], scale, kb1, m1, l1))};
-#pragma unroll
-      for (int dt = 0; dt < T::kOTiles; ++dt) {
-        const __nv_bfloat16* vrow = vt + (dt * 8 + g) * vt_stride + kb * 16 + 2 * t;
-        mma_bf16(acc[dt], pa, ld_u32(vrow), ld_u32(vrow + 8));
-      }
-    }
-
-    if constexpr (kQuant) {
-      const size_t hd = (size_t)a.H * D;
-      float* w0 = a.ws + ((size_t)b * Sq + r0) * hd + h * D + 2 * t;
-      unsigned int* mx = a.rowmax + (size_t)b * Sq + r0;
-      park_f32_tile<T::kOTiles>(acc, w0, w0 + 8 * hd, r0 < Sq, r1 < Sq, mx,
-                                mx + 8, t);
-    } else {
-      __nv_bfloat16* og = a.o + b * st.o[0] + h * st.o[1];
-      __nv_bfloat16* o0 = og + r0 * st.o[2] + 2 * t;
-      __nv_bfloat16* o1 = og + r1 * st.o[2] + 2 * t;
-#pragma unroll
-      for (int dt = 0; dt < T::kOTiles; ++dt) {
-        if (r0 < Sq)
-          *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
-              pack_bf16(__float2bfloat16_rn(acc[dt][0]),
-                        __float2bfloat16_rn(acc[dt][1]));
-        if (r1 < Sq)
-          *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
-              pack_bf16(__float2bfloat16_rn(acc[dt][2]),
-                        __float2bfloat16_rn(acc[dt][3]));
-      }
-    }
-  }
-}
-
-template <int D, bool kBias, bool kQuant>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(a.Sk);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_split_kernel<D, kBias, kQuant>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attention_split_kernel<D, kBias, kQuant>
-      <<<a.B * a.H, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <bool kBias, bool kQuant>
-cudaError_t launch_width(const Args& a, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<64, kBias, kQuant>(a, stream);
-    case 88:
-      return launch<88, kBias, kQuant>(a, stream);
-    case 128:
-      return launch<128, kBias, kQuant>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// --- The streamed body (K6, K7) -------------------------------------------
 
 // Timing variants of the softmax arithmetic (chip_smoke.py
 // --time-attention): bit 0 takes expf, bit 2 exp2f, for ex2.approx.ftz;
@@ -485,9 +295,12 @@ __device__ __forceinline__ void pv_tile(
   }
 }
 
-template <int D, bool kMask>
+// kMask: K6/K7's key mask. kBias: K8's q/v biases. kQuant: K8's int8
+// epilogue into a.ws and a.rowmax, for bf16 o.
+template <int D, bool kMask, bool kBias, bool kQuant>
 __global__ void __launch_bounds__(kGroupWarps * 32, 2)
     attention_split_stream_kernel(const Args a, int groups, int group_tiles) {
+  static_assert(!(kMask && kBias), "K8 takes no key mask");
   using T = Tile<D>;
   using R = Ring<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -499,6 +312,8 @@ __global__ void __launch_bounds__(kGroupWarps * 32, 2)
   const __nv_bfloat16* kg = a.k + b * st.k[0] + h * st.k[1];
   const __nv_bfloat16* vg = a.v + b * st.v[0] + h * st.v[1];
   const int* mg = kMask ? a.mask + (size_t)b * Sk : nullptr;
+  const __nv_bfloat16* qb = kBias ? a.qbias + h * D : nullptr;
+  const __nv_bfloat16* vb = kBias ? a.vbias + h * D : nullptr;
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -542,7 +357,7 @@ __global__ void __launch_bounds__(kGroupWarps * 32, 2)
   };
 
   uint32_t qa[T::kChunks][4];
-  if (active) load_q<D>(qa, qg, st.q[2], qt * 16 + g, Sq, t);
+  if (active) load_q<D>(qa, qg, st.q[2], qt * 16 + g, Sq, t, qb);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) load_step(i);
 
@@ -573,13 +388,16 @@ __global__ void __launch_bounds__(kGroupWarps * 32, 2)
   for (int dt = 0; dt < T::kOTiles; ++dt)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   for (int i = key_tiles; i < steps; ++i) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<kStages - 2>();  // this thread's copies of step i landed
+    const int key0 = (i - key_tiles) * kKeyTile;
+    __nv_bfloat16* ks = k_tile(i);
+    __nv_bfloat16* vs = ks + R::kTileElems;
+    if constexpr (kBias)  // on the V chunks this thread copied
+      add_bias_rows<D, kKeyTile>(vs, vb, key0, Sk, tid, nthreads);
     __syncthreads();
     load_step(i + kStages - 1);
     if (!active) continue;
-    const int n = Sk - (i - key_tiles) * kKeyTile;
-    const __nv_bfloat16* ks = k_tile(i);
-    const __nv_bfloat16* vs = ks + R::kTileElems;
+    const int n = Sk - key0;
     const int* ms = reinterpret_cast<const int*>(vs + R::kTileElems);
     if (n >= kKeyTile)
       pv_tile<D, kMask, true>(acc, qa, ks, vs, ms, n, scale, m0, r0, l0, m1,
@@ -592,17 +410,25 @@ __global__ void __launch_bounds__(kGroupWarps * 32, 2)
   if (!active) return;
 
   const int r0w = qt * 16 + g, r1w = r0w + 8;
-  __nv_bfloat16* og = a.o + b * st.o[0] + h * st.o[1];
-  __nv_bfloat16* o0 = og + r0w * st.o[2] + 2 * t;
-  __nv_bfloat16* o1 = og + r1w * st.o[2] + 2 * t;
+  if constexpr (kQuant) {
+    const size_t hd = (size_t)a.H * D;
+    float* w0 = a.ws + ((size_t)b * Sq + r0w) * hd + h * D + 2 * t;
+    unsigned int* mx = a.rowmax + (size_t)b * Sq + r0w;
+    park_f32_tile<T::kOTiles>(acc, w0, w0 + 8 * hd, r0w < Sq, r1w < Sq, mx,
+                              mx + 8, t);
+  } else {
+    __nv_bfloat16* og = a.o + b * st.o[0] + h * st.o[1];
+    __nv_bfloat16* o0 = og + r0w * st.o[2] + 2 * t;
+    __nv_bfloat16* o1 = og + r1w * st.o[2] + 2 * t;
 #pragma unroll
-  for (int dt = 0; dt < T::kOTiles; ++dt) {
-    if (r0w < Sq)
-      *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
-          pack_f32_bf16(acc[dt][0], acc[dt][1]);
-    if (r1w < Sq)
-      *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
-          pack_f32_bf16(acc[dt][2], acc[dt][3]);
+    for (int dt = 0; dt < T::kOTiles; ++dt) {
+      if (r0w < Sq)
+        *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
+            pack_f32_bf16(acc[dt][0], acc[dt][1]);
+      if (r1w < Sq)
+        *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
+            pack_f32_bf16(acc[dt][2], acc[dt][3]);
+    }
   }
 }
 
@@ -613,61 +439,52 @@ void stream_groups(int Sq, int* groups, int* group_tiles) {
   *group_tiles = (tiles + *groups - 1) / *groups;
 }
 
-template <int D, bool kMask>
-cudaError_t launch_stream(const Args& a, cudaStream_t stream) {
-  const size_t smem = Ring<D>::kBytes;
+// One instantiation and its dynamic shared memory.
+struct Variant {
+  void (*kernel)(const Args, int, int);
+  int smem;
+};
+
+// The instantiation a launch takes: K6/K7 with or without their key mask
+// (no biases), or K8 (biases, no mask) with bf16 or int8 out.
+template <int D>
+Variant variant(bool mask, bool bias, bool quant) {
+  return {bias ? (quant ? attention_split_stream_kernel<D, false, true, true>
+                        : attention_split_stream_kernel<D, false, true, false>)
+               : (mask ? attention_split_stream_kernel<D, true, false, false>
+                       : attention_split_stream_kernel<D, false, false, false>),
+          (int)Ring<D>::kBytes};
+}
+
+// The same at a runtime head width; a null kernel for an unbuilt width.
+Variant variant_width(int D, bool mask, bool bias, bool quant) {
+  switch (D) {
+    case 64:
+      return variant<64>(mask, bias, quant);
+    case 88:
+      return variant<88>(mask, bias, quant);
+    case 128:
+      return variant<128>(mask, bias, quant);
+    default:
+      return {nullptr, 0};
+  }
+}
+
+// Launch v over a's heads on `stream`.
+cudaError_t launch_stream(const Variant& v, const Args& a,
+                          cudaStream_t stream) {
+  if (v.kernel == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_split_stream_kernel<D, kMask>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      v.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, v.smem);
   if (err != cudaSuccess) return err;
   int groups, group_tiles;
   stream_groups(a.Sq, &groups, &group_tiles);
   const long long blocks = (long long)a.B * a.H * groups;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_split_stream_kernel<D, kMask>
-      <<<(unsigned)blocks, group_tiles * 32, smem, stream>>>(a, groups,
-                                                             group_tiles);
+  const auto kernel = v.kernel;
+  kernel<<<(unsigned)blocks, group_tiles * 32, v.smem, stream>>>(a, groups,
+                                                                 group_tiles);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_stream_mask(const Args& a, cudaStream_t stream) {
-  return a.mask != nullptr ? launch_stream<D, true>(a, stream)
-                           : launch_stream<D, false>(a, stream);
-}
-
-cudaError_t launch_stream_width(const Args& a, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_stream_mask<64>(a, stream);
-    case 88:
-      return launch_stream_mask<88>(a, stream);
-    case 128:
-      return launch_stream_mask<128>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <int D>
-cudaError_t stream_occupancy(int Sq, int* blocks_per_sm, int* threads,
-                             int* smem) {
-  int groups, group_tiles;
-  stream_groups(Sq, &groups, &group_tiles);
-  *threads = group_tiles * 32;
-  *smem = (int)Ring<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_split_stream_kernel<D, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, attention_split_stream_kernel<D, false>, *threads,
-      *smem);
-}
-
-// Both biases, or neither.
-bool bad_biases(const void* qbias, const void* vbias) {
-  return (qbias == nullptr) != (vbias == nullptr);
 }
 
 // The arguments both entry points share; strides holds the (batch, head,
@@ -698,68 +515,69 @@ Args make_args(const void* q, const void* k, const void* v, const void* mask,
 // unit stride along D and 16-byte aligned rows; `strides` holds the
 // (batch, head, row) element strides of q, k, v and o in that order. mask is
 // null or int32 [B, Sk] (nonzero marks a valid key). qbias and vbias are
-// both null, or both bf16 [H * D], 16-byte aligned, added to q and v (K8).
-// D = 64, 88 or 128. Without biases (K6, K7) the streamed body runs, for
-// any Sk; with them (K8) the staged body, for Sk up to what shared memory
-// holds (592 keys at d=88, 432 at d=128). Launches on `stream` and returns
-// cudaGetLastError().
+// both null, or both bf16 [H * D], 16-byte aligned, added to q and v (K8,
+// which takes no mask). D = 64, 88 or 128; any Sq and Sk. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int hirest_attention_split(const void* q, const void* k,
                                       const void* v, const void* mask,
                                       const void* qbias, const void* vbias,
                                       void* o, int B, int H, int Sq, int Sk,
                                       int D, const long long* strides,
                                       float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || bad_biases(qbias, vbias))
+  const bool bias = qbias != nullptr;
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || bias != (vbias != nullptr) ||
+      (bias && mask != nullptr))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(q, k, v, mask, qbias, vbias, B, H, Sq, Sk, strides, 12,
                      scale);
   a.o = static_cast<__nv_bfloat16*>(o);
-  const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(qbias != nullptr ? launch_width<true, false>(a, D, st)
-                                : launch_stream_width(a, D, st));
+  return (int)launch_stream(variant_width(D, mask != nullptr, bias, false), a,
+                            (cudaStream_t)stream);
 }
 
-// The streamed body's launch at Sq queries and head width D (no mask):
-// threads a block, dynamic shared memory a block, and blocks resident on
-// one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int hirest_attention_split_occupancy(int D, int Sq,
-                                                int* blocks_per_sm,
+// The launch of one instantiation at Sq queries and head width D, unmasked:
+// K6/K7 (bias 0), K8 (bias 1, quant 0) or K8's int8 epilogue (bias 1,
+// quant 1). Threads a block, dynamic shared memory a block, and blocks
+// resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int hirest_attention_split_occupancy(int D, int Sq, int bias,
+                                                int quant, int* blocks_per_sm,
                                                 int* threads, int* smem) {
-  if (Sq <= 0) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 64:
-      return (int)stream_occupancy<64>(Sq, blocks_per_sm, threads, smem);
-    case 88:
-      return (int)stream_occupancy<88>(Sq, blocks_per_sm, threads, smem);
-    case 128:
-      return (int)stream_occupancy<128>(Sq, blocks_per_sm, threads, smem);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Variant v = variant_width(D, false, bias, quant);
+  if (Sq <= 0 || v.kernel == nullptr || (quant && !bias))
+    return (int)cudaErrorInvalidValue;
+  int groups, group_tiles;
+  stream_groups(Sq, &groups, &group_tiles);
+  *threads = group_tiles * 32;
+  *smem = v.smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      v.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, v.smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, v.kernel, *threads, v.smem);
 }
 
-// As above with the int8 epilogue instead of o (K8's quant_out, so the
-// biases are required): codes [B, Sq, H*D] int8 and scales [B, Sq] f32
-// out; ws [B, Sq, H*D] f32 and rowmax [B, Sq] (4 bytes each) are scratch.
-// `strides` holds q's, k's and v's only. Zeroes rowmax and launches both
-// steps on `stream`.
+// K8 with the int8 epilogue instead of o (quant_out), so the biases are
+// required and there is no mask: codes [B, Sq, H*D] int8 and scales
+// [B, Sq] f32 out; ws [B, Sq, H*D] f32 and rowmax [B, Sq] (4 bytes each)
+// are scratch. `strides` holds q's, k's and v's only. Zeroes rowmax and
+// launches both steps on `stream`.
 extern "C" int hirest_attention_split_quant(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* qbias, const void* vbias, void* ws, void* rowmax, void* codes,
-    void* scales, int B, int H, int Sq, int Sk, int D,
-    const long long* strides, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* qbias,
+    const void* vbias, void* ws, void* rowmax, void* codes, void* scales,
+    int B, int H, int Sq, int Sk, int D, const long long* strides, float scale,
+    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || (H * D) % 4 ||
       qbias == nullptr || vbias == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  Args a = make_args(q, k, v, mask, qbias, vbias, B, H, Sq, Sk, strides, 9,
+  Args a = make_args(q, k, v, nullptr, qbias, vbias, B, H, Sq, Sk, strides, 9,
                      scale);
   a.ws = static_cast<float*>(ws);
   a.rowmax = static_cast<unsigned int*>(rowmax);
   const int rows = B * Sq;
   cudaError_t err = cudaMemsetAsync(rowmax, 0, sizeof(unsigned int) * rows, st);
   if (err != cudaSuccess) return (int)err;
-  err = launch_width<true, true>(a, D, st);
+  err = launch_stream(variant_width(D, false, true, true), a, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_quant_rows(a.ws, a.rowmax, codes, scales, rows, H * D, st);
 }

@@ -1,8 +1,8 @@
 // Tensor-core pieces shared by the attention kernels (attention_qkv3.cu,
 // attention_split.cu): mma.sync m16n8k16 bf16 with f32 accumulation, the
-// shared-memory layout of a staged head, one 16x8 tile of QK^T, the bf16
-// bias adds of K8 as q is loaded and v staged, and the cp.async and
-// ldmatrix pieces of the streamed body.
+// shared-memory layout of a staged head (K1/K3/K9), one 16x8 tile of QK^T,
+// the bf16 bias adds of K8 as q is loaded and as a V tile lands, and the
+// cp.async and ldmatrix pieces of attention_split.cu's streamed body.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,15 +98,12 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[Tile<D>::kChunks][4],
 
 // Stage one head's k (row-major, rows >= n zero) and v^T (columns >= n
 // zero) in shared memory, and zero k's padded columns D..kKStride. Row
-// strides ks_g / vs_g in elements; 16-byte aligned rows. With `vbias` (the
-// head's D values, 16-byte aligned) each v value of rows < n gets its bias
-// added in bf16.
+// strides ks_g / vs_g in elements; 16-byte aligned rows.
 template <int D, int kThreads>
 __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
                                          const __nv_bfloat16* kg, long long ks_g,
                                          const __nv_bfloat16* vg, long long vs_g,
-                                         int n, int s_pad, int vt_stride,
-                                         const __nv_bfloat16* vbias = nullptr) {
+                                         int n, int s_pad, int vt_stride) {
   using T = Tile<D>;
   for (int i = threadIdx.x; i < s_pad * T::kVecs; i += kThreads) {
     const int r = i / T::kVecs, c = i % T::kVecs;
@@ -114,11 +111,6 @@ __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
     if (r < n) {
       kv = *reinterpret_cast<const uint4*>(kg + r * ks_g + c * 8);
       vv = *reinterpret_cast<const uint4*>(vg + r * vs_g + c * 8);
-      if (vbias != nullptr) {
-        const uint4 bv = *reinterpret_cast<const uint4*>(vbias + c * 8);
-        vv = make_uint4(add_bf16x2(vv.x, bv.x), add_bf16x2(vv.y, bv.y),
-                        add_bf16x2(vv.z, bv.z), add_bf16x2(vv.w, bv.w));
-      }
     }
     *reinterpret_cast<uint4*>(ks + r * T::kKStride + c * 8) = kv;
     const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
@@ -177,6 +169,29 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
     const bool in = row0 + r < n;
     cp_async16(dst + r * T::kKStride + c * 8,
                src + (in ? row0 + r : 0) * rs + c * 8, in);
+  }
+}
+
+// K8's v bias on a tile that load_rows_async<D, kRows> brought in: each
+// thread adds `bias` (the head's D values, 16-byte aligned) in bf16 to the
+// 16-byte chunks it copied itself (i = tid + k nthreads), in place, rows
+// >= n left zero. A thread's own cp.async copies are complete and visible
+// to it once its cp.async.wait_group returns, so this needs no barrier of
+// its own: the one that publishes the tile publishes the sums.
+template <int D, int kRows>
+__device__ __forceinline__ void add_bias_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* bias,
+                                              int row0, int n, int tid,
+                                              int nthreads) {
+  using T = Tile<D>;
+  for (int i = tid; i < kRows * T::kVecs; i += nthreads) {
+    const int r = i / T::kVecs, c = i % T::kVecs;
+    if (row0 + r >= n) break;  // r only grows with i
+    uint4* p = reinterpret_cast<uint4*>(dst + r * T::kKStride + c * 8);
+    const uint4 x = *p;
+    const uint4 bv = *reinterpret_cast<const uint4*>(bias + c * 8);
+    *p = make_uint4(add_bf16x2(x.x, bv.x), add_bf16x2(x.y, bv.y),
+                    add_bf16x2(x.z, bv.z), add_bf16x2(x.w, bv.w));
   }
 }
 

@@ -23,6 +23,7 @@ from hirest_tpu.ops.attention import \
 from hirest_tpu.ops.attention import fused_attention_qkv as jax_qkv1
 from hirest_tpu.ops.attention import fused_attention_qkv2 as jax_qkv2
 from hirest_tpu.ops.attention import fused_attention_qkv3 as jax_qkv3
+from hirest_tpu_torch.models.layers import merge_heads, split_heads
 from hirest_tpu_torch.ops.attention import (LOG2E, fused_attention,
                                             fused_attention_packed,
                                             fused_attention_packed_ref,
@@ -33,6 +34,7 @@ from hirest_tpu_torch.ops.attention import (LOG2E, fused_attention,
                                             fused_attention_qkv3_ref,
                                             fused_attention_qkv_ref,
                                             fused_attention_ref)
+from hirest_tpu_torch.ops.quant import dyn_quant_rows
 
 B, S, H, D = 2, 257, 16, 88
 SCALE = D ** -0.5
@@ -304,13 +306,13 @@ def test_split_and_packed_are_one_function():
                                rtol=1e-5, atol=1e-5)
 
 
-def _streamed_softmax_attention(q, k, v, scale, key_tile=64):
-    """The streamed CUDA body's arithmetic (no mask) in f32 on the CPU:
-    scores scaled and rounded on their own, a running (max, sum) folded one
-    64-key tile at a time (the tile's max first, the sum rescaled once), exp
-    as 2^(s log2e - m log2e) with m log2e rounded and the rest one fused
-    multiply-add (exact in f64, then rounded), p = bf16(e * r) with
-    r = 1/l rounded once a row, f32 PV, the output rounded to bf16."""
+def _streamed_softmax_f32(q, k, v, scale, key_tile=64):
+    """The streamed CUDA body's arithmetic (no mask) in f32 on the CPU, up
+    to its f32 PV product: scores scaled and rounded on their own, a
+    running (max, sum) folded one 64-key tile at a time (the tile's max
+    first, the sum rescaled once), exp as 2^(s log2e - m log2e) with
+    m log2e rounded and the rest one fused multiply-add (exact in f64, then
+    rounded), p = bf16(e * r) with r = 1/l rounded once a row, f32 PV."""
 
     def exp(x, m):
         return torch.exp2((x.double() * LOG2E_F32
@@ -326,19 +328,65 @@ def _streamed_softmax_attention(q, k, v, scale, key_tile=64):
              + exp(tile, m_new).sum(-1, keepdim=True))
         m = m_new
     p = (exp(s, m) * torch.reciprocal(l)).bfloat16()
-    return torch.matmul(p.float(), v.float()).bfloat16()
+    return torch.matmul(p.float(), v.float())
 
 
-@pytest.mark.parametrize("case", ["eva_g", "eva_g_padded"])
+def _streamed_qkv_attention(qkv, q_bias, v_bias, scale, heads,
+                            quant_out=False):
+    """K8 on the streamed body, emulated: the q and v biases added in bf16
+    (the f32 sum rounded once, as the kernel's add_bf16x2 and PyTorch's
+    bf16 add round it), then `_streamed_softmax_f32` per head; the output
+    rounded to bf16, or with quant_out the int8 codes and row scales of the
+    f32 output (the kernel's epilogue quantizes its f32 accumulators)."""
+    q, k, v = qkv.chunk(3, -1)
+    q, v = q + q_bias.bfloat16(), v + v_bias.bfloat16()
+    o = merge_heads(_streamed_softmax_f32(
+        *(split_heads(t, heads) for t in (q, k, v)), scale))
+    return dyn_quant_rows(o) if quant_out else o.bfloat16()
+
+
+# case -> (attention, its shape): K6 and K7 on split heads at EVA-g's shapes
+# (PACKED_CASES), and K8 on fused qkv with nonzero biases, (B, S, H, d), at
+# EVA-g's head width, at 128, and with the int8 epilogue
+STREAMED_CASES = {
+    "eva_g": ("split", PACKED_CASES["eva_g"]),
+    "eva_g_padded": ("split", PACKED_CASES["eva_g_padded"]),
+    "k8_eva_g": ("qkv", (2, 257, 16, 88)),
+    "k8_eva_g_d128": ("qkv", (2, 257, 16, 128)),
+    "k8q_eva_g": ("qkv_quant", (2, 257, 16, 88)),
+}
+
+
+@pytest.mark.parametrize("case", list(STREAMED_CASES))
 def test_streamed_arithmetic_within_the_card_bar(case):
-    """The arithmetic the CUDA kernel takes for K6 (d=88) and K7 (d=128),
-    emulated in f32, against the plain version at EVA-g's shapes (B=1, 257
-    tokens) in bf16: within chip_smoke.py's card bar, 2**-7 of the output's
-    largest magnitude. Its tolerance budget, checked before the card."""
-    q, k, v, _, scale = _split_inputs(PACKED_CASES[case], seed=34)
-    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
-    got = _streamed_softmax_attention(tq, tk, tv, scale).float()
-    want = fused_attention_ref(tq, tk, tv, scale).float()
+    """The arithmetic the CUDA kernel's streamed body takes, emulated in f32,
+    against the plain version in bf16: K6 (d=88) and K7 (d=128) at EVA-g's
+    shapes (B=1, 257 tokens), and K8 (B=2, 257 tokens, biased) at d=88 and
+    d=128 within chip_smoke.py's card bar, 2**-7 of the output's largest
+    magnitude; K8's int8 epilogue at K3's card bar, codes within one and
+    equal on 99 %, scales within 2**-7. Its tolerance budget, checked
+    before the card."""
+    kind, shape = STREAMED_CASES[case]
+    if kind == "split":
+        q, k, v, _, scale = _split_inputs(shape, seed=34)
+        tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+        got = _streamed_softmax_f32(tq, tk, tv, scale).bfloat16()
+        want = fused_attention_ref(tq, tk, tv, scale)
+    else:
+        x, qb, vb, h, scale = _biased_qkv(shape, seed=35)
+        t, tqb, tvb = (torch.from_numpy(a) for a in (x, qb, vb))
+        t = t.bfloat16()
+        quant = kind == "qkv_quant"
+        got = _streamed_qkv_attention(t, tqb, tvb, scale, h, quant)
+        want = fused_attention_qkv_ref(t, tqb, tvb, scale, h,
+                                       quant_out=quant)
+        if quant:
+            (q, sc), (rq, rs) = got, want
+            torch.testing.assert_close(sc, rs, rtol=2 ** -7, atol=0)
+            assert_codes_close(q.numpy(), rq.numpy(), 0.99)
+            assert not torch.equal(sc, rs)  # the arithmetic does differ
+            return
+    got, want = got.float(), want.float()
     top = want.abs().max().item()
     assert (got - want).abs().max().item() <= 2 ** -7 * top
     assert not torch.equal(got, want)  # the arithmetic does differ
@@ -364,7 +412,12 @@ QKV_CASES = {"eva_g": (2, 257, 16, 88), "small": (2, 17, 4, 8)}
 
 
 def _qkv_and_biases(case, seed):
-    b, s, h, d = QKV_CASES[case]
+    return _biased_qkv(QKV_CASES[case], seed)
+
+
+def _biased_qkv(shape, seed):
+    """qkv [B, S, 3*H*d] and q/v biases [H*d] for shape (B, S, H, d)."""
+    b, s, h, d = shape
     rng = np.random.default_rng(seed)
     qkv = (rng.normal(size=(b, s, 3 * h * d)) * 0.5).astype(np.float32)
     # nonzero biases of the size the qkv values have, so that adding them
