@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # needs one CUDA GPU and nvcc
     python3 chip_smoke.py --kernels-only  # build and kernels phases only
     python3 chip_smoke.py --time-attention  # K1, K6, K7, K8, K8q ms alone
+    python3 chip_smoke.py --time-mlp        # K4 and its _int_mm pair alone
 
 --time-attention times K1, K6, K7 and K8 (bf16 and int8 out) and nothing
 else, so a copy of this file run from a `git archive` of an earlier commit
@@ -11,18 +12,24 @@ times that commit's kernels: run parent, change, change, parent in one call
 to compare two trees on one card. Where attention_split.cu has its
 arithmetic variants (HIREST_SPLIT_ARITH), it also times K6 and K7 under
 each (exp2f or expf for ex2.approx.ftz, __fdiv_rn for the reciprocal
-multiply), each held against its plain version.
+multiply), each held against its plain version. --time-mlp does the same
+for K4 at B=128 (through fused_mlp_int8, which every version of the port
+has), beside its two products as torch._int_mm; where the checkout splits
+K4 into two kernels it also times the first alone.
 
 Phases; any failure exits non-zero before the result line is printed:
 
-1. build    compile every CUDA kernel of the port from this checkout (set-up).
+1. build    compile every CUDA kernel of the port from this checkout (set-up);
+            K4's two kernels' registers, spills and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
             both again at the padded head width, [B, 257, 6144]), K2
             (ln_quant, [M, 1408]), K4 (fused_mlp_int8, [M, 1408] x 6144,
-            both activations), K6 (split heads [B, 16, 257, 88] as views of
-            one qkv projection, and a masked [2, 12, 48, 64] over 20 keys)
+            both activations; its first kernel's codes and scales also
+            against mlp_int8_hidden_ref, equal), K6 (split heads
+            [B, 16, 257, 88] as views of one qkv projection, and a masked
+            [2, 12, 48, 64] over 20 keys)
             and K7 (packed [B, 257, 16 * 128], and a masked 48 x 20-key
             shape), each also with one batch row's keys all masked and
             with 33 queries over 600 keys (d = 88 masked, d = 128); K5
@@ -317,11 +324,12 @@ def phase_kernels(cfg) -> dict:
                                                 fused_attention_qkv_ref,
                                                 fused_attention_ref,
                                                 split_occupancy)
-    from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
-                                            fused_mlp_int8,
+    from hirest_tpu_torch.ops.quant import (_mlp_hidden_launch, act_quant,
+                                            act_quant_ref, fused_mlp_int8,
                                             fused_mlp_int8_ref, ln_bf16,
                                             ln_bf16_ref, ln_quant,
-                                            ln_quant_ref)
+                                            ln_quant_ref,
+                                            mlp_int8_hidden_ref)
 
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0,
@@ -426,10 +434,24 @@ def phase_kernels(cfg) -> dict:
 
     # K4: within 1e-2 of the MLP's largest contribution max|want - x| plus
     # one bf16 ulp of |want|, element by element: a hidden code that lands
-    # on the other side of a rounding boundary moves a row by far less
+    # on the other side of a rounding boundary moves a row by far less.
+    # Its first kernel's codes and scales must equal the plain version's
+    # (a stage check: the products are exact and every f32 step rounds
+    # where the plain version rounds)
     for batch in (2, BATCH):
         args = mlp_inputs(batch * TOKENS, seed=30 + batch)
         for act in ("gelu_poly", "gelu"):
+            codes, scales = _mlp_hidden_launch(*args[:5], act)
+            want_codes, want_scales = mlp_int8_hidden_ref(*args[:5], act=act)
+            torch.cuda.synchronize()
+            n_codes = int((codes != want_codes).sum().item())
+            n_scales = int((scales != want_scales).sum().item())
+            print(f"[kernels] K4 mlp_hidden [{batch * TOKENS},1408]x6144 "
+                  f"act={act}: {n_codes} of {codes.numel()} codes and "
+                  f"{n_scales} of {scales.numel()} scales differ (bar 0)")
+            require(n_codes == 0 and n_scales == 0,
+                    f"K4 mlp_hidden [{batch * TOKENS}] {act} off its plain "
+                    f"version")
             got = fused_mlp_int8(*args, act=act)
             torch.cuda.synchronize()
             want = fused_mlp_int8_ref(*args, act=act).float()
@@ -438,8 +460,10 @@ def phase_kernels(cfg) -> dict:
                               torch.frexp(want)[1] - 8)
             excess = ((got.float() - want).abs() - 1e-2 * contrib - ulp)
             err = (got.float() - want).abs().max().item()
+            n_out = int((got.float() != want).sum().item())
             print(f"[kernels] K4 fused_mlp_int8 [{batch * TOKENS},1408]x6144 "
-                  f"act={act}: max_abs_err={err} max|want-x|={contrib} "
+                  f"act={act}: {n_out} of {got.numel()} outputs differ, "
+                  f"max_abs_err={err} max|want-x|={contrib} "
                   f"worst excess over the bar={excess.max().item()}")
             require(bool(got.isfinite().all()) and excess.max().item() <= 0,
                     f"fused_mlp_int8 [{batch * TOKENS}] {act} off its plain "
@@ -955,11 +979,14 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
                                                 fused_attention_qkv3_ref,
                                                 fused_attention_qkv_ref,
                                                 fused_attention_ref)
-    from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
-                                            fused_mlp_int8,
+    from hirest_tpu_torch.ops.quant import (_mlp_hidden_launch,
+                                            _mlp_out_launch, act_quant,
+                                            act_quant_ref, fused_mlp_int8,
                                             fused_mlp_int8_ref, ln_bf16,
                                             ln_bf16_ref, ln_quant,
-                                            ln_quant_ref)
+                                            ln_quant_ref,
+                                            mlp_int8_hidden_ref,
+                                            mlp_int8_out_ref)
 
     time_encoders(main, card)
     time_factory(factory, card)
@@ -1009,6 +1036,27 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
                                        torch._int_mm(hidden_q, w2_q.t())), 5),
         **bound(m * w + m * 4 + 2 * m * w * 2 + 2 * hid * w
                 + 4 * (2 * hid + 2 * w), 2 * 2 * m * w * hid, INT8_OP_PER_S)}
+    # K4's two kernels alone, each against its plain version and its one
+    # product as torch._int_mm; the bytes count the hidden codes and
+    # scales that pass between them
+    codes, scales = _mlp_hidden_launch(*args[:5], "gelu_poly")
+    code_bytes = m * hid + m * (hid // 1024) * 4
+    stages = {
+        "K4a mlp_hidden": {
+            "ms": cuda_ms(lambda: _mlp_hidden_launch(*args[:5], "gelu_poly"),
+                          5),
+            "plain_ms": cuda_ms(lambda: mlp_int8_hidden_ref(*args[:5]), 3),
+            "library_ms": cuda_ms(lambda: torch._int_mm(h_q, w1_q.t()), 5),
+            **bound(m * w + m * 4 + hid * w + 8 * hid + code_bytes,
+                    2 * m * w * hid, INT8_OP_PER_S)},
+        "K4b mlp_out": {
+            "ms": cuda_ms(lambda: _mlp_out_launch(codes, scales, *args[5:]),
+                          5),
+            "plain_ms": cuda_ms(lambda: mlp_int8_out_ref(codes, scales,
+                                                         *args[5:]), 3),
+            "library_ms": cuda_ms(lambda: torch._int_mm(codes, w2_q.t()), 5),
+            **bound(code_bytes + hid * w + 8 * w + 2 * m * w * 2,
+                    2 * m * w * hid, INT8_OP_PER_S)}}
     # the unrolled towers' attention: K6 on split-heads views of one qkv
     # projection, K7 on packed heads at the padded width; K1 and K3 at the
     # padded width (heads padded 88 -> 128) on the padded scanned tower
@@ -1111,7 +1159,7 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "library_ms": cuda_ms(lambda: F.layer_norm(
             x10, (w,), g10.bfloat16(), b10.bfloat16(), EPS), 20),
         **bound(m * w * 2 * 2 + 2 * w * 4, 8 * m * w, F32_FLOP_PER_S)}
-    for name, r in {**res, **padded, **extra}.items():
+    for name, r in {**res, **stages, **padded, **extra}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
@@ -1386,6 +1434,43 @@ def time_attention(cfg, card: str) -> None:
         attention._split_lib = shipped
 
 
+def time_mlp(card: str) -> None:
+    """K4 ms per call at B=128 beside its two products as torch._int_mm,
+    and nothing else, through the wrapper that earlier versions of the
+    port have too (see time_attention). Where the checkout splits K4 into
+    two kernels, the first is also timed alone."""
+    from hirest_tpu_torch.ops import build, quant
+
+    build.build(("fused_mlp_int8",))
+    m = BATCH * TOKENS
+    args = mlp_inputs(m, seed=9)
+    h_q, _, w1_q, _, _, w2_q, _, _, _ = args
+    hidden_q = torch.randint(-127, 128, (m, w1_q.shape[0]), dtype=torch.int8,
+                             device="cuda", generator=gen(10))
+    ms = {"K4": cuda_ms(lambda: quant.fused_mlp_int8(*args), 20)}
+    if hasattr(quant, "_mlp_hidden_launch"):
+        ms["K4a mlp_hidden"] = cuda_ms(
+            lambda: quant._mlp_hidden_launch(*args[:5], "gelu_poly"), 20)
+    ms["_int_mm pair"] = cuda_ms(lambda: (torch._int_mm(h_q, w1_q.t()),
+                                          torch._int_mm(hidden_q, w2_q.t())),
+                                 20)
+    print(f"[time-mlp] {card}: {REPO}: " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in ms.items()))
+
+
+def ptxas_summary(log: str, kernels) -> None:
+    """Each named kernel's registers and spills from nvcc's ptxas -v log."""
+    lines = log.splitlines()
+    for name in kernels:
+        at = [i for i, line in enumerate(lines)
+              if "Compiling entry function" in line and name in line]
+        for i in at:
+            props = " ".join(line.split("info    :")[-1].strip()
+                             for line in lines[i + 1:i + 4]
+                             if "bytes stack" in line or "Used" in line)
+            print(f"[build] ptxas {name}: {props}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only",
@@ -1403,12 +1488,22 @@ def main() -> int:
     if "--time-attention" in sys.argv[1:]:
         time_attention(cfg, card)
         return 0
+    if "--time-mlp" in sys.argv[1:]:
+        time_mlp(card)
+        return 0
     t0 = time.perf_counter()
     logs = build.build()
     print(f"[build] {len(logs)} CUDA sources compiled in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"[build] {name}:\n{log.strip()}")
+    from hirest_tpu_torch.ops.quant import mlp_int8_smem_bytes
+
+    ptxas_summary(logs.get("fused_mlp_int8", ""),
+                  ("fused_mlp_int8_hidden_kernel",
+                   "fused_mlp_int8_out_kernel"))
+    print(f"[build] K4 dynamic shared memory a block: "
+          f"{mlp_int8_smem_bytes()}")
 
     errs = phase_kernels(cfg)
     if "--kernels-only" in sys.argv[1:]:

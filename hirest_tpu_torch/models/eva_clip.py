@@ -91,6 +91,16 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def linear(h: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h @ weight^T + bias as eva_scan writes it (`h @ w + b`): the product
+    rounded to h's dtype, then the bias added in that dtype. F.linear with
+    a bias would round product and bias once, which in bf16 is another
+    number."""
+    y = F.linear(h, weight)
+    return y if bias is None else y.add_(bias)
+
+
 def fused_layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """`layer_norm`'s function through `ln_bf16` (K10)."""
     return ln_bf16(x, norm.weight, norm.bias, norm.eps)
@@ -140,9 +150,10 @@ class Attention(nn.Module):
             # [q_bias | 0 | v_bias] rides on the projection (eva_scan._bias3)
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                               self.v_bias])
-        qkv = F.linear(h, self.qkv.weight, bias)
-        return self.proj(scanned_attention(qkv, self.q_bias, self.v_bias,
-                                           self.scale, self.heads, attn))
+        qkv = linear(h, self.qkv.weight, bias)
+        return linear(scanned_attention(qkv, self.q_bias, self.v_bias,
+                                        self.scale, self.heads, attn),
+                      self.proj.weight, self.proj.bias)
 
 
 class Mlp(nn.Module):
@@ -166,8 +177,9 @@ class Block(nn.Module):
         act = gelu_bf16_poly if opts.fast_gelu else gelu
         ln = fused_layer_norm if opts.fused_ln else layer_norm
         x = x + self.attn(ln(x, self.norm1), opts.attn)
-        h = act(self.mlp.fc1(ln(x, self.norm2)))
-        return x + self.mlp.fc2(h)
+        h = act(linear(ln(x, self.norm2), self.mlp.fc1.weight,
+                       self.mlp.fc1.bias))
+        return x + linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
 
 
 class PatchEmbed(nn.Module):
@@ -218,7 +230,7 @@ class EvaVisionTower(nn.Module):
         for blk in self.blocks:
             x = blk(x, opts)
         x = layer_norm(x, self.norm)
-        return self.head(x[:, 0]).float()
+        return linear(x[:, 0], self.head.weight, self.head.bias).float()
 
 
 class VisionBlock(nn.Module):

@@ -9,11 +9,11 @@ along the reduced axis.
 Four kernels live here, each a hand-written CUDA kernel with a plain
 PyTorch version beside it: `ln_quant` (K2) and `ln_bf16` (K10), both in
 csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu) and `fused_mlp_int8`
-(K4, csrc/fused_mlp_int8.cu). A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises. The qkv and out projections
-(`int8_mm`) are int8 x int8 -> int32 products that the JAX package leaves
-to XLA; here they go to `torch._int_mm` with the dequantization in eager
-PyTorch.
+(K4, two kernels in csrc/fused_mlp_int8.cu). A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. The qkv and out
+projections (`int8_mm`) are int8 x int8 -> int32 products that the JAX
+package leaves to XLA; here they go to `torch._int_mm` with the
+dequantization in eager PyTorch.
 
 Every quantization is the reference's: scale max(max|y| / 127, 1e-8),
 codes round-half-even(y / scale) clipped to +-127, products accumulated in
@@ -233,26 +233,41 @@ def _chunk(f: int, n_chunk: int) -> int:
     return nc
 
 
-def fused_mlp_int8_ref(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
-                       act: str = "gelu_poly", n_chunk: int = N_CHUNK):
-    """Plain version of K4 (hirest_tpu/ops/quant.py::_fused_mlp_kernel).
+def mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1, *, act: str = "gelu_poly",
+                        n_chunk: int = N_CHUNK):
+    """Plain version of K4's first kernel: the hidden units' int8 codes.
 
-    h_q [M, C] int8, h_s [M, 1] f32; w1_q [F, C] int8, w1_s/b1 [F];
-    w2_q [C, F] int8, w2_s/b2 [C]; x_res [M, C]. For each n_chunk-wide
-    slice of the F hidden units: y = act((f32(h_q w1^T) * h_s) * s1 + b1)
-    in f32, requantized per (row, chunk), and part = f32(q2 w2^T) * sc;
-    acc = (x + b2) + part * s2 on the first chunk, acc += part * s2 after.
-    Returns acc cast once to x_res's dtype."""
+    h_q [M, C] int8, h_s [M, 1] f32; w1_q [F, C] int8, w1_s/b1 [F]. For
+    each n_chunk-wide slice of the F hidden units, y = act((f32(h_q w1^T)
+    * h_s) * s1 + b1) in f32, requantized per (row, chunk). Returns
+    (codes [M, F] int8, scales [M, F / n_chunk] f32)."""
     act_fn = _act(act)
     f = w1_q.shape[0]
     nc = _chunk(f, n_chunk)
-    acc = None
+    codes, scales = [], []
     for j in range(0, f, nc):
         y = torch._int_mm(h_q, w1_q[j:j + nc].t()).float()
         y.mul_(h_s).mul_(w1_s[j:j + nc].float()).add_(b1[j:j + nc].float())
         q2, sc = _scale_and_codes(act_fn(y))
-        part = torch._int_mm(q2, w2_q[:, j:j + nc].t()).float().mul_(sc)
-        part.mul_(w2_s.float())
+        codes.append(q2)
+        scales.append(sc)
+    return torch.cat(codes, 1), torch.cat(scales, 1)
+
+
+def mlp_int8_out_ref(codes, scales, w2_q, w2_s, b2, x_res):
+    """Plain version of K4's second kernel: fc2 over the hidden codes.
+
+    codes [M, F] int8 and scales [M, F / nc] f32 from mlp_int8_hidden_ref;
+    w2_q [C, F] int8, w2_s/b2 [C]; x_res [M, C]. With part_j = (f32(q2_j
+    w2_j^T) * sc_j) * s2 for each nc-wide chunk j: acc = (x + b2) + part_0
+    on the first chunk, acc += part_j after. Returns acc cast once to
+    x_res's dtype."""
+    nc = codes.shape[1] // scales.shape[1]
+    acc = None
+    for c, j in enumerate(range(0, codes.shape[1], nc)):
+        part = torch._int_mm(codes[:, j:j + nc].contiguous(),
+                             w2_q[:, j:j + nc].t()).float()
+        part.mul_(scales[:, c:c + 1]).mul_(w2_s.float())
         if acc is None:
             acc = (x_res.float() + b2.float()).add_(part)
         else:
@@ -260,27 +275,43 @@ def fused_mlp_int8_ref(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
     return acc.to(x_res.dtype)
 
 
-def _fused_mlp_fn():
-    fn = build.load("fused_mlp_int8").hirest_fused_mlp_int8
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
+def fused_mlp_int8_ref(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
+                       act: str = "gelu_poly", n_chunk: int = N_CHUNK):
+    """Plain version of K4 (hirest_tpu/ops/quant.py::_fused_mlp_kernel):
+    mlp_int8_out_ref over mlp_int8_hidden_ref, arguments as theirs.
+
+    For each n_chunk-wide slice of the F hidden units: y = act((f32(h_q
+    w1^T) * h_s) * s1 + b1) in f32, requantized per (row, chunk), and part
+    = f32(q2 w2^T) * sc; acc = (x + b2) + part * s2 on the first chunk,
+    acc += part * s2 after. Returns acc cast once to x_res's dtype."""
+    codes, scales = mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1, act=act,
+                                        n_chunk=n_chunk)
+    return mlp_int8_out_ref(codes, scales, w2_q, w2_s, b2, x_res)
+
+
+def _mlp_fn(entry: str, n_pointers: int, n_ints: int):
+    fn = getattr(build.load("fused_mlp_int8"), entry)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fused_mlp_int8(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
-                   act: str = "gelu_poly"):
-    """x_res + fc2(requant(act(fc1(h)))) for the int8 trunk, with 1024-unit
-    requant chunks; arguments as in fused_mlp_int8_ref.
+def _check_operands(what: str, device, **operands) -> None:
+    """Each operand (tensor, shape, dtype) must be a contiguous tensor of
+    that shape and dtype on device, 16-byte aligned (TMA reads it)."""
+    for name, (t, shape, dtype) in operands.items():
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or not t.is_contiguous() or t.device != device
+                or t.data_ptr() % 16):
+            raise TypeError(f"{what}'s kernel takes {name} as contiguous, "
+                            f"16-byte aligned {dtype} {shape} on {device}, "
+                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
-    A CPU tensor takes the plain version. A CUDA call launches the kernel,
-    which is built for the EVA-g trunk: C = 1408, F a multiple of the
-    1024-unit chunk, contiguous int8 codes, f32 scales and biases, bf16
-    x_res; anything else raises. `fused_mlp_int8.launches` counts
-    launches."""
-    if h_q.device.type == "cpu":
-        return fused_mlp_int8_ref(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
-                                  x_res, act=act)
+
+def _mlp_hidden_launch(h_q, h_s, w1_q, w1_s, b1, act: str):
+    """K4's first kernel on CUDA tensors -> (codes [M, F] int8, scales
+    [M, F / 1024] f32), as mlp_int8_hidden_ref; checks its operands."""
     _require_cuda(h_q)
     _act(act)
     m, c = h_q.shape
@@ -290,38 +321,81 @@ def fused_mlp_int8(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
         raise ValueError(f"fused_mlp_int8's kernel is built for C = "
                          f"{KERNEL_WIDTH} and {N_CHUNK}-unit chunks, got "
                          f"C = {c}, chunk {nc}")
-    shapes = {"h_q": (h_q, (m, c), torch.int8),
-              "h_s": (h_s, (m, 1), torch.float32),
-              "w1_q": (w1_q, (f, c), torch.int8),
-              "w2_q": (w2_q, (c, f), torch.int8),
-              "x_res": (x_res, (m, c), torch.bfloat16)}
-    for name, (t, shape, dtype) in shapes.items():
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or not t.is_contiguous() or t.device != h_q.device):
-            raise TypeError(f"fused_mlp_int8's kernel takes {name} as "
-                            f"contiguous {dtype} {shape} on {h_q.device}, "
-                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     dev = h_q.device
+    _check_operands("fused_mlp_int8", dev,
+                    h_q=(h_q, (m, c), torch.int8),
+                    h_s=(h_s, (m, 1), torch.float32),
+                    w1_q=(w1_q, (f, c), torch.int8))
     s1, bb1 = _f32_vector(w1_s, f, dev), _f32_vector(b1, f, dev)
+    codes = torch.empty((m, f), dtype=torch.int8, device=dev)
+    scales = torch.empty((m, f // nc), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _mlp_fn("hirest_mlp_int8_hidden", 7, 3)(
+            h_q.data_ptr(), h_s.data_ptr(), w1_q.data_ptr(), s1.data_ptr(),
+            bb1.data_ptr(), codes.data_ptr(), scales.data_ptr(), m, f,
+            ACTS[act], torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("fused_mlp_int8"), err, "mlp_int8_hidden launch")
+    return codes, scales
+
+
+def _mlp_out_launch(codes, scales, w2_q, w2_s, b2, x_res):
+    """K4's second kernel on CUDA tensors -> out [M, C] bf16, as
+    mlp_int8_out_ref; checks its operands."""
+    _require_cuda(codes)
+    m, f = codes.shape
+    c = KERNEL_WIDTH
+    dev = codes.device
+    _check_operands("fused_mlp_int8", dev,
+                    codes=(codes, (m, f), torch.int8),
+                    scales=(scales, (m, f // N_CHUNK), torch.float32),
+                    w2_q=(w2_q, (c, f), torch.int8),
+                    x_res=(x_res, (m, c), torch.bfloat16))
     s2, bb2 = _f32_vector(w2_s, c, dev), _f32_vector(b2, c, dev)
     out = torch.empty_like(x_res)
-    # f32 running sum of the fc2 partials between chunks; rows are owned
-    # by one block each, so it needs no atomics
-    ws = torch.empty((m, c) if f > nc else (1,), dtype=torch.float32,
-                     device=dev)
-    fn = _fused_mlp_fn()
     with torch.cuda.device(dev):
-        err = fn(h_q.data_ptr(), h_s.data_ptr(), w1_q.data_ptr(),
-                 s1.data_ptr(), bb1.data_ptr(), w2_q.data_ptr(),
-                 s2.data_ptr(), bb2.data_ptr(), x_res.data_ptr(),
-                 ws.data_ptr(), out.data_ptr(), m, f, ACTS[act],
-                 torch.cuda.current_stream().cuda_stream)
-    build.check(build.load("fused_mlp_int8"), err, "fused_mlp_int8 launch")
+        err = _mlp_fn("hirest_mlp_int8_out", 7, 2)(
+            codes.data_ptr(), scales.data_ptr(), w2_q.data_ptr(),
+            s2.data_ptr(), bb2.data_ptr(), x_res.data_ptr(), out.data_ptr(),
+            m, f, torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("fused_mlp_int8"), err, "mlp_int8_out launch")
+    return out
+
+
+def fused_mlp_int8(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
+                   act: str = "gelu_poly"):
+    """x_res + fc2(requant(act(fc1(h)))) for the int8 trunk, with 1024-unit
+    requant chunks; arguments as in fused_mlp_int8_ref.
+
+    A CPU tensor takes the plain version. A CUDA call launches K4's two
+    kernels, which are built for the EVA-g trunk: C = 1408, F a multiple
+    of the 1024-unit chunk, contiguous 16-byte aligned int8 codes, f32
+    scales and biases, bf16 x_res; anything else raises. The first writes
+    the hidden units' int8 codes and per-chunk scales, the second folds
+    fc2 over them. `fused_mlp_int8.launches` counts calls, each of which
+    launches both."""
+    if h_q.device.type == "cpu":
+        return fused_mlp_int8_ref(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                                  x_res, act=act)
+    _require_cuda(h_q)
+    m, c = h_q.shape
+    _check_operands("fused_mlp_int8", h_q.device,
+                    w2_q=(w2_q, (c, w1_q.shape[0]), torch.int8),
+                    x_res=(x_res, (m, c), torch.bfloat16))
+    codes, scales = _mlp_hidden_launch(h_q, h_s, w1_q, w1_s, b1, act)
+    out = _mlp_out_launch(codes, scales, w2_q, w2_s, b2, x_res)
     fused_mlp_int8.launches += 1
     return out
 
 
 fused_mlp_int8.launches = 0
+
+
+def mlp_int8_smem_bytes() -> dict:
+    """Dynamic shared memory a block of each of K4's kernels asks for."""
+    fn = build.load("fused_mlp_int8").hirest_mlp_int8_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {"mlp_hidden": fn(0), "mlp_out": fn(1)}
 
 
 def _require_cuda(t: torch.Tensor) -> None:

@@ -99,11 +99,11 @@ def test_bf16_configuration_matches_jax_bf16(name):
     element by element: within 4 bf16 ulps of the output's largest
     magnitude, a bar per element where the f32 test above and the bf16
     cosine bar (test_torch_eva.py) say nothing of bf16 rounding. Not bit
-    for bit: the port rounds each projection's f32 product and bias once
-    (F.linear) where JAX rounds the product and then the sum, and XLA's jit
-    keeps some bf16 sums in f32 where an f32 op reads them (ROADMAP.md
-    section 3), so a few roundings land one ulp apart, and the next
-    layers carry them."""
+    for bit: XLA's jit keeps some bf16 sums in f32 where an f32 op reads
+    them (the fc1 bias add under gelu_bf16_poly's cast), which no eager
+    order reproduces, so a few roundings land one ulp apart, and the next
+    layers carry them. Against JAX's eager operations the block is bit for
+    bit (test_bf16_block_and_head_match_jax_eager_ops)."""
     flags = LADDER[name]
     sd, im = eva_state_dict(PACKED, seed=54), images(PACKED, 3, seed=54)
     want = _jax(sd, PACKED, im, dtype=jnp.bfloat16, **flags)
@@ -112,6 +112,51 @@ def test_bf16_configuration_matches_jax_bf16(name):
     top = np.abs(want).max()
     ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
     np.testing.assert_allclose(got, want, rtol=0, atol=4 * ulp)
+
+
+def test_bf16_block_and_head_match_jax_eager_ops():
+    """The scanned bf16 forward (v1, K8, gelu_bf16_poly) cut to one block
+    at PACKED's widths, its block and its head bit for bit against the JAX
+    package's eager operations on the same bf16 operands: _ln, `@` and `+`
+    (each projection's product rounded to bf16, then its bias added in
+    bf16: eva_scan.py:310, :347, :350-351, :451), the K8 Pallas kernel in
+    interpret mode and gelu_bf16_poly."""
+    from hirest_tpu.models.eva_scan import _ln as jax_ln
+    from hirest_tpu.models.layers import gelu_bf16_poly as jax_gelu
+    from hirest_tpu.ops.attention import fused_attention_qkv as jax_qkv1
+    from hirest_tpu_torch.models.eva_clip import BlockOptions
+
+    spec = dict(PACKED, layers=1)
+    sd, im = eva_state_dict(spec, seed=56), images(spec, 3, seed=56)
+    tower, _ = stage_scanned_params(sd, configs(spec)[1],
+                                    dtype=torch.bfloat16, device="cpu")
+    blk = tower.blocks[0]
+    attn, mlp = blk.attn, blk.mlp
+
+    def to_jax(t):
+        return jnp.asarray(t.detach().float().numpy(), jnp.bfloat16)
+
+    def ln(x, norm):
+        return jax_ln(x, to_jax(norm.weight), to_jax(norm.bias), norm.eps)
+
+    def dense(h, layer):
+        return h @ to_jax(layer.weight).T + to_jax(layer.bias)
+
+    with torch.inference_mode():
+        x = tower.embed(torch.as_tensor(im))
+        got_x = blk(x, BlockOptions())
+        got = tower(torch.as_tensor(im))
+    xj = to_jax(x)
+    qkv = ln(xj, blk.norm1) @ to_jax(attn.qkv.weight).T
+    att = jax_qkv1(qkv, to_jax(attn.q_bias), to_jax(attn.v_bias),
+                   attn.scale, attn.heads, interpret=True)
+    xj = xj + dense(att, attn.proj)
+    xj = xj + dense(jax_gelu(dense(ln(xj, blk.norm2), mlp.fc1)), mlp.fc2)
+    want = dense(ln(xj, tower.norm)[:, 0], tower.head).astype(jnp.float32)
+    assert np.array_equal(got_x.float().numpy(),
+                          np.asarray(xj.astype(jnp.float32)))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("step", ["k8_attention", "int8_dyn_gelu"])

@@ -25,11 +25,13 @@ from hirest_tpu.ops.quant import fused_mlp_int8 as jax_fused_mlp
 from hirest_tpu.ops.quant import ln_bf16 as jax_ln_bf16
 from hirest_tpu.ops.quant import ln_quant as jax_ln_quant
 from hirest_tpu.ops.quant import quantize_weight as jax_quantize_weight
+from hirest_tpu_torch.models.layers import gelu_bf16_poly
 from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
                                         dyn_quant_rows, fused_mlp_int8,
                                         fused_mlp_int8_ref, int8_mm,
                                         ln_bf16, ln_bf16_ref, ln_quant,
-                                        ln_quant_ref, quantize_weight)
+                                        ln_quant_ref, mlp_int8_hidden_ref,
+                                        mlp_int8_out_ref, quantize_weight)
 
 C, F, EPS = 1408, 6144, 1e-6  # EVA-g trunk width, MLP width, LayerNorm eps
 
@@ -255,24 +257,94 @@ def _mlp_inputs(seed, m, f=F):
     return h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x
 
 
+def _jax_mlp(args, act):
+    h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x = args
+    return np.asarray(jax_fused_mlp(
+        jnp.asarray(h_q.numpy()), jnp.asarray(h_s.numpy()),
+        jnp.asarray(w1_q.T.numpy()), jnp.asarray(w1_s.numpy()),
+        jnp.asarray(b1.numpy()), jnp.asarray(w2_q.T.numpy()),
+        jnp.asarray(w2_s.numpy()), jnp.asarray(b2.numpy()),
+        jnp.asarray(x.numpy()), act=act, interpret=True))
+
+
 @pytest.mark.parametrize("act", ["gelu_poly", "gelu"])
 def test_fused_mlp_plain_matches_jax(act):
     """[264, 1408] x 6144 (six 1024-unit requant chunks), f32 residual:
     within 1e-3 of the MLP's largest contribution max|want - x|. A hidden
     code that flips between the two moves a row by far less."""
     args = _mlp_inputs(5, 264)
-    h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x = args
-    want = np.asarray(jax_fused_mlp(
-        jnp.asarray(h_q.numpy()), jnp.asarray(h_s.numpy()),
-        jnp.asarray(w1_q.T.numpy()), jnp.asarray(w1_s.numpy()),
-        jnp.asarray(b1.numpy()), jnp.asarray(w2_q.T.numpy()),
-        jnp.asarray(w2_s.numpy()), jnp.asarray(b2.numpy()),
-        jnp.asarray(x.numpy()), act=act, interpret=True))
+    x = args[-1]
+    want = _jax_mlp(args, act)
     got = fused_mlp_int8(*args, act=act)
     assert got.dtype == torch.float32 and got.shape == (264, C)
     scale = np.abs(want - x.numpy()).max()
     assert scale > 0.1
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("f", [2048, 3072])
+@pytest.mark.parametrize("act", ["gelu_poly", "gelu"])
+def test_split_plain_mlp_matches_jax(f, act):
+    """The plain versions of K4's two kernels, composed, against the JAX
+    kernel in interpret mode at two and three 1024-unit chunks, at
+    test_fused_mlp_plain_matches_jax's bar. Not bit for bit: XLA's CPU
+    backend always fuses a multiply feeding an add into one FMA (the
+    dequantization, the polynomial, each chunk's accumulation), where the
+    plain version and the CUDA kernels round both, as PyTorch's eager
+    operations do; a hidden code at a rounding boundary may then land on
+    the other side."""
+    args = _mlp_inputs(11, 264, f=f)
+    h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x = args
+    want = _jax_mlp(args, act)
+    codes, scales = mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1, act=act)
+    got = mlp_int8_out_ref(codes, scales, w2_q, w2_s, b2, x)
+    assert got.dtype == torch.float32 and got.shape == (264, C)
+    scale = np.abs(want - x.numpy()).max()
+    assert scale > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("f", [2048, 3072])
+def test_hidden_codes_and_scales_per_chunk(f):
+    """mlp_int8_hidden_ref's scales are [M, F / 1024], column j the scale
+    of chunk j, and its codes chunk j's codes: the row quantization of the
+    activated fc1 output, computed here over all F at once and cut into
+    chunks afterwards."""
+    h_q, h_s, w1_q, w1_s, b1 = _mlp_inputs(12, 40, f=f)[:5]
+    codes, scales = mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1)
+    assert codes.dtype == torch.int8 and codes.shape == (40, f)
+    assert scales.dtype == torch.float32 and scales.shape == (40, f // 1024)
+    y = torch._int_mm(h_q, w1_q.t()).float().mul_(h_s).mul_(w1_s).add_(b1)
+    y = gelu_bf16_poly(y)
+    for j in range(f // 1024):
+        q, s = dyn_quant_rows(y[:, 1024 * j:1024 * (j + 1)])
+        assert torch.equal(scales[:, j:j + 1], s)
+        assert torch.equal(codes[:, 1024 * j:1024 * (j + 1)], q)
+    assert not torch.equal(scales[:, :1], scales[:, 1:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_ref_on_hidden_codes_is_the_one_loop_mlp(dtype):
+    """mlp_int8_out_ref on mlp_int8_hidden_ref's codes reproduces, bit for
+    bit, the MLP computed chunk by chunk in one loop (what
+    fused_mlp_int8_ref computed before K4 was split at the codes): the
+    split moves no rounding."""
+    args = list(_mlp_inputs(13, 40, f=2048))
+    args[-1] = args[-1].to(dtype)
+    h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x = args
+    acc = None
+    for j in range(0, 2048, 1024):
+        y = torch._int_mm(h_q, w1_q[j:j + 1024].t()).float()
+        y.mul_(h_s).mul_(w1_s[j:j + 1024]).add_(b1[j:j + 1024])
+        q2, sc = dyn_quant_rows(gelu_bf16_poly(y))
+        part = torch._int_mm(q2, w2_q[:, j:j + 1024].t()).float().mul_(sc)
+        part.mul_(w2_s)
+        acc = (x.float() + b2).add_(part) if acc is None else acc.add_(part)
+    want = acc.to(dtype)
+    codes, scales = mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1)
+    got = mlp_int8_out_ref(codes, scales, w2_q, w2_s, b2, x)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(fused_mlp_int8_ref(*args), want)
 
 
 def test_fused_mlp_chunks_requant_separately():
