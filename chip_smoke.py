@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py                 # needs one CUDA GPU and nvcc
     python3 chip_smoke.py --kernels-only  # build and kernels phases only
-    python3 chip_smoke.py --time-attention  # K1, K6, K7, K8, K8q ms alone
+    python3 chip_smoke.py --time-attention  # K1, K3, K6-K9 ms alone
     python3 chip_smoke.py --time-mlp        # K4 and its _int_mm pair alone
 
---time-attention times K1, K6, K7 and K8 (bf16 and int8 out) and nothing
-else, so a copy of this file run from a `git archive` of an earlier commit
+--time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
+tokens, one 192-row query tile a head), K9, K6, K7 and K8 (bf16 and int8
+out), beside scaled_dot_product_attention, and nothing else, so a copy of this file run from a `git archive` of an earlier commit
 times that commit's kernels: run parent, change, change, parent in one call
 to compare two trees on one card. Where attention_split.cu has its
 arithmetic variants (HIREST_SPLIT_ARITH), it also times K6 and K7 under
@@ -20,11 +21,15 @@ K4 into two kernels it also times the first alone.
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout (set-up);
-            K4's two kernels' registers, spills and shared memory.
+            K4's two kernels' and K1/K3's instantiations' registers, spills
+            and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
-            both again at the padded head width, [B, 257, 6144]), K2
+            both again at the padded head width, [B, 257, 6144]; and both,
+            at both widths, at the tiles' edges, their errors printed
+            apart: 33 and 65 tokens, 592 (d = 88) and 432 (d = 128)
+            tokens, 264 with n_real = 257 at B = 2 and 128), K2
             (ln_quant, [M, 1408]), K4 (fused_mlp_int8, [M, 1408] x 6144,
             both activations; its first kernel's codes and scales also
             against mlp_int8_hidden_ref, equal), K6 (split heads
@@ -361,6 +366,33 @@ def phase_kernels(cfg) -> dict:
             f"n_real={n_real}", got, want, 0.99, 2 ** -7)
         if d == 88:
             worst["K3"] = max(worst["K3"], err)
+
+    # K1 and K3 where the 64-row query tiles and 64-key tiles meet their
+    # edges: 33 and 65 tokens (a tile and one more row or key), the longest
+    # rows the staged first version took (592 at d=88, 432 at d=128), and
+    # pad keys (n_real < S) with bf16 out, at B=2 and 128; same bars. Their
+    # errors are printed apart: the kernels line keeps the main path's.
+    edge = {"K1": 0.0, "K3": 0.0}
+    for d, batch, tokens, n_real in (
+            (88, 2, 33, 0), (88, 2, 65, 0), (128, 2, 33, 0), (128, 2, 65, 0),
+            (88, 2, 592, 0), (128, 2, 432, 0), (88, 2, 264, TOKENS),
+            (128, 2, 264, TOKENS), (88, BATCH, 264, TOKENS),
+            (128, BATCH, 264, TOKENS)):
+        qkv = attention_inputs(batch, seed=100 + batch + tokens + d,
+                               tokens=tokens, hd=heads * d)
+        shape = f"[{batch},{tokens},{3 * heads * d}] n_real={n_real}"
+        edge["K1"] = max(edge["K1"], check_close(
+            f"K1 fused_attention_qkv3 {shape}",
+            fused_attention_qkv3(qkv, d ** -0.5, heads, n_real=n_real),
+            fused_attention_qkv3_ref(qkv, d ** -0.5, heads, n_real=n_real)))
+        edge["K3"] = max(edge["K3"], check_codes(
+            f"K3 attention quant_out {shape}",
+            fused_attention_qkv3(qkv, d ** -0.5, heads, quant_out=True,
+                                 n_real=n_real),
+            fused_attention_qkv3_ref(qkv, d ** -0.5, heads, quant_out=True,
+                                     n_real=n_real), 0.99, 2 ** -7))
+    print(f"[kernels] K1/K3 at the tiles' edges: K1 max_abs_err="
+          f"{edge['K1']}, K3 max_abs_err (dequantized)={edge['K3']}")
 
     # K6 and K7 at K1's bar, on the unrolled towers' shapes: split-heads
     # views of one qkv projection (d=88), packed heads (d=128), and the
@@ -1367,20 +1399,27 @@ ARITH_VARIANTS = {  # attention_split.cu's HIREST_SPLIT_ARITH -> its softmax
 
 
 def time_attention(cfg, card: str) -> None:
-    """K1, K6, K7 and K8 (bf16 and int8 out) ms per call at B=128 and
-    nothing else, through the wrappers that earlier versions of the port
-    have too, so that this file copied into an earlier checkout times that
-    checkout's kernels. Where the checkout's attention_split.cu has
-    arithmetic variants, K6 and K7 are timed again under each, and each
+    """K1 and K3 (at head widths 88 and 128), K9 (bf16 and int8 out), K6,
+    K7 and K8 (bf16 and int8 out) ms per call at B=128, beside
+    scaled_dot_product_attention at each head width, and nothing else,
+    through the wrappers that earlier versions of the port have too, so
+    that this file copied into an earlier checkout times that checkout's
+    kernels. K1 is also timed at 192 and 384 tokens (whole 192-row query
+    tiles: every consumer of attention_qkv3.cu busy), against 257, where a
+    head's second tile has 65 rows. Where the checkout's attention_split.cu
+    has arithmetic variants, K6 and K7 are timed again under each, and each
     held against its plain version at K6's bar."""
     import inspect
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch.nn.functional as F
 
     from hirest_tpu_torch.ops import attention, build
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_attention_packed_ref,
                                                 fused_attention_qkv,
+                                                fused_attention_qkv2,
                                                 fused_attention_qkv3,
                                                 fused_attention_ref)
 
@@ -1398,10 +1437,32 @@ def time_attention(cfg, card: str) -> None:
     p128 = 128 ** -0.5
     qkv = attention_inputs(BATCH, seed=7)
     q, k, v = split_views(attention_inputs(BATCH, seed=11))
-    pq, pk, pv = attention_inputs(BATCH, seed=12, hd=PADDED_HD).chunk(3, -1)
+    qkv128 = attention_inputs(BATCH, seed=12, hd=PADDED_HD)
+    pq, pk, pv = qkv128.chunk(3, -1)
     qkv8 = attention_inputs(BATCH, seed=13)
     qb, vb = biases(heads * cfg.head_width, seed=14)
+    hq, hk, hv = split_views(qkv)
+    sq, sk, sv = split_views(qkv128)
+    qkv192 = attention_inputs(BATCH, seed=15, tokens=192)
+    qkv384 = attention_inputs(BATCH, seed=16, tokens=384)
     ms = {"K1": cuda_ms(lambda: fused_attention_qkv3(qkv, scale, heads), 50),
+          "K1 S=192": cuda_ms(lambda: fused_attention_qkv3(
+              qkv192, scale, heads), 50),
+          "K1 S=384": cuda_ms(lambda: fused_attention_qkv3(
+              qkv384, scale, heads), 50),
+          "K1 d=128": cuda_ms(lambda: fused_attention_qkv3(
+              qkv128, p128, heads), 50),
+          "K3": cuda_ms(lambda: fused_attention_qkv3(
+              qkv, scale, heads, quant_out=True), 50),
+          "K3 d=128": cuda_ms(lambda: fused_attention_qkv3(
+              qkv128, p128, heads, quant_out=True), 50),
+          "K9": cuda_ms(lambda: fused_attention_qkv2(qkv, scale, heads), 50),
+          "K9q": cuda_ms(lambda: fused_attention_qkv2(
+              qkv, scale, heads, quant_out=True), 50),
+          "SDPA d=88": cuda_ms(lambda: F.scaled_dot_product_attention(
+              hq, hk, hv, scale=scale), 50),
+          "SDPA d=128": cuda_ms(lambda: F.scaled_dot_product_attention(
+              sq, sk, sv, scale=p128), 50),
           "K6": cuda_ms(lambda: fused_attention(q, k, v, scale), 50),
           "K7": cuda_ms(lambda: fused_attention_packed(
               pq, pk, pv, p128, heads), 50),
@@ -1459,7 +1520,8 @@ def time_mlp(card: str) -> None:
 
 
 def ptxas_summary(log: str, kernels) -> None:
-    """Each named kernel's registers and spills from nvcc's ptxas -v log."""
+    """Each named kernel's registers and spills from nvcc's ptxas -v log,
+    and why ptxas serialized its wgmma instructions, where it did."""
     lines = log.splitlines()
     for name in kernels:
         at = [i for i, line in enumerate(lines)
@@ -1468,7 +1530,14 @@ def ptxas_summary(log: str, kernels) -> None:
             props = " ".join(line.split("info    :")[-1].strip()
                              for line in lines[i + 1:i + 4]
                              if "bytes stack" in line or "Used" in line)
-            print(f"[build] ptxas {name}: {props}")
+            entry = lines[i].split("'")[1] if "'" in lines[i] else name
+            serial = {line.split("serialized ")[-1].split(" for the")[0]
+                      for line in lines
+                      if "wgmma.mma_async instructions are serialized" in line
+                      and entry in line}
+            if serial:
+                props += f"; wgmma serialized {', '.join(sorted(serial))}"
+            print(f"[build] ptxas {entry}: {props}")
 
 
 def main() -> int:
@@ -1502,6 +1571,7 @@ def main() -> int:
     ptxas_summary(logs.get("fused_mlp_int8", ""),
                   ("fused_mlp_int8_hidden_kernel",
                    "fused_mlp_int8_out_kernel"))
+    ptxas_summary(logs.get("attention_qkv3", ""), ("attention_qkv3_kernel",))
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
 

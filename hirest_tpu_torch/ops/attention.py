@@ -4,8 +4,9 @@ Counterparts of hirest_tpu/ops/attention.py:
 
 - `fused_attention_qkv3` (v3), with its pad-key mask (n_real) and its int8
   epilogue (quant_out): the production scanned trunk. It launches the CUDA
-  kernel `csrc/attention_qkv3.cu` on a CUDA tensor: K1 for bf16 output, K3
-  for int8 codes and row scales.
+  kernel `csrc/attention_qkv3.cu` on a CUDA tensor (K and V through a TMA
+  ring, QK^T and PV on wgmma): K1 for bf16 output, K3 for int8 codes and
+  row scales.
 - `fused_attention_qkv2` (v2, K9): the same function, which the TPU kernel
   computes one head at a time. That loop is TPU scheduling, so it launches
   the same CUDA kernel, under its own launch counts.
@@ -178,8 +179,8 @@ def fused_attention_qkv2(qkv_biased: torch.Tensor, scale: float,
     """The v2 attention (K9): `fused_attention_qkv3`'s arguments, function
     and conditions. Its TPU kernel walks the heads one at a time where v3
     batches them; that is TPU scheduling, and attention_qkv3.cu already
-    runs one block per (batch row, head), so a CUDA tensor launches that
-    kernel. `rows_per_cell` (grid cells per launch on the TPU) is not
+    walks (batch row, query tile, head) items, so a CUDA tensor launches
+    that kernel. `rows_per_cell` (grid cells per launch on the TPU) is not
     carried. A CPU tensor takes the plain version.
     `fused_attention_qkv2.launches` counts bf16-out launches,
     `.quant_launches` int8-out ones."""

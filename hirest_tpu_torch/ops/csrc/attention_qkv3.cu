@@ -6,10 +6,9 @@
 // _attn_heads_batched via _attn_kernel_qkv3, and _attn_kernel_qkv3_quant
 // with the pad-key mask _mask_pad_keys), and fused_attention_qkv2 (K9,
 // bodies _attn_kernel_qkv2 and _attn_kernel_qkv2_quant), which computes the
-// same function one head at a time: the loop over heads is TPU scheduling,
-// and this kernel's blocks are already one per (b, h). For each (b, h),
-// with q/k/v the head-h column slices of qkv[b] and n_keys = min(n_real, S)
-// (S when n_real is 0):
+// same function one head at a time: the loop over heads is TPU scheduling.
+// For each (b, h), with q/k/v the head-h column slices of qkv[b] and
+// n_keys = min(n_real, S) (S when n_real is 0):
 //   s   = q k^T            f32, unscaled; keys >= n_keys excluded
 //   m   = rowmax(s)
 //   p   = bf16(exp2((s - m) * c)),  c = scale * log2(e)
@@ -23,201 +22,452 @@
 //
 // Bound on an H100 SXM (EVA-g, B=128, S=257, H=16, D=88): the call reads
 // qkv [128, 257, 4224] bf16 (278 MB) and writes [128, 257, 1408] bf16
-// (93 MB; K3: 46 MB of int8 and 0.13 MB of scales): 111 us (K3: 97 us) at
-// 3.35 TB/s, against 48 us for its 47.6 GFLOP of QK^T and PV at the
+// (93 MB; K3: 46 MB of int8 and 0.13 MB of scales): 0.1106 ms (K3: 0.0968)
+// at 3.35 TB/s, against 0.048 ms for its 47.6 GFLOP of QK^T and PV at the
 // 989 TFLOP/s dense bf16 rate. It is bound by memory. At the padded head
 // width (models/eva_pad.py: H=16, D=128) it reads 404 MB and writes 135 MB
-// (K3: 67 MB of int8): 161 us (K3: 141 us), against 70 us for 69.3 GFLOP.
+// (K3: 67 MB of int8): 0.1609 ms (K3: 0.1408), against 0.070 ms for 69.3
+// GFLOP.
 //
-// Design (simple first version; no TMA, wgmma or pipelining):
-// - One block per (b, h), 8 warps. The block stages k_h row-major and v_h
-//   transposed in shared memory (about 105 KB at S=257, so two blocks fit on
-//   an SM), so each byte of qkv is read from device memory once and each
-//   output byte written once: the traffic is the bound's.
-// - Each warp walks 16-row query tiles. Its q fragments come straight from
-//   device memory into registers; d is zero-padded from 88 to 96. At
-//   d=128 K and V^T take 145,664 bytes, so one block fits on an SM.
-// - QK^T and PV run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate). The row max is taken in a first pass over all keys and
-//   the scores are recomputed in the second pass, so p is rounded to bf16
-//   against the final row max exactly as the reference does (no online
-//   rescaling). This spends a second QK^T to keep the reference's numbers.
-// - Staging and compute do not overlap inside a block; the second resident
-//   block on the SM is what hides the loads.
-// - K3's row scale needs all 16 heads of a row, which 16 different blocks
-//   compute. Each block writes its f32 head output to a [B, S, H*D] workspace
-//   and folds its per-row max |o| into a zeroed [B, S] buffer with atomicMax
-//   on the bits of the non-negative float (monotone as unsigned integers).
-//   A second kernel then quantizes the workspace rows (rowquant.cuh, shared
-//   with K8's epilogue in attention_split.cu). This moves 370 MB more than
-//   the bound counts; a 16-block cluster reducing the row max in distributed
-//   shared memory would not.
+// Design: one warp-specialised body for both head widths and both outputs.
+// - Work items are (b, query tile, h), heads fastest, so the 16 heads of
+//   one (b, query tile) are adjacent. A persistent grid (one block an SM)
+//   walks them with a static stride.
+// - A block is three consumer warpgroups of 64 query rows each (a query
+//   tile is kRows = 192 rows; 160 registers a thread after setmaxnreg)
+//   and a producer warpgroup (24 registers), whose one thread issues every
+//   TMA load: each consumer's Q tile into its own buffer (a full and an
+//   empty mbarrier each; the next item's Q lands while this one computes),
+//   and K and V tiles into a ring of kStages stages (a full and an empty
+//   mbarrier each). Every consumer reads every stage, so a head's K and V
+//   pass through L2 once for 192 query rows, and the next tile's loads,
+//   and the next item's, overlap this tile's math. A consumer whose rows
+//   all lie past S only keeps the ring's count: at S = 257 a head's
+//   second item has 65 rows, one consumer's 64, one's 1 and none for the
+//   third. The consumers share the SM's math, so the idle one costs no
+//   time, but the 1-row tile costs a full one (wgmma's M is 64).
+// - qkv is mapped as the 4-d tensor [B, S, 3H, D] (D innermost), so a box
+//   never crosses a head or an image: keys >= S and head columns >= D read
+//   as zeros. A box is 64 rows by 32 columns (64 bytes, 64-byte swizzle); a
+//   tile of 64 rows is 3 boxes at D=88 (columns 88..95 zero, so QK^T runs
+//   over 96 = 6 x 16 columns with nothing but zeros past the head) and 4 at
+//   D=128.
+// - Each consumer reads its q fragments out of its Q tile once (ldmatrix,
+//   de-swizzled) into registers, as wgmma's A operand. QK^T is wgmma
+//   m64n64k16 (bf16 -> f32) against the K-major K tile. PV is wgmma
+//   m64n96k16 / m64n128k16 with p from registers (the score accumulator's
+//   layout is the A fragment's) and V as the MN-major B operand straight
+//   from its TMA tile: no V^T is ever stored. PV at D=88 runs 96 wide over
+//   the zero columns, whose outputs are dropped.
+// - Two passes, because the reference rounds p against the exact final
+//   row max: pass 1 takes the row max over QK^T, pass 2 recomputes QK^T
+//   and forms p = bf16(2^(s c - m c)), m c rounded once a row, by
+//   ex2.approx.ftz on one FFMA, with no branch a score except on the last
+//   key tile, whose keys past n_keys are left out by the tile's bound. The
+//   f32 row sum is of the rounded p; o is multiplied by the correctly
+//   rounded reciprocal of the sum after PV. Each tile's PV runs while the
+//   next tile is awaited and its scores issued. Any S and n_keys: keys
+//   stream through the ring.
+// - Every wgmma sequence is straight-line (the last key tile is computed
+//   whole, its keys past n_keys masked), which keeps ptxas from
+//   serialising the wgmma pipeline around branches. At D=128 it still
+//   serialises it for lack of registers (a consumer thread's 160 hold 64
+//   PV accumulators, 32 scores and 32 q fragment registers).
+// - K3's row scale needs all 16 heads of a row, which 16 items compute.
+//   Each warp parks its f32 rows of its head in a [B, S, H*D] workspace
+//   and folds its per-row max |o| into a zeroed [B, S] buffer with
+//   atomicMax (rowquant.cuh's park_f32_tile); a second kernel quantizes the
+//   workspace rows (launch_quant_rows, shared with K8's epilogue). This
+//   moves 370 MB more than the bound counts; the heads of one (b, query
+//   tile) are adjacent items so that a cluster could exchange the row
+//   maxima on chip instead.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 #include "rowquant.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 64;        // keys (or query rows) a tile holds
+constexpr int kBoxCols = 32;     // head columns a TMA box holds: 64 bytes
+constexpr int kBoxBytes = kKeys * kBoxCols * 2;  // 64 rows by 64 bytes
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
+// Three consumer warpgroups of 64 query rows and one producer warpgroup;
+// setmaxnreg gives the producer's registers to the consumers
+constexpr int kGroups = 3;
+constexpr int kRows = 64 * kGroups;  // query rows an item
+constexpr int kThreads = 128 * (kGroups + 1);
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
 
 template <int D>
-size_t smem_bytes(int S) {
-  const int s_pad = round_up16(S);
-  return sizeof(__nv_bfloat16) *
-         ((size_t)s_pad * Tile<D>::kKStride + (size_t)D * (s_pad + 8));
+struct Geo {
+  static_assert(D == 88 || D == 128, "head widths the kernel is built for");
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // 3 or 4
+  static constexpr int kChunks = kBoxes * kBoxCols / 16;  // QK^T k-steps
+  static constexpr int kSlot = kBoxes * kBoxBytes;  // one Q, K or V tile
+  static constexpr int kStage = 2 * kSlot;  // a K and a V tile
+  static constexpr int kBarriers = 1024;    // room for the mbarriers
+  static constexpr int kStages =
+      (kSmemMax - 1024 - kBarriers - kGroups * kSlot) / kStage;  // 7 or 5
+  static constexpr size_t kSmem =
+      1024 + (size_t)kGroups * kSlot + (size_t)kStages * kStage + kBarriers;
+  // two blocks' shared memory (and 1 KB each the runtime keeps) exceed an
+  // SM's 228 KB, so the persistent grid is one block an SM
+  static_assert(2 * (kSmem + 1024) > 228 * 1024, "one block an SM");
+  static constexpr int kAcc = kBoxes * kBoxCols / 2;  // PV accumulators
+  static constexpr int kOTiles = D / 8;  // 8-column slices written out
+};
+
+// PV over one 16-key step: o += p v, V's tile MN-major (its 32-column
+// boxes kBoxBytes apart).
+template <int D>
+__device__ __forceinline__ void pv_step(float (&o)[Geo<D>::kAcc],
+                                        const uint32_t (&p)[4],
+                                        uint32_t v_addr) {
+  const uint64_t db = smem_desc_mn64(v_addr, kBoxBytes);
+  if constexpr (D == 88)
+    wgmma_bf16_n96(o, p, db, 1);
+  else
+    wgmma_bf16_n128(o, p, db, 1);
 }
 
-__device__ __forceinline__ __nv_bfloat16 prob(float s, float m, float c,
-                                              bool valid) {
-  return __float2bfloat16_rn(valid ? exp2f((s - m) * c) : 0.f);
+// Scores of the consumer's 64 query rows against the 64 keys of the K
+// tile at k_addr (zero rows past S; the caller leaves out keys past
+// n_keys). Waits for every wgmma in flight.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32],
+                                       const uint32_t (&qa)[Geo<D>::kChunks][4],
+                                       uint32_t k_addr) {
+  using G = Geo<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < G::kChunks; ++kc)
+    wgmma_bf16_n64(
+        s, qa[kc], smem_desc_k64(k_addr + (kc / 2) * kBoxBytes + (kc % 2) * 32),
+        kc);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
 }
 
-// Two blocks an SM at d=88 (105,856 bytes of shared memory each); at d=128
-// one block fits, which leaves it all 255 registers.
+// The rounded p of one score pair, its f32 sum added to l.
+__device__ __forceinline__ uint32_t prob_pair(float x0, float x1, float c,
+                                              float mc, float& l) {
+  const uint32_t p =
+      pack_f32_bf16(ex2_ftz(fmaf(x0, c, -mc)), ex2_ftz(fmaf(x1, c, -mc)));
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&p);
+  l += __low2float(b) + __high2float(b);
+  return p;
+}
+
 template <int D, bool kQuant>
-__global__ void __launch_bounds__(kThreads, D > 96 ? 1 : 2)
-    attention_qkv3_kernel(const __nv_bfloat16* __restrict__ qkv,
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_qkv3_kernel(const __grid_constant__ CUtensorMap tm,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ ws,
                           unsigned int* __restrict__ rowmax, int S, int H,
-                          int n_keys, float c) {
-  using T = Tile<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int s_pad = round_up16(S);
-  const int vt_stride = s_pad + 8;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vt = ks + s_pad * T::kKStride;  // [D][vt_stride]
+                          int n_keys, float c, int items) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qbuf = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* ring = qbuf + kGroups * G::kSlot;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kStage);
+  uint64_t* empty = full + G::kStages;
+  uint64_t* qfull = empty + G::kStages;
+  uint64_t* qempty = qfull + kGroups;
+  const int q_tiles = (S + kRows - 1) / kRows;
+  const int key_tiles = (n_keys + kKeys - 1) / kKeys;
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int hd = H * D;
-  const long long row_stride = 3 * (long long)hd;
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row_stride;
-  const __nv_bfloat16* qg = base + h * D;
-  const __nv_bfloat16* kg = base + hd + h * D;
-  const __nv_bfloat16* vg = base + 2 * hd + h * D;
-
-  // Stage k_h (row-major, keys S..s_pad zero) and v_h^T (keys S..s_pad zero).
-  stage_kv<D, kThreads>(ks, vt, kg, row_stride, vg, row_stride, S, s_pad,
-                        vt_stride);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kGroups);
+    }
+    for (int w = 0; w < kGroups; ++w) {
+      mbar_init(&qfull[w], 1);
+      mbar_init(&qempty[w], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int key_tiles = s_pad / 8;
-
-  for (int qt = warp; qt * 16 < S; qt += kWarps) {
-    const int r0 = qt * 16 + g, r1 = r0 + 8;
-    // q fragments (A operand, row-major 16x16 per d-chunk), zero past S / D.
-    uint32_t qa[T::kChunks][4];
-    load_q<D>(qa, qg, row_stride, r0, S, t);
-
-    // Pass 1: row max over the real keys.
-    float m0 = -INFINITY, m1 = -INFINITY;
-    for (int nt = 0; nt < key_tiles; ++nt) {
-      float s[4];
-      qk_tile<D>(s, qa, ks, nt, g, t);
-      const int key = nt * 8 + 2 * t;
-      if (key < n_keys) {
-        m0 = fmaxf(m0, s[0]);
-        m1 = fmaxf(m1, s[2]);
-      }
-      if (key + 1 < n_keys) {
-        m0 = fmaxf(m0, s[1]);
-        m1 = fmaxf(m1, s[3]);
-      }
-    }
+  const int wg = threadIdx.x / 128;
+  if (wg == kGroups) {
+    // producer warpgroup: one thread walks the block's items, loads each
+    // consumer's Q tile into its buffer and keeps the K/V ring full
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kGroups * 128) {
+      // one 64-row tile from row0 of head column block part * H + h
+      auto load_tile = [&](uint8_t* dst, uint64_t* bar, int part, int h,
+                           int row0, int b) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-
-    // Pass 2: p = bf16(exp2((s - m) c)), den += p, o += p v.
-    float o[T::kOTiles][4];
+        for (int bx = 0; bx < G::kBoxes; ++bx)
+          tma_load_4d(dst + bx * kBoxBytes, &tm, bar, bx * kBoxCols,
+                      part * H + h, row0, b);
+      };
+      int step = 0;
+      int q_loads[kGroups] = {};
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int h = it % H, qt = (it / H) % q_tiles, b = it / (H * q_tiles);
 #pragma unroll
-    for (int dt = 0; dt < T::kOTiles; ++dt)
-      o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-    float l0 = 0.f, l1 = 0.f;
-    for (int kb = 0; kb < s_pad / 16; ++kb) {
-      float sa[4], sb[4];
-      qk_tile<D>(sa, qa, ks, 2 * kb, g, t);
-      qk_tile<D>(sb, qa, ks, 2 * kb + 1, g, t);
-      const int key = kb * 16 + 2 * t;
-      const __nv_bfloat16 p0 = prob(sa[0], m0, c, key < n_keys);
-      const __nv_bfloat16 p1 = prob(sa[1], m0, c, key + 1 < n_keys);
-      const __nv_bfloat16 p2 = prob(sa[2], m1, c, key < n_keys);
-      const __nv_bfloat16 p3 = prob(sa[3], m1, c, key + 1 < n_keys);
-      const __nv_bfloat16 p4 = prob(sb[0], m0, c, key + 8 < n_keys);
-      const __nv_bfloat16 p5 = prob(sb[1], m0, c, key + 9 < n_keys);
-      const __nv_bfloat16 p6 = prob(sb[2], m1, c, key + 8 < n_keys);
-      const __nv_bfloat16 p7 = prob(sb[3], m1, c, key + 9 < n_keys);
-      l0 += __bfloat162float(p0) + __bfloat162float(p1) +
-            __bfloat162float(p4) + __bfloat162float(p5);
-      l1 += __bfloat162float(p2) + __bfloat162float(p3) +
-            __bfloat162float(p6) + __bfloat162float(p7);
-      // The score tiles' C layout is the A layout of the PV product.
-      const uint32_t pa[4] = {pack_bf16(p0, p1), pack_bf16(p2, p3),
-                              pack_bf16(p4, p5), pack_bf16(p6, p7)};
-#pragma unroll
-      for (int dt = 0; dt < T::kOTiles; ++dt) {
-        const __nv_bfloat16* vrow = vt + (dt * 8 + g) * vt_stride + kb * 16 + 2 * t;
-        mma_bf16(o[dt], pa, ld_u32(vrow), ld_u32(vrow + 8));
+        for (int w = 0; w < kGroups; ++w) {
+          const int row0 = qt * kRows + 64 * w;
+          if (row0 >= S) continue;  // no rows for consumer w
+          if (q_loads[w] > 0) mbar_wait(&qempty[w], (q_loads[w] - 1) & 1);
+          ++q_loads[w];
+          mbar_expect_tx(&qfull[w], G::kSlot);
+          load_tile(qbuf + w * G::kSlot, &qfull[w], 0, h, row0, b);
+        }
+        for (int i = 0; i < 2 * key_tiles; ++i, ++step) {
+          const bool pass2 = i >= key_tiles;
+          const int key0 = (pass2 ? i - key_tiles : i) * kKeys;
+          const int s = step % G::kStages;
+          if (step >= G::kStages)
+            mbar_wait(&empty[s], (step / G::kStages - 1) & 1);
+          mbar_expect_tx(&full[s], pass2 ? G::kStage : G::kSlot);
+          load_tile(ring + s * G::kStage, &full[s], 1, h, key0, b);
+          if (pass2)
+            load_tile(ring + s * G::kStage + G::kSlot, &full[s], 2, h, key0,
+                      b);
+        }
       }
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
+  } else {
+    // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each item's tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t ring_addr = smem_u32(ring);
+    const int hd = H * D;
+    int step = 0, q_loads = 0;
+    auto wait_full = [&]() {
+      const int s = step % G::kStages;
+      mbar_wait(&full[s], (step / G::kStages) & 1);
+      return s;
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
 
-    if constexpr (kQuant) {
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int h = it % H, qt = (it / H) % q_tiles, b = it / (H * q_tiles);
+      const int first_row = qt * kRows + 64 * wg;
+      const bool active = first_row < S;
+
+      // q fragments of this warp's 16 rows: ldmatrix.x4 of 16 x 16 chunks
+      // out of the 64-byte-swizzled Q tile (16-byte chunk j of row r lies
+      // at chunk j ^ ((r >> 1) & 3)). The buffer is released once the
+      // first product has read the fragments.
+      uint32_t qa[G::kChunks][4];
+      if (active) {
+        mbar_wait(&qfull[wg], q_loads++ & 1);
+        const uint8_t* qs = qbuf + wg * G::kSlot;
+        const int r = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int dt = 0; dt < T::kOTiles; ++dt) {
-        o[dt][0] = __fdiv_rn(o[dt][0], l0);
-        o[dt][1] = __fdiv_rn(o[dt][1], l0);
-        o[dt][2] = __fdiv_rn(o[dt][2], l1);
-        o[dt][3] = __fdiv_rn(o[dt][3], l1);
+        for (int kc = 0; kc < G::kChunks; ++kc) {
+          const int chunk = (kc % 2) * 2 + (lane >> 4);
+          ldmatrix_x4(qa[kc], qs + (kc / 2) * kBoxBytes + r * 64 +
+                                  ((chunk ^ ((r >> 1) & 3)) << 4));
+        }
       }
-      float* w0 = ws + ((size_t)b * S + r0) * hd + h * D + 2 * t;
-      unsigned int* m0 = rowmax + (size_t)b * S + r0;
-      park_f32_tile<T::kOTiles>(o, w0, w0 + 8 * (size_t)hd, r0 < S, r1 < S,
-                                m0, m0 + 8, t);
-    } else {
-      __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * hd + h * D + 2 * t;
-      __nv_bfloat16* o1 = o0 + 8 * (size_t)hd;
+      if (!active) {
+        // no rows of this item here (the last tile of a head): keep the
+        // ring's count
+        for (int i = 0; i < 2 * key_tiles; ++i, ++step)
+          release(&empty[wait_full()]);
+        continue;
+      }
+
+      // Pass 1: the exact row max over the real keys.
+      float sc[32];
+      float m0 = -INFINITY, m1 = -INFINITY;
+      for (int kt = 0; kt < key_tiles; ++kt, ++step) {
+        const int s = wait_full();
+        const int n = n_keys - kt * kKeys;
+        scores<D>(sc, qa, ring_addr + s * G::kStage);
+        release(&empty[s]);
+        if (kt == 0) release(&qempty[wg]);
+        if (n >= kKeys) {
 #pragma unroll
-      for (int dt = 0; dt < T::kOTiles; ++dt) {
-        if (r0 < S)
-          *reinterpret_cast<uint32_t*>(o0 + dt * 8) =
-              pack_bf16(__float2bfloat16_rn(o[dt][0] / l0),
-                        __float2bfloat16_rn(o[dt][1] / l0));
-        if (r1 < S)
-          *reinterpret_cast<uint32_t*>(o1 + dt * 8) =
-              pack_bf16(__float2bfloat16_rn(o[dt][2] / l1),
-                        __float2bfloat16_rn(o[dt][3] / l1));
+          for (int i = 0; i < kKeys / 8; ++i) {
+            m0 = fmaxf(m0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+            m1 = fmaxf(m1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kKeys / 8; ++i) {
+            const int key = 8 * i + 2 * t;
+            if (key < n) {
+              m0 = fmaxf(m0, sc[4 * i]);
+              m1 = fmaxf(m1, sc[4 * i + 2]);
+            }
+            if (key + 1 < n) {
+              m0 = fmaxf(m0, sc[4 * i + 1]);
+              m1 = fmaxf(m1, sc[4 * i + 3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+      }
+      const float mc0 = m0 * c, mc1 = m1 * c;
+
+      // Pass 2: p = bf16(2^(s c - m c)), l += p, o += p v. Each tile's PV
+      // runs while the next tile's K and V are awaited and its scores
+      // issued.
+      float o[G::kAcc];
+#pragma unroll
+      for (int i = 0; i < G::kAcc; ++i) o[i] = 0.f;
+      float l0 = 0.f, l1 = 0.f;
+      int prev = -1;  // the stage whose PV is in flight
+      for (int kt = 0; kt < key_tiles; ++kt, ++step) {
+        const int s = wait_full();
+        const int n = n_keys - kt * kKeys;
+        const uint32_t k_addr = ring_addr + s * G::kStage;
+        scores<D>(sc, qa, k_addr);  // also retires the previous PV
+        if (prev >= 0) release(&empty[prev]);
+        // p for 16-key step j: the A fragment {row g keys 2t.., row g + 8,
+        // row g keys 2t + 8.., row g + 8}, i.e. score slices 2j and 2j + 1
+        uint32_t pa[kKeys / 16][4];
+        if (n >= kKeys) {
+#pragma unroll
+          for (int i = 0; i < kKeys / 8; ++i) {
+            pa[i / 2][2 * (i % 2)] =
+                prob_pair(sc[4 * i], sc[4 * i + 1], c, mc0, l0);
+            pa[i / 2][2 * (i % 2) + 1] =
+                prob_pair(sc[4 * i + 2], sc[4 * i + 3], c, mc1, l1);
+          }
+        } else {
+          // the last tile: keys at or past n are left out (p = 0)
+#pragma unroll
+          for (int i = 0; i < kKeys / 8; ++i) {
+            const int key = 8 * i + 2 * t;
+            const float x0 = key < n ? sc[4 * i] : -INFINITY;
+            const float x1 = key + 1 < n ? sc[4 * i + 1] : -INFINITY;
+            const float x2 = key < n ? sc[4 * i + 2] : -INFINITY;
+            const float x3 = key + 1 < n ? sc[4 * i + 3] : -INFINITY;
+            pa[i / 2][2 * (i % 2)] = prob_pair(x0, x1, c, mc0, l0);
+            pa[i / 2][2 * (i % 2) + 1] = prob_pair(x2, x3, c, mc1, l1);
+          }
+        }
+        const uint32_t v_addr = k_addr + G::kSlot;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kKeys / 16; ++j)
+          pv_step<D>(o, pa[j], v_addr + j * 16 * 64);
+        wgmma_commit();
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(&empty[prev]);
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+      const int row0 = first_row + 16 * warp + g, row1 = row0 + 8;
+      if constexpr (kQuant) {
+        float y[G::kOTiles][4];
+#pragma unroll
+        for (int i = 0; i < G::kOTiles; ++i) {
+          y[i][0] = o[4 * i] * r0;
+          y[i][1] = o[4 * i + 1] * r0;
+          y[i][2] = o[4 * i + 2] * r1;
+          y[i][3] = o[4 * i + 3] * r1;
+        }
+        float* w0 = ws + ((size_t)b * S + row0) * hd + h * D + 2 * t;
+        unsigned int* mx = rowmax + (size_t)b * S + row0;
+        park_f32_tile<G::kOTiles>(y, w0, w0 + 8 * (size_t)hd, row0 < S,
+                                  row1 < S, mx, mx + 8, t);
+      } else {
+        __nv_bfloat16* o0 =
+            out + ((size_t)b * S + row0) * hd + h * D + 2 * t;
+        __nv_bfloat16* o1 = o0 + 8 * (size_t)hd;
+#pragma unroll
+        for (int i = 0; i < G::kOTiles; ++i) {
+          if (row0 < S)
+            *reinterpret_cast<uint32_t*>(o0 + 8 * i) =
+                pack_f32_bf16(o[4 * i] * r0, o[4 * i + 1] * r0);
+          if (row1 < S)
+            *reinterpret_cast<uint32_t*>(o1 + 8 * i) =
+                pack_f32_bf16(o[4 * i + 2] * r1, o[4 * i + 3] * r1);
+        }
       }
     }
   }
+}
+
+// qkv [B, S, 3*H*D] bf16 as the 4-d tensor [B, S, 3H, D], read in boxes of
+// 64 rows by 32 columns, 64-byte swizzled; rows >= S and columns >= D read
+// as zeros.
+cudaError_t qkv_map(CUtensorMap* map, const void* qkv, int B, int S, int H,
+                    int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorInitializationError;
+  if (reinterpret_cast<uintptr_t>(qkv) % 16) return cudaErrorMisalignedAddress;
+  const cuuint64_t row = (cuuint64_t)3 * H * D * 2;  // bytes a token
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)3 * H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, row, row * S};
+  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)kKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(qkv), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The card's SMs, read once: the persistent grid is one block an SM.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return sms;
 }
 
 template <int D, bool kQuant>
 cudaError_t launch_attention(const void* qkv, void* out, float* ws,
                              unsigned int* rowmax, int B, int S, int H,
                              int n_keys, float c, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_qkv3_kernel<D, kQuant>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using G = Geo<D>;
+  CUtensorMap tm;
+  cudaError_t err = qkv_map(&tm, qkv, B, S, H, D);
   if (err != cudaSuccess) return err;
-  attention_qkv3_kernel<D, kQuant><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<__nv_bfloat16*>(out), ws, rowmax, S, H, n_keys, c);
+  const auto kernel = attention_qkv3_kernel<D, kQuant>;
+  // the shared-memory opt-in, once an instantiation
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const long long items = (long long)B * H * ((S + kRows - 1) / kRows);
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  kernel<<<grid, kThreads, G::kSmem, stream>>>(
+      tm, static_cast<__nv_bfloat16*>(out), ws, rowmax, S, H, n_keys, c,
+      (int)items);
   return cudaGetLastError();
 }
 

@@ -136,15 +136,6 @@ struct Ring {
   static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
 };
 
-// 2^x on the SFU's ex2: exp2f's instruction without its fix-ups for
-// results below 2^-126, which it flushes to 0 (a p that small is 0 at the
-// bar).
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // exp(x - m) as the kernel takes it: 2^((x - m) log2e), or exp2f or expf,
 // to time.
 __device__ __forceinline__ float exp_shift(float x, float m) {

@@ -1,12 +1,14 @@
-// Tensor-core pieces shared by the attention kernels (attention_qkv3.cu,
-// attention_split.cu): mma.sync m16n8k16 bf16 with f32 accumulation, the
-// shared-memory layout of a staged head (K1/K3/K9), one 16x8 tile of QK^T,
-// the bf16 bias adds of K8 as q is loaded and as a V tile lands, and the
-// cp.async and ldmatrix pieces of attention_split.cu's streamed body.
+// Pieces shared by the attention kernels (attention_split.cu,
+// attention_qkv3.cu): mma.sync m16n8k16 bf16 with f32 accumulation, the
+// tile geometry and 16x8 QK^T tiles of attention_split.cu's streamed body,
+// the bf16 bias adds of K8 as q is loaded and as a V tile lands, cp.async,
+// ldmatrix, bf16 packing and the SFU's 2^x.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // smem_u32
 
 template <int D>
 struct Tile {
@@ -18,8 +20,6 @@ struct Tile {
   static constexpr int kVecs = D / 8;            // 16-byte vectors per slice
 };
 
-__host__ __device__ constexpr int round_up16(int x) { return (x + 15) & ~15; }
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -27,12 +27,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
@@ -48,21 +42,6 @@ __device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
       __floats2bfloat162_rn(__fadd_rn(__low2float(x), __low2float(y)),
                             __fadd_rn(__high2float(x), __high2float(y)));
   return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// One 16x8 tile of scores: query rows of the warp's tile against keys
-// [8*nt, 8*nt + 8) of k staged row-major with row stride Tile<D>::kKStride.
-// Lane (g, t) holds rows g and g+8, keys 2t and 2t+1.
-template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[4],
-                                        const uint32_t (&qa)[Tile<D>::kChunks][4],
-                                        const __nv_bfloat16* ks, int nt, int g,
-                                        int t) {
-  s[0] = s[1] = s[2] = s[3] = 0.f;
-  const __nv_bfloat16* krow = ks + (nt * 8 + g) * Tile<D>::kKStride + 2 * t;
-#pragma unroll
-  for (int kc = 0; kc < Tile<D>::kChunks; ++kc)
-    mma_bf16(s, qa[kc], ld_u32(krow + kc * 16), ld_u32(krow + kc * 16 + 8));
 }
 
 // One pair of q values (row r, columns c and c + 1), plus the pair of the
@@ -96,44 +75,14 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[Tile<D>::kChunks][4],
   }
 }
 
-// Stage one head's k (row-major, rows >= n zero) and v^T (columns >= n
-// zero) in shared memory, and zero k's padded columns D..kKStride. Row
-// strides ks_g / vs_g in elements; 16-byte aligned rows.
-template <int D, int kThreads>
-__device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vt,
-                                         const __nv_bfloat16* kg, long long ks_g,
-                                         const __nv_bfloat16* vg, long long vs_g,
-                                         int n, int s_pad, int vt_stride) {
-  using T = Tile<D>;
-  for (int i = threadIdx.x; i < s_pad * T::kVecs; i += kThreads) {
-    const int r = i / T::kVecs, c = i % T::kVecs;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < n) {
-      kv = *reinterpret_cast<const uint4*>(kg + r * ks_g + c * 8);
-      vv = *reinterpret_cast<const uint4*>(vg + r * vs_g + c * 8);
-    }
-    *reinterpret_cast<uint4*>(ks + r * T::kKStride + c * 8) = kv;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vt[(c * 8 + j) * vt_stride + r] = ve[j];
-  }
-  constexpr int kPadCols = T::kKStride - D;
-  for (int i = threadIdx.x; i < s_pad * kPadCols; i += kThreads)
-    ks[(i / kPadCols) * T::kKStride + D + i % kPadCols] = __float2bfloat16(0.f);
-}
-
 // --- Asynchronous copies and ldmatrix (attention_split.cu's streamed body) --
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // 16 bytes global -> shared without a register round trip; zero-filled
 // (nothing read from src) when !in.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
+                   smem_u32(dst)),
                "l"(src), "r"(in ? 16 : 0));
 }
 
@@ -141,7 +90,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
+                   smem_u32(dst)),
                "l"(src), "r"(in ? 4 : 0));
 }
 
@@ -201,7 +150,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 
 // The same, transposed: lane (g, t) gets rows 2t and 2t+1 of column g.
@@ -211,7 +160,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 
 // Two matrices, transposed; lanes 0..15 give the row addresses.
@@ -220,7 +169,7 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 
 // Two floats rounded to bf16 in one conversion, lo in the low half.
@@ -246,4 +195,13 @@ __device__ __forceinline__ void qk_tile_ldm(
     mma_bf16(s, qa[kc], b[0], b[1]);
     mma_bf16(s, qa[kc + 1], b[2], b[3]);
   }
+}
+
+// 2^x on the SFU's ex2: exp2f's instruction without its fix-ups for
+// results below 2^-126, which it flushes to 0 (a p that small is 0 at the
+// bar).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }

@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "gelu.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -103,56 +104,6 @@ constexpr size_t kSmem2 = 1024 + (size_t)kStages2 * (kATile + kB2Tile) +
                           2 * kStages2 * sizeof(uint64_t);
 static_assert(kC % kBN2 == 0 && kB2Tile % 1024 == 0, "fc2 column tiles");
 
-// --- shared memory, mbarriers, TMA ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// One box of a 2-d tensor map (x along the contiguous axis, y along rows)
-// into shared memory; completes the box's bytes on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // --- clusters ------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -181,49 +132,6 @@ __device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
                : "r"(smem_u32(p)), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
                : "memory");
-}
-
-// --- warpgroups ----------------------------------------------------------
-
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from touching the accumulators across the async
-// wgmma: after wgmma_wait they are read as the tensor cores left them.
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with 128-byte rows
-// and 128-byte swizzle (what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes):
-// 8-row groups 1024 bytes apart. A wgmma's 32-byte K step moves the start
-// address within the swizzle row; the tile itself is 1024-byte aligned.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // D[64 x 128] (+)= A[64 x 32] * B[128 x 32]^T, s8 x s8 -> s32; both operands
@@ -599,28 +507,6 @@ __global__ void __launch_bounds__(kThreads2, 1)
 }
 
 // --- host ----------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library does not link libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // The tensor map of a row-major int8 [rows, cols] matrix read in boxes of
 // 128 bytes by box_rows rows, 128-byte swizzled; rows past the end read

@@ -392,6 +392,65 @@ def test_streamed_arithmetic_within_the_card_bar(case):
     assert not torch.equal(got, want)  # the arithmetic does differ
 
 
+def _qkv3_wgmma_attention(qkv, scale, heads, n_real=0, quant_out=False):
+    """attention_qkv3.cu's arithmetic (K1, K3, K9) emulated in f32 on the
+    CPU: unscaled f32 scores, the exact row max over the keys below
+    n_real, p = bf16(2^(s c - m c)) with c = scale log2e and m c each
+    rounded to f32 and the argument one fused multiply-add (exact in f64,
+    then rounded), keys at or past n_real left out (p = 0), the f32 sum of
+    the rounded p, f32 PV multiplied by 1/sum rounded once a row; the
+    output rounded to bf16, or with quant_out the int8 codes and row
+    scales of the f32 output."""
+    b, s, three_hd = qkv.shape
+    d = three_hd // (3 * heads)
+    q, k, v = qkv.float().view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
+    n = n_real or s
+    sc = torch.matmul(q, k[..., :n, :].transpose(-1, -2))
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    mc = sc.amax(-1, keepdim=True) * c
+    p = torch.exp2((sc.double() * c.double() - mc.double()).float())
+    p = p.bfloat16().float()
+    o = torch.matmul(p, v[..., :n, :]) * torch.reciprocal(
+        p.sum(-1, keepdim=True))
+    o = merge_heads(o)
+    return dyn_quant_rows(o) if quant_out else o.bfloat16()
+
+
+# case -> ((B, S, H, d), n_real, int8 out): K1 at EVA-g's head width and at
+# the padded 128, K3 on rows padded to 264 tokens with n_real = 257
+QKV3_CARD_CASES = {
+    "k1_eva_g": ((2, 257, 16, 88), 0, False),
+    "k1_eva_g_d128": ((2, 257, 16, 128), 0, False),
+    "k3_eva_g_padded_rows": ((2, 264, 16, 88), 257, True),
+}
+
+
+@pytest.mark.parametrize("case", list(QKV3_CARD_CASES))
+def test_qkv3_wgmma_arithmetic_within_the_card_bar(case):
+    """The arithmetic of attention_qkv3.cu's wgmma body, emulated in f32,
+    against the plain version in bf16, within chip_smoke.py's card bars:
+    K1 within 2**-7 of the output's largest magnitude; K3 codes within
+    one and equal on 99 %, scales within 2**-7. Its tolerance budget,
+    checked before the card."""
+    (b, s, h, d), n_real, quant = QKV3_CARD_CASES[case]
+    rng = np.random.default_rng(46)
+    x = torch.from_numpy((rng.normal(size=(b, s, 3 * h * d)) * 0.5)
+                         .astype(np.float32)).bfloat16()
+    got = _qkv3_wgmma_attention(x, d ** -0.5, h, n_real, quant)
+    want = fused_attention_qkv3_ref(x, d ** -0.5, h, quant_out=quant,
+                                    n_real=n_real)
+    if quant:
+        (q, sc), (rq, rs) = got, want
+        torch.testing.assert_close(sc, rs, rtol=2 ** -7, atol=0)
+        assert_codes_close(q.numpy(), rq.numpy(), 0.99)
+        assert not torch.equal(sc, rs)  # the arithmetic does differ
+        return
+    got, want = got.float(), want.float()
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2 ** -7 * top
+    assert not torch.equal(got, want)  # the arithmetic does differ
+
+
 def test_split_cpu_calls_take_plain_versions_without_counting():
     q, k, v, mask, scale = _split_inputs(SPLIT_CASES["square"], seed=33)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
