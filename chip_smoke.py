@@ -1,51 +1,65 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (hirest_tpu_torch) on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port (hirest_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # needs one CUDA GPU and nvcc
     python3 chip_smoke.py --kernels-only  # build and kernels phases only
     python3 chip_smoke.py --time-attention  # K1, K3, K6-K9 ms alone
     python3 chip_smoke.py --time-mlp        # K4 and its _int_mm pair alone
+    python3 chip_smoke.py --time-rows       # K2, K5, K10 ms alone
 
 --time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
 tokens, one 192-row query tile a head), K9, K6, K7 and K8 (bf16 and int8
-out), beside scaled_dot_product_attention, and nothing else, so a copy of this file run from a `git archive` of an earlier commit
-times that commit's kernels: run parent, change, change, parent in one call
-to compare two trees on one card. Where attention_split.cu has its
+out), beside scaled_dot_product_attention, and nothing else, so a copy of
+this file run from a `git archive` of an earlier commit times that
+commit's kernels: run parent, change, change, parent in one call to
+compare two trees on one card. Where attention_split.cu has its
 arithmetic variants (HIREST_SPLIT_ARITH), it also times K6 and K7 under
 each (exp2f or expf for ex2.approx.ftz, __fdiv_rn for the reciprocal
 multiply), each held against its plain version. --time-mlp does the same
 for K4 at B=128 (through fused_mlp_int8, which every version of the port
 has), beside its two products as torch._int_mm; where the checkout splits
-K4 into two kernels it also times the first alone.
+K4 into two kernels it also times the first alone. --time-rows does the
+same for K2, K5 (gelu_bf16_poly at 6144, none at 1408) and K10 beside
+F.layer_norm and a clone of K10's bytes, and K5 on the fc1 outputs of an
+int8+fq+v3 forward; it first runs row_checks (each case's codes that
+differ from the plain version), then measures where K2's time spreads
+(the clocks, the kernel's own time against the host's, x in L2 or
+not) and prints the row kernels' SASS counts. The flags combine: one
+process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout (set-up);
-            K4's two kernels' and K1/K3's instantiations' registers, spills
-            and shared memory.
+            K4's two kernels', K1/K3's, K5's and K2/K10's instantiations'
+            registers, spills and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
             both again at the padded head width, [B, 257, 6144]; and both,
             at both widths, at the tiles' edges, their errors printed
             apart: 33 and 65 tokens, 592 (d = 88) and 432 (d = 128)
-            tokens, 264 with n_real = 257 at B = 2 and 128), K2
-            (ln_quant, [M, 1408]), K4 (fused_mlp_int8, [M, 1408] x 6144,
+            tokens, 264 with n_real = 257 at B = 2 and 128), K4
+            (fused_mlp_int8, [M, 1408] x 6144,
             both activations; its first kernel's codes and scales also
             against mlp_int8_hidden_ref, equal), K6 (split heads
             [B, 16, 257, 88] as views of one qkv projection, and a masked
             [2, 12, 48, 64] over 20 keys)
             and K7 (packed [B, 257, 16 * 128], and a masked 48 x 20-key
             shape), each also with one batch row's keys all masked and
-            with 33 queries over 600 keys (d = 88 masked, d = 128); K5
-            (act_quant, [M, 6144] with both GELUs and [M, 1408] without
-            one), K8 (v1, [B, 257, 4224] with nonzero q/v biases, bf16 and
+            with 33 queries over 600 keys (d = 88 masked, d = 128), K8
+            (v1, [B, 257, 4224] with nonzero q/v biases, bf16 and
             int8 out; also [2, 257, 6144] at d = 128 and [2, 600, 4224]),
             the streamed body's blocks an SM for K6/K7's, K8's and K8
             int8's instantiations, K9
             (v2, bf16 and int8 out, and int8 padded to S = 264 with
-            n_real = 257) and K10 (ln_bf16, [M, 1408]), B = 2 and 128,
-            M = 257 B.
+            n_real = 257), B = 2 and 128, M = 257 B; then row_checks: K2
+            (ln_quant, [2 * 257 and M, 1408]), K5 (act_quant, [M, 6144]
+            with both GELUs, [M, 1408] without one) and K10 (ln_bf16,
+            [M, 1408]), each also at M = 1, 2, 257 and 5000 (not a
+            multiple of the persistent grid's rows) with a row of zeros,
+            K5 on rows whose quotients land on k + 1/2, and the row
+            kernels' quotients y / s against PyTorch's IEEE division on every
+            element.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -112,7 +126,18 @@ VIDEOS = {"vid_a": (200, 199.6), "vid_b": (90, 88.4), "vid_c": (17, 17.0)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak
-F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
+# f32 issue slots: 132 SMs x 4 schedulers x 32 lanes at the 1.98 GHz boost
+# clock. __fmul_rn / __fadd_rn issue one slot each, never paired as FMAs.
+ISSUE_SLOTS_PER_S = 132 * 4 * 32 * 1.98e9
+# The issue slots a value that each row kernel's function needs (K2, K5,
+# K10; PERF.md §2), counted from the arithmetic, not from a build: the bf16
+# widening 1; gelu_bf16_poly 22 (gelu.cuh: 11 FMUL, 7 FADD, 4 FMNMX); the
+# LayerNorm 7 (the sum, the centring, the square and its sum, x r g + b);
+# the int8 quantization 5.75 (|y|'s max, y / s in three instructions, the
+# rounding, four codes packed by three); bf16 out 0.5 (two values a
+# pack). A row's reductions and scale, once a row, are left out.
+ROW_SLOTS = {"K5 gelu_poly": 1 + 22 + 5.75, "K5 none": 1 + 5.75,
+             "K2": 1 + 7 + 5.75, "K10": 1 + 7 + 0.5}
 COS_MIN = 0.99
 COS_INT8_VS_FLOAT = 0.98  # the JAX package's int8 bar (test_eva_scan.py:57)
 EPS = 1e-6
@@ -236,15 +261,15 @@ def masked_inputs(seed: int, sq: int = 48, sk: int = 20,
     return q, k, v, mask
 
 
-def ln_inputs(m: int, seed: int):
+def ln_inputs(m: int, seed: int, c: int = 1408):
     """A residual stream with a per-row spread and offset, LayerNorm params
     near (1, 0)."""
     g = gen(seed)
-    x = (torch.randn((m, 1408), generator=g, device="cuda")
+    x = (torch.randn((m, c), generator=g, device="cuda")
          * torch.rand((m, 1), generator=g, device="cuda").mul_(2.5).add_(0.5)
          + torch.randn((m, 1), generator=g, device="cuda")).bfloat16()
-    w = 1 + 0.02 * torch.randn(1408, generator=g, device="cuda")
-    b = 0.02 * torch.randn(1408, generator=g, device="cuda")
+    w = 1 + 0.02 * torch.randn(c, generator=g, device="cuda")
+    b = 0.02 * torch.randn(c, generator=g, device="cuda")
     return x, w, b
 
 
@@ -266,22 +291,28 @@ def mlp_inputs(m: int, seed: int, hidden: int = 6144):
     return h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x
 
 
-def check_codes(tag: str, got, want, min_equal: float, scale_rel: float):
+def check_codes(tag: str, got, want, min_equal: float, scale_rel: float,
+                tally: dict | None = None, key: str = ""):
     """Quantized outputs (codes, scales) against the plain version's: codes
     within one and equal on min_equal of them, scales within scale_rel.
-    Returns the largest error of the dequantized values."""
+    Returns the largest error of the dequantized values; adds the count of
+    differing codes to tally[key] where a tally is given."""
     (q, s), (rq, rs) = got, want
     torch.cuda.synchronize()
     diff = (q.int() - rq.int()).abs()
-    equal = (diff == 0).float().mean().item()
+    n_diff = int((diff != 0).sum().item())
+    equal = 1 - n_diff / diff.numel()
     rel = ((s - rs).abs() / rs.abs()).max().item()
     err = (q.float() * s - rq.float() * rs).abs().max().item()
     print(f"[kernels] {tag}: max|dcode|={diff.max().item()} "
-          f"equal={equal:.6f} (>= {min_equal}) scale rel={rel:.3e} "
-          f"(<= {scale_rel:.3e}) max_abs_err={err}")
+          f"{n_diff} of {diff.numel()} codes differ, equal={equal:.6f} "
+          f"(>= {min_equal}) scale rel={rel:.3e} (<= {scale_rel:.3e}) "
+          f"max_abs_err={err}")
     require(bool(s.isfinite().all()) and diff.max().item() <= 1
             and equal >= min_equal and rel <= scale_rel,
             f"{tag} off its plain version")
+    if tally is not None:
+        tally[key] = tally.get(key, 0) + n_diff
     return err
 
 
@@ -316,6 +347,171 @@ def check_close(tag: str, got, want) -> float:
     return err
 
 
+ROW_EDGE_M = (1, 2, 257, 5000)  # 5000: not a multiple of any grid's rows
+
+
+def ln_bf16_differ(tag: str, x, w, b) -> tuple:
+    """K10 against its plain version: within one bf16 ulp of each output
+    plus 1e-5 (the row reductions run in another order and rsqrtf is not
+    correctly rounded, which moves the f32 LayerNorm by ~1e-6; where
+    (x - mean) r g cancels against b, that is many bf16 ulps of an output
+    near zero). Returns the largest error and the count of outputs more
+    than one ulp off."""
+    from hirest_tpu_torch.ops.quant import ln_bf16, ln_bf16_ref
+
+    got, want = ln_bf16(x, w, b, EPS), ln_bf16_ref(x, w, b, EPS)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    ulp = torch.ldexp(torch.ones_like(diff),
+                      torch.frexp(want.float())[1] - 8)
+    off = diff > ulp
+    n_off = int(off.sum().item())
+    top = want.float().abs()[off].max().item() if n_off else 0.0
+    err = diff.max().item()
+    print(f"[kernels] {tag}: max_abs_err={err}; {n_off} of {diff.numel()} "
+          f"outputs more than one bf16 ulp off, all with |want| <= {top}, "
+          f"by at most {(diff - ulp).max().item()} over the ulp (<= 1e-5)")
+    require(bool(got.isfinite().all()) and bool((diff <= ulp + 1e-5).all()),
+            f"{tag} off its plain version")
+    return err, n_off
+
+
+def tie_rows(c: int = 1408) -> torch.Tensor:
+    """[5, c] bf16 rows for act "none": two whose max |y| is 127 (scale 1)
+    with every other value on k + 1/2 (-126.5 .. 126.5, which must round
+    to even), a row of zeros (scale 1e-8, codes 0) and two random rows."""
+    halves = torch.arange(c - 1, device="cuda") % 254 - 126.5
+    rows = torch.zeros((5, c), device="cuda")
+    rows[0, 0], rows[0, 1:] = 127.0, halves
+    rows[1, 0], rows[1, 1:] = -127.0, -halves.flip(0)
+    rows[3:] = torch.randn((2, c), generator=gen(400), device="cuda")
+    return rows.bfloat16()
+
+
+def quotients_differ(tag: str, y, s, tally: dict) -> None:
+    """The row kernels' y / s (row_quotient, rowquant.cuh) against PyTorch's
+    IEEE division on the card, on every element of the plain version's f32
+    y [..., C] and scales s [..., 1]: they must be equal. Skipped in a
+    checkout whose act_quant.cu has no hirest_row_quotients."""
+    import ctypes
+
+    from hirest_tpu_torch.ops import build
+
+    lib = build.load("act_quant")
+    if not hasattr(lib, "hirest_row_quotients"):
+        return
+    fn = lib.hirest_row_quotients
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = y.reshape(-1, y.shape[-1]).contiguous()
+    s = s.reshape(-1, 1).contiguous()
+    fast = torch.empty_like(y)
+    build.check(lib, fn(y.data_ptr(), s.data_ptr(), fast.data_ptr(),
+                        y.shape[0], y.shape[1],
+                        torch.cuda.current_stream().cuda_stream),
+                "row_quotients launch")
+    n = int((fast != y / s).sum().item())
+    tally["quotients"] = tally.get("quotients", 0) + n
+    print(f"[kernels] {tag}: {n} of {y.numel()} quotients y / s differ "
+          f"from PyTorch's IEEE division (bar 0)")
+    require(n == 0, f"{tag}: row_quotient off the IEEE quotient")
+
+
+def row_checks(tag: str = "kernels") -> tuple:
+    """K2, K5 and K10 against their plain versions: at the main paths'
+    shapes (K2 [2 * 257 and M, 1408]; K5 [M, 6144] with each GELU and
+    [M, 1408] with none; K10 [M, 1408]; M = 128 * 257), then at the
+    persistent grid's edges, M in ROW_EDGE_M (a row of zeros in the
+    257-row inputs: scale 1e-8, codes 0, and for K2 with b = 0), and K5 on
+    rows whose quotients land on k + 1/2 (equal to the plain version and
+    to half-even rounding), and the general instantiations at widths
+    1024 to 8192. K2 and K5: codes within one, equal on 99.9 %,
+    scales within 1e-6; K10: ln_bf16_differ's bar. Prints each case and a
+    total a kernel of the codes (K10: outputs beyond one ulp) that differ
+    from the plain version, which this file copied into an earlier
+    checkout prints for that checkout's kernels on the same inputs.
+    Returns (the main shapes' largest errors, the totals)."""
+    from hirest_tpu_torch.ops.quant import (QUANT_ACTS, _act, _ln_f32,
+                                            act_quant, act_quant_ref,
+                                            ln_quant, ln_quant_ref)
+
+    m = BATCH * TOKENS
+    worst = {"K2": 0.0, "K5": 0.0, "K10": 0.0}
+    tally: dict = {}
+    tiny = torch.tensor(1e-8, dtype=torch.float32).item()
+    for rows in (2 * TOKENS, m, *ROW_EDGE_M):
+        main = rows in (2 * TOKENS, m)
+        x, w, b = ln_inputs(rows, seed=20 + rows // TOKENS if main
+                            else 300 + rows)
+        if rows == TOKENS:
+            x[5], b = 0, torch.zeros_like(b)
+        got, want = ln_quant(x, w, b, EPS), ln_quant_ref(x, w, b, EPS)
+        err = check_codes(f"K2 ln_quant [{rows},1408]", got, want, 0.999,
+                          1e-6, tally, "K2")
+        quotients_differ(f"K2 [{rows},1408]", _ln_f32(x, w, b, EPS),
+                         want[1], tally)
+        if rows == TOKENS:
+            require(not got[0][5].any().item()
+                    and got[1][5].item() == tiny, "K2 zero row")
+        if main:
+            worst["K2"] = max(worst["K2"], err)
+    for c, acts in ((6144, ("gelu_poly", "gelu")), (1408, ("none",))):
+        for rows in (m, *ROW_EDGE_M):
+            x = fc1_inputs(rows, seed=70 + c if rows == m else 500 + rows,
+                           c=c)
+            if rows == TOKENS:
+                x[7] = 0
+            for act in acts:
+                got, want = act_quant(x, act=act), act_quant_ref(x, act=act)
+                err = check_codes(f"K5 act_quant [{rows},{c}] act={act}",
+                                  got, want, 0.999, 1e-6, tally, f"K5 {act}")
+                quotients_differ(f"K5 [{rows},{c}] act={act}",
+                                 _act(act, QUANT_ACTS)(x.float()), want[1],
+                                 tally)
+                if rows == TOKENS:
+                    require(not got[0][7].any().item()
+                            and got[1][7].item() == tiny,
+                            f"K5 {act} zero row")
+                if rows == m:
+                    worst["K5"] = max(worst["K5"], err)
+    x = tie_rows()
+    got, want = act_quant(x), act_quant_ref(x)
+    check_codes("K5 act_quant [5,1408] act=none, halves", got, want, 0.999,
+                1e-6, tally, "K5 none")
+    halves = torch.round(x[:2, 1:].float()).to(torch.int8)
+    quotients_differ("K5 [5,1408] act=none, halves", x.float(), want[1],
+                     tally)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[0][:2, 1:], halves)
+            and got[1][2].item() == tiny, "K5 halves off half-even")
+    for rows in (m, *ROW_EDGE_M):
+        x, w, b = ln_inputs(rows, seed=90 if rows == m else 600 + rows)
+        err, n_off = ln_bf16_differ(f"K10 ln_bf16 [{rows},1408]", x, w, b)
+        tally["K10"] = tally.get("K10", 0) + n_off
+        if rows == m:
+            worst["K10"] = err
+    # the general instantiations, at widths other than EVA-g's (their own
+    # total: the main paths' stay comparable across versions)
+    for c in (1024, 2048):
+        x, w, b = ln_inputs(TOKENS, seed=700 + c, c=c)
+        check_codes(f"K2 ln_quant [{TOKENS},{c}]", ln_quant(x, w, b, EPS),
+                    ln_quant_ref(x, w, b, EPS), 0.999, 1e-6, tally,
+                    "other widths")
+        tally["other widths"] += ln_bf16_differ(
+            f"K10 ln_bf16 [{TOKENS},{c}]", x, w, b)[1]
+    for c, act in ((1024, "none"), (2048, "gelu_poly"), (4096, "gelu"),
+                   (8192, "gelu_poly")):
+        x = fc1_inputs(TOKENS, seed=710 + c, c=c)
+        check_codes(f"K5 act_quant [{TOKENS},{c}] act={act}",
+                    act_quant(x, act=act), act_quant_ref(x, act=act), 0.999,
+                    1e-6, tally, "other widths")
+    print(f"[{tag}] differing from the plain version over these cases: "
+          + ", ".join(f"{k} {n}" for k, n in tally.items())
+          + " (K10: outputs beyond one bf16 ulp)")
+    return worst, tally
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
@@ -329,16 +525,13 @@ def phase_kernels(cfg) -> dict:
                                                 fused_attention_qkv_ref,
                                                 fused_attention_ref,
                                                 split_occupancy)
-    from hirest_tpu_torch.ops.quant import (_mlp_hidden_launch, act_quant,
-                                            act_quant_ref, fused_mlp_int8,
-                                            fused_mlp_int8_ref, ln_bf16,
-                                            ln_bf16_ref, ln_quant,
-                                            ln_quant_ref,
+    from hirest_tpu_torch.ops.quant import (_mlp_hidden_launch,
+                                            fused_mlp_int8,
+                                            fused_mlp_int8_ref,
                                             mlp_int8_hidden_ref)
 
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0,
-             "K6": 0.0, "K7": 0.0}
+    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K7": 0.0}
     for d in (88, 128):  # the native head width, and the padded one
         for batch in (2, BATCH):
             qkv = attention_inputs(batch, seed=batch + d - 88, hd=heads * d)
@@ -456,14 +649,6 @@ def phase_kernels(cfg) -> dict:
                   f"of shared memory a block, {occ['blocks_per_sm']} blocks "
                   f"an SM")
 
-    # K2: codes within one, equal on 99.9 %, scales within 1e-6 (the row
-    # reductions run in another order; rsqrtf is not correctly rounded)
-    for batch in (2, BATCH):
-        x, w, b = ln_inputs(batch * TOKENS, seed=20 + batch)
-        worst["K2"] = max(worst["K2"], check_codes(
-            f"K2 ln_quant [{batch * TOKENS},1408]", ln_quant(x, w, b, EPS),
-            ln_quant_ref(x, w, b, EPS), 0.999, 1e-6))
-
     # K4: within 1e-2 of the MLP's largest contribution max|want - x| plus
     # one bf16 ulp of |want|, element by element: a hidden code that lands
     # on the other side of a rounding boundary moves a row by far less.
@@ -501,17 +686,6 @@ def phase_kernels(cfg) -> dict:
                     f"fused_mlp_int8 [{batch * TOKENS}] {act} off its plain "
                     f"version")
             worst["K4"] = max(worst["K4"], err)
-
-    # K5 at K2's bars (codes within one, equal on 99.9 %, scales within
-    # 1e-6): the fc1 output of the int8 MLP with each GELU, and an
-    # attention output with none
-    m = BATCH * TOKENS
-    for c, acts in ((6144, ("gelu_poly", "gelu")), (1408, ("none",))):
-        x = fc1_inputs(m, seed=70 + c, c=c)
-        for act in acts:
-            worst["K5"] = max(worst["K5"], check_codes(
-                f"K5 act_quant [{m},{c}] act={act}", act_quant(x, act=act),
-                act_quant_ref(x, act=act), 0.999, 1e-6))
 
     # K8 with nonzero biases: bf16 out at K6's bar, int8 out at K3's; at
     # B=2 and 128, at head width 128, and over 600 tokens (more than the
@@ -554,25 +728,7 @@ def phase_kernels(cfg) -> dict:
             fused_attention_qkv2_ref(qkv, scale, heads, quant_out=True,
                                      n_real=n_real), 0.99, 2 ** -7))
 
-    # K10 within one bf16 ulp of each output plus 1e-5: the row reductions
-    # run in another order and rsqrtf is not correctly rounded, which moves
-    # the f32 LayerNorm by ~1e-6; where (x - mean) r g cancels against b,
-    # that is many bf16 ulps of an output near zero
-    x, w, b = ln_inputs(m, seed=90)
-    got, want = ln_bf16(x, w, b, EPS), ln_bf16_ref(x, w, b, EPS)
-    torch.cuda.synchronize()
-    diff = (got.float() - want.float()).abs()
-    ulp = torch.ldexp(torch.ones_like(diff),
-                      torch.frexp(want.float())[1] - 8)
-    off = diff > ulp
-    worst["K10"] = diff.max().item()
-    top = want.float().abs()[off].max().item() if off.any() else 0.0
-    print(f"[kernels] K10 ln_bf16 [{m},1408]: max_abs_err={worst['K10']}; "
-          f"{int(off.sum().item())} outputs more than one bf16 ulp off, "
-          f"all with |want| <= {top}, by at most "
-          f"{(diff - ulp).max().item()} over the ulp (<= 1e-5)")
-    require(bool(got.isfinite().all()) and bool((diff <= ulp + 1e-5).all()),
-            "K10 ln_bf16 off its plain version")
+    worst.update(row_checks()[0])
     return worst
 
 
@@ -1052,9 +1208,8 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "ms": cuda_ms(lambda: ln_quant(x, g, bb, EPS), 20),
         "plain_ms": cuda_ms(lambda: ln_quant_ref(x, g, bb, EPS), 5),
         "library_ms": None,
-        # about 8 f32 operations an element (LayerNorm, scale, code)
-        **bound(m * w * 2 + m * w + m * 4 + 2 * w * 4, 8 * m * w,
-                F32_FLOP_PER_S)}
+        **bound(m * w * 2 + m * w + m * 4 + 2 * w * 4,
+                ROW_SLOTS["K2"] * m * w, ISSUE_SLOTS_PER_S)}
 
     args = mlp_inputs(m, seed=9)
     h_q, _, w1_q, _, _, w2_q, _, _, x_res = args
@@ -1169,20 +1324,22 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "library_ms": None,
         **bound(qkv8.numel() * 2 + 2 * w * 2 + m * w + m * 4, attn_flops,
                 BF16_FLOP_PER_S)}
-    # K5 on the int8 MLP's fc1 output (about 26 f32 operations an element
-    # with gelu_bf16_poly), and on an attention output without activation
+    # K5 on the int8 MLP's fc1 output with gelu_bf16_poly, and on an
+    # attention output without activation
     h6 = fc1_inputs(m, seed=15, c=hid)
     res["K5"] = {
         "ms": cuda_ms(lambda: act_quant(h6, act="gelu_poly"), 20),
         "plain_ms": cuda_ms(lambda: act_quant_ref(h6, act="gelu_poly"), 5),
         "library_ms": None,
-        **bound(m * hid * 3 + m * 4, 26 * m * hid, F32_FLOP_PER_S)}
+        **bound(m * hid * 3 + m * 4, ROW_SLOTS["K5 gelu_poly"] * m * hid,
+                ISSUE_SLOTS_PER_S)}
     h1 = fc1_inputs(m, seed=16, c=w)
     extra = {"K5 act=none [M,1408]": {
         "ms": cuda_ms(lambda: act_quant(h1), 20),
         "plain_ms": cuda_ms(lambda: act_quant_ref(h1), 5),
         "library_ms": None,
-        **bound(m * w * 3 + m * 4, 3 * m * w, F32_FLOP_PER_S)}}
+        **bound(m * w * 3 + m * 4, ROW_SLOTS["K5 none"] * m * w,
+                ISSUE_SLOTS_PER_S)}}
     # K10 against F.layer_norm on the same bf16 rows
     x10, g10, b10 = ln_inputs(m, seed=17)
     res["K10"] = {
@@ -1190,7 +1347,8 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "plain_ms": cuda_ms(lambda: ln_bf16_ref(x10, g10, b10, EPS), 5),
         "library_ms": cuda_ms(lambda: F.layer_norm(
             x10, (w,), g10.bfloat16(), b10.bfloat16(), EPS), 20),
-        **bound(m * w * 2 * 2 + 2 * w * 4, 8 * m * w, F32_FLOP_PER_S)}
+        **bound(m * w * 2 * 2 + 2 * w * 4, ROW_SLOTS["K10"] * m * w,
+                ISSUE_SLOTS_PER_S)}
     for name, r in {**res, **stages, **padded, **extra}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
@@ -1519,6 +1677,244 @@ def time_mlp(card: str) -> None:
         f"{name} {t:.4f} ms" for name, t in ms.items()))
 
 
+def forward_fc1(cfg) -> tuple:
+    """What act_quant is handed in the ladder's int8+fq+v3 forward: the
+    fc1 outputs of a full-width forward at B=128 cut to 2 layers (seeded
+    random weights), caught at eva_scan's act_quant. Returns (the inputs,
+    the activation)."""
+    from dataclasses import replace
+
+    from hirest_tpu_torch.models import eva_scan
+    from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
+
+    cut = replace(cfg, layers=2)
+    fn = eva_scan.build_scanned_vision_apply(
+        random_eva_vision_state_dict(cut, seed=0), cut, int8=True,
+        fused_quant=True, attn_v3=True, device="cuda")
+    caught, acts = [], set()
+    shipped = eva_scan.act_quant
+
+    def catch(h, *, act="none"):
+        caught.append(h.clone())
+        acts.add(act)
+        return shipped(h, act=act)
+
+    eva_scan.act_quant = catch
+    try:
+        fn(normalize_frames(np.random.default_rng(5).integers(
+            0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)))
+    finally:
+        eva_scan.act_quant = shipped
+    torch.cuda.synchronize()
+    require(len(acts) == 1, f"act_quant under several activations {acts}")
+    return caught, acts.pop()
+
+
+def sass_counts(lib: Path, kernel: str) -> None:
+    """Prints, for each instantiation of `kernel` in the library's SASS
+    (cuobjdump -sass), the values a thread holds a row (from its template
+    arguments: K5's <act, G, units[, width]> units x 16, or width / G built
+    in; ln_kernel's <kQuant, width> width / 32, or 64) and its f32
+    multiplies, adds, FMAs, min/max, conversions to int, reciprocals and
+    loads a value: one GELU evaluation a value shows as ~11 FMULs a value."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    funcs: dict = {}
+    name = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name and re.match(r"\s*/\*[0-9a-f]+\*/", line):
+            body = line.split("*/", 1)[1].strip()
+            body = re.sub(r"^@!?U?P[T0-9]+\s+", "", body)
+            if body:
+                funcs[name].append(body.split()[0].rstrip(";"))
+    for fname, ops in funcs.items():
+        if kernel not in fname:
+            continue
+        args = [int(a) for a in re.findall(r"Li(\d+)E", fname)]
+        if kernel == "act_quant_kernel" and len(args) >= 3:
+            values = args[2] * 16
+            if len(args) > 3 and args[3]:
+                values = min(values, args[3] // args[1])
+        elif kernel == "act_quant_kernel":
+            values = 32  # the row-per-block version's <act>: 8 vectors of 4
+        else:
+            values = args[0] // 32 if args and args[0] else 64
+        base = [op.split(".")[0] for op in ops]
+        count = {k: sum(op == k for op in base)
+                 for k in ("FMUL", "FADD", "FFMA", "FMNMX", "F2I", "LDS",
+                           "LDG")}
+        count["MUFU.RCP"] = sum(op.startswith("MUFU.RCP") for op in ops)
+        print(f"[sass] {fname} {args}: {values} values a thread, {len(ops)} "
+              f"instructions; " + ", ".join(
+                  f"{k} {n} ({n / values:.2f} a value)"
+                  for k, n in count.items()))
+
+
+def clocks_during(fn) -> tuple:
+    """fn() while nvidia-smi samples the SM and memory clocks every 20 ms:
+    (fn's result, "SM lo-hi MHz, memory lo-hi MHz over n samples" for the
+    samples from fn's start until it returned)."""
+    p = subprocess.Popen(["nvidia-smi", "-i", "0",
+                          "--query-gpu=clocks.sm,clocks.mem",
+                          "--format=csv,noheader,nounits", "-lms", "20"],
+                         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                         text=True)
+    try:
+        p.stdout.readline()  # sampling has begun
+        result = fn()
+    finally:
+        p.terminate()
+        text = p.communicate(timeout=30)[0]
+    rows = [[int(v) for v in line.split(",")] for line in text.splitlines()
+            if line.replace(",", "").replace(" ", "").isdigit()]
+    if not rows:
+        return result, "clocks not sampled"
+    sm, mem = zip(*rows)
+    return result, (f"SM {min(sm)}-{max(sm)} MHz, memory {min(mem)}-"
+                    f"{max(mem)} MHz over {len(rows)} samples")
+
+
+def kernel_ms(fn, key: str, n: int, before=None):
+    """Mean device duration of the kernels whose name holds `key` over n
+    calls of fn(), each after before() where given, from torch.profiler:
+    the kernel's own time, without the gaps between launches; None where
+    the profiler recorded no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and key in e.key:
+            total += e.self_device_time_total
+            count += e.count
+    return total / count / 1e3 if count else None
+
+
+def host_ms(fn, n: int) -> float:
+    """The host's time a call to enqueue fn(), over n calls (fewer than the
+    launch queue holds, so the card never holds the host back)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def row_spread(x, g, b, card: str, others: dict) -> None:
+    """Where K2's standalone time spreads. K2 on five fresh copies of x
+    [M, 1408] (each at its own address): over 2000 calls back to back by
+    CUDA events while nvidia-smi samples the clocks; the kernel's own
+    device time over 200 such calls (kernel_ms) and the host's time a call
+    (host_ms); and the kernel's own time over 50 calls each just after x
+    was rewritten in place (its last rows still in L2, as in a forward,
+    whose residual add writes x just before K2) and 50 just after the L2
+    was flushed by a 256 MB write. Then the kernel's own time and the
+    host's for each of `others` (name: (fn, kernel name key))."""
+    from hirest_tpu_torch.ops import quant
+
+    def fmt(t):
+        return "not found" if t is None else f"{t:.4f} ms"
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    copies = []
+    for r in range(5):
+        xr = x.clone()
+        copies.append(xr)  # kept, so that the next copy lies elsewhere
+
+        def run():
+            return quant.ln_quant(xr, g, b, EPS)
+
+        ms, clocks = clocks_during(lambda: cuda_ms(run, 2000, 20))
+        print(f"[time-rows] {card}: K2 on copy {r} of x "
+              f"({xr.data_ptr():#x}): back to back {ms:.4f} ms ({clocks}), "
+              f"the kernel's own "
+              f"{fmt(kernel_ms(run, 'ln_kernel', 200))}, the host's "
+              f"{host_ms(run, 200):.4f} ms a call; after x written "
+              f"{fmt(kernel_ms(run, 'ln_kernel', 50, lambda: xr.mul_(1)))}"
+              f", after the L2 flushed "
+              f"{fmt(kernel_ms(run, 'ln_kernel', 50, flush.zero_))}")
+    for name, (fn, key) in others.items():
+        print(f"[time-rows] {card}: {name}: the kernel's own "
+              f"{fmt(kernel_ms(fn, key, 200))}, the host's "
+              f"{host_ms(fn, 200):.4f} ms a call")
+
+
+def time_rows(cfg, card: str) -> None:
+    """K2, K5 (gelu_bf16_poly at 6144, none at 1408) and K10 ms per call at
+    B=128, beside F.layer_norm for K10 and a clone of K10's bytes, and K5
+    on the fc1 outputs of an int8+fq+v3 forward, through the wrappers that
+    every version of the port has (see time_attention); the kernels'
+    ptxas registers where this call built them, and row_checks'
+    differing counts, first; then where K2's time spreads and each row
+    kernel's own device time (row_spread), and the SASS counts of both
+    sources."""
+    import torch.nn.functional as F
+
+    from hirest_tpu_torch.ops import build, quant
+
+    logs = build.build(("ln_quant", "act_quant"))
+    ptxas_summary(logs.get("act_quant", ""), ("act_quant_kernel",))
+    ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel",))
+    row_checks("time-rows")
+    m, w, hid = BATCH * TOKENS, cfg.width, cfg.mlp_hidden
+    x, g, b = ln_inputs(m, seed=8)
+    x10, g10, b10 = ln_inputs(m, seed=17)
+    h6, h1 = fc1_inputs(m, seed=15, c=hid), fc1_inputs(m, seed=16, c=w)
+    # the short memory-bound calls first, 200 a time after 20 to warm up,
+    # the GELU's heavy arithmetic last
+    ms = {"K2": cuda_ms(lambda: quant.ln_quant(x, g, b, EPS), 200, 20),
+          "K5 none": cuda_ms(lambda: quant.act_quant(h1), 200, 20),
+          "K10": cuda_ms(lambda: quant.ln_bf16(x10, g10, b10, EPS), 200,
+                         20),
+          "F.layer_norm": cuda_ms(lambda: F.layer_norm(
+              x10, (w,), g10.bfloat16(), b10.bfloat16(), EPS), 200, 20),
+          # what the card's memory gives one PyTorch pass with K10's
+          # traffic (bf16 in and out)
+          "copy K10 bytes": cuda_ms(lambda: x10.clone(), 50),
+          "K5 gelu_poly": cuda_ms(
+              lambda: quant.act_quant(h6, act="gelu_poly"), 50, 5)}
+    fc1, act = forward_fc1(cfg)
+    for i, h in enumerate(fc1):
+        ms[f"K5 {act} on layer {i}'s fc1"] = cuda_ms(
+            lambda: quant.act_quant(h, act=act), 50)
+    print(f"[time-rows] {card}: {REPO}: " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in ms.items()))
+    for what, h in [*((f"layer {i}'s fc1", h) for i, h in enumerate(fc1)),
+                    ("the synthetic fc1", h6)]:
+        y = quant._act(act, quant.QUANT_ACTS)(h.float())
+        print(f"[time-rows] {what} {tuple(h.shape)}: |x| mean "
+              f"{h.float().abs().mean().item():.4f}, max "
+              f"{h.float().abs().max().item():.4f}; {act} gives y == 0 on "
+              f"{(y == 0).float().mean().item():.6f} of it, |y| < 1e-3 on "
+              f"{(y.abs() < 1e-3).float().mean().item():.6f}")
+    row_spread(x, g, b, card, {
+        "K10": (lambda: quant.ln_bf16(x10, g10, b10, EPS), "ln_kernel"),
+        "K5 none": (lambda: quant.act_quant(h1), "act_quant_kernel"),
+        "K5 gelu_poly": (lambda: quant.act_quant(h6, act="gelu_poly"),
+                         "act_quant_kernel")})
+    for name, kernel in (("act_quant", "act_quant_kernel"),
+                         ("ln_quant", "ln_kernel")):
+        sass_counts(build.library_path(name), kernel)
+
+
 def ptxas_summary(log: str, kernels) -> None:
     """Each named kernel's registers and spills from nvcc's ptxas -v log,
     and why ptxas serialized its wgmma instructions, where it did."""
@@ -1554,11 +1950,13 @@ def main() -> int:
     cfg, text_cfg = EvaVisionConfig(), EvaTextConfig()
     pretrained = REPO / "pretrained_weights"
 
-    if "--time-attention" in sys.argv[1:]:
-        time_attention(cfg, card)
-        return 0
-    if "--time-mlp" in sys.argv[1:]:
-        time_mlp(card)
+    timers = {"--time-attention": lambda: time_attention(cfg, card),
+              "--time-mlp": lambda: time_mlp(card),
+              "--time-rows": lambda: time_rows(cfg, card)}
+    asked = [flag for flag in timers if flag in sys.argv[1:]]
+    for flag in asked:
+        timers[flag]()
+    if asked:
         return 0
     t0 = time.perf_counter()
     logs = build.build()
@@ -1572,6 +1970,8 @@ def main() -> int:
                   ("fused_mlp_int8_hidden_kernel",
                    "fused_mlp_int8_out_kernel"))
     ptxas_summary(logs.get("attention_qkv3", ""), ("attention_qkv3_kernel",))
+    ptxas_summary(logs.get("act_quant", ""), ("act_quant_kernel",))
+    ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel",))
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
 

@@ -1,8 +1,9 @@
 // Hopper pieces shared by the kernels built on TMA and wgmma
-// (fused_mlp_int8.cu, attention_qkv3.cu): mbarriers, TMA tile loads, the
-// tensor-map encoder, setmaxnreg, wgmma's fence / commit / wait, shared-
-// memory matrix descriptors, and the bf16 wgmma products of the attention
-// kernel (attention_tiles.cuh takes its smem_u32 too). sm_90a only.
+// (fused_mlp_int8.cu, attention_qkv3.cu) and by the row ring (rowring.cuh):
+// mbarriers, TMA tile loads, 1-d bulk copies, the tensor-map encoder,
+// setmaxnreg, wgmma's fence / commit / wait, shared-memory matrix
+// descriptors, and the bf16 wgmma products of the attention kernel
+// (attention_tiles.cuh takes its smem_u32 too). sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -56,6 +57,28 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// An L2 policy that evicts the lines it covers first: for data read once.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// One contiguous run of `bytes` from global to shared memory, no tensor map
+// (a 1-d bulk copy) under the L2 policy `policy`: bytes a multiple of 16,
+// both addresses 16-byte aligned; completes its bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)),
+      "l"(policy)
       : "memory");
 }
 

@@ -1,31 +1,48 @@
 // K2: LayerNorm in f32 followed by per-row symmetric int8 quantization, and
 // K10: the same LayerNorm written back in bf16.
 //
-// K2 replaces hirest_tpu/ops/quant.py::ln_quant (kernel body
-// _ln_quant_kernel), K10 hirest_tpu/ops/quant.py::ln_bf16 (kernel body
+// K2 replaces hirest_tpu/ops/quant.py:145 ln_quant (kernel body
+// _ln_quant_kernel), K10 hirest_tpu/ops/quant.py:220 ln_bf16 (kernel body
 // _ln_kernel_flat). For each row x of [M, C] (bf16 in), with g, b the f32
 // LayerNorm params:
 //   mu  = mean(x),  xc = x - mu,  var = mean(xc * xc)          (two passes)
 //   y   = (xc * rsqrt(var + eps)) * g + b                       (f32)
 // K2: s = max(max|y| / 127, 1e-8), q = clamp(round_half_even(y / s), +-127)
-//     (IEEE division; y is never rounded to bf16).
+//     (correctly rounded division; y is never rounded to bf16).
 // K10: out = bf16(y), which is eva_scan._ln's arithmetic.
 //
 // Bound on an H100 SXM (EVA-g, M = 128 * 257 = 32896, C = 1408): K2 reads
 // x (92.6 MB) and writes q (46.3 MB) and s: 139 MB, 0.0415 ms at 3.35 TB/s;
-// K10 reads x and writes 92.6 MB of bf16: 185.3 MB, 0.0553 ms. Their few f32
-// operations per element are far below the f32 rate. Both are bound by
-// memory.
+// K10 reads x and writes 92.6 MB of bf16: 185.3 MB, 0.0553 ms. Their
+// arithmetic is well below that: the widening, the LayerNorm (the sum, the
+// centring, the square and its sum, x r g + b: 7) and K2's quantization
+// (|y|'s max, the quotient, the rounding, the pack: 5.75) or K10's bf16
+// pack (0.5) make 13.75 and 8.5 f32 issue slots a value, 0.019 and 0.012
+// ms on 132 SMs x 128 lanes x 1.98 GHz: both are bound by bytes. The first
+// version (one warp a row, the row in registers, eight rows a block)
+// issued a row's loads and then stopped loading while its warps reduced
+// and divided.
 //
-// Design: one warp per row. The row stays in registers (C / 32 values a
-// lane) between the passes, so x is read from device memory once and the
-// output written once: the traffic is the bound's. Loads and stores are 8
-// bytes a lane (4 values), neighbouring lanes on neighbouring addresses.
-// Products and sums that the reference rounds one by one use __fmul_rn /
-// __fadd_rn, so nvcc cannot contract them into FMAs; the row reductions run
-// in another order than the plain version's, and rsqrtf is not correctly
-// rounded, so a code may differ by one from it, and a K10 output by one
-// bf16 ulp.
+// Design: a persistent grid of 256-thread blocks, eight warps each, two
+// blocks an SM, fed by the bulk-copy row ring of rowring.cuh: each warp
+// takes its rows one at a time, reads the row out of its slot into
+// registers (lane l the 4-value vectors l, l + 32, ...; 8-byte reads,
+// consecutive across the warp) and at once hands the slot back for the row
+// after next, so the next rows land while it reduces. g and b are staged
+// in shared memory once a block, while the first rows land. The sums run
+// in the first version's order (each lane its values in turn, then the
+// warp's butterfly), the mean and the centred sum of squares in two
+// passes, never E[x^2] - E[x]^2; products and sums that the reference
+// rounds one by one use __fmul_rn / __fadd_rn, so nvcc cannot contract
+// them into FMAs. K2's division is code4_recip (rowquant.cuh: __fdiv_rn's
+// fast path with the row's reciprocal hoisted). EVA-g's width, C = 1408,
+// has an instantiation of its own, whose loop bounds and tests fold away
+// (on the card K2 14 % and K10 5 % faster than the general one). The plain
+// version reduces in another order, so a code may differ
+// by one from it and a K10 output by one bf16 ulp; both differ on the same
+// elements as the first version's. The reciprocal square root is rsqrtf,
+// which the plain version matches on more codes than the correctly rounded
+// __frsqrt_rn (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,145 +50,178 @@
 #include <stdint.h>
 
 #include "rowquant.cuh"
+#include "rowring.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxVecs = 16;  // 4-value vectors a lane holds: C <= 2048
+constexpr int kG = 32;  // a warp a row
+constexpr int kGroups = kRowThreads / kG;
+constexpr int kMaxWidth = 2048;
+constexpr int kEvaWidth = 1408;
+constexpr int kMaxVecs = kMaxWidth / 4 / kG;  // 4-value vectors a lane, 16
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// kQuant: codes to q and scales to s (K2); else bf16 to y (K10).
-template <bool kQuant>
-__global__ void __launch_bounds__(kThreads)
+// kQuant: codes to q and scales to s (K2); else bf16 to y (K10). Lane l
+// takes the row's 4-value vectors l, l + 32, ...: its 8-byte reads of the
+// slot, its reads of g and b and its stores are consecutive across the
+// warp, and its sums run in the first version's order. kWidth: the row
+// width built in (its loops' bounds and tests fold away), or 0 for width.
+template <bool kQuant, int kWidth>
+__global__ void __launch_bounds__(kRowThreads, 2)
     ln_kernel(const __nv_bfloat16* __restrict__ x,
               const float* __restrict__ g, const float* __restrict__ b,
               int8_t* __restrict__ q, float* __restrict__ s,
-              __nv_bfloat16* __restrict__ y, int M, int C, float eps) {
+              __nv_bfloat16* __restrict__ y, int M, int width, float eps) {
+  const int C = kWidth ? kWidth : width;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= M) return;
-  const int nvec = C / 4;
-  const __nv_bfloat16* xr = x + (size_t)row * C;
-
-  float v[kMaxVecs][4];
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    const int vi = i * 32 + lane;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[i][k] = 0.f;
-    if (vi < nvec) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(xr + vi * 4);
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-      v[i][0] = __low2float(lo);
-      v[i][1] = __high2float(lo);
-      v[i][2] = __low2float(hi);
-      v[i][3] = __high2float(hi);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sum = __fadd_rn(sum, v[i][k]);
-    }
+  const auto ring = RowRing<kG>::make<kGroups>(smem, x, M, C);
+  __syncthreads();
+  // the first rows land while the block stages g and b
+  for (int i = 0; i < kRowStages; ++i) ring.issue(i, lane);
+  float* gs = reinterpret_cast<float*>(smem + ring_bytes<kGroups>(C));
+  float* bs = gs + C;
+  for (int e = threadIdx.x; e < C; e += kRowThreads) {
+    gs[e] = g[e];
+    bs[e] = b[e];
   }
-  const float mu = __fdiv_rn(warp_sum(sum), (float)C);
+  __syncthreads();
+  const float4* g4 = reinterpret_cast<const float4*>(gs);
+  const float4* b4 = reinterpret_cast<const float4*>(bs);
 
-  float ss = 0.f;
+  const int nv = C / 4;
+  const int n = ring.rows();
+  for (int i = 0; i < n; ++i) {
+    const uint2* xs = reinterpret_cast<const uint2*>(ring.wait(i));
+    float v[kMaxVecs][4];
+    float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    if (i * 32 + lane < nvec) {
+    for (int k = 0; k < kMaxVecs; ++k) {
+      if (lane + k * kG < nv) {
+        const uint2 w = xs[lane + k * kG];
+        v[k][0] = __uint_as_float(w.x << 16);
+        v[k][1] = __uint_as_float(w.x & 0xffff0000u);
+        v[k][2] = __uint_as_float(w.y << 16);
+        v[k][3] = __uint_as_float(w.y & 0xffff0000u);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[i][k] = __fsub_rn(v[i][k], mu);
-        ss = __fadd_rn(ss, __fmul_rn(v[i][k], v[i][k]));
+        for (int e = 0; e < 4; ++e) sum = __fadd_rn(sum, v[k][e]);
       }
     }
-  }
-  const float r = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(ss), (float)C), eps));
+    __syncwarp();  // every lane has its row out of the slot: refill it
+    ring.issue(i + kRowStages, lane);
+    const float mu = __fdiv_rn(warp_sum(sum), (float)C);
 
-  float amax = 0.f;
+    float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    const int vi = i * 32 + lane;
-    if (vi < nvec) {
-      const float4 gv = *reinterpret_cast<const float4*>(g + vi * 4);
-      const float4 bv = *reinterpret_cast<const float4*>(b + vi * 4);
-      const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int k = 0; k < kMaxVecs; ++k) {
+      if (lane + k * kG < nv) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[i][k] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][k], r), gg[k]), bb[k]);
-        amax = fmaxf(amax, fabsf(v[i][k]));
+        for (int e = 0; e < 4; ++e) {
+          v[k][e] = __fsub_rn(v[k][e], mu);
+          ss = __fadd_rn(ss, __fmul_rn(v[k][e], v[k][e]));
+        }
       }
     }
-  }
+    const float r =
+        rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(ss), (float)C), eps));
 
-  if constexpr (kQuant) {
-    const float sc = row_scale(warp_max(amax));
-    uint32_t* qr = reinterpret_cast<uint32_t*>(q + (size_t)row * C);
+    float amax = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxVecs; ++i) {
-      const int vi = i * 32 + lane;
-      if (vi < nvec) qr[vi] = code4(v[i], sc);
+    for (int k = 0; k < kMaxVecs; ++k) {
+      const int vi = lane + k * kG;
+      if (vi < nv) {
+        const float4 gv = g4[vi], bv = b4[vi];
+        const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
+        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[k][e] = __fadd_rn(__fmul_rn(__fmul_rn(v[k][e], r), gg[e]), bb[e]);
+          amax = fmaxf(amax, fabsf(v[k][e]));
+        }
+      }
     }
-    if (lane == 0) s[row] = sc;
-  } else {
-    uint2* yr = reinterpret_cast<uint2*>(y + (size_t)row * C);
+
+    const long long row = ring.row(i);
+    if constexpr (kQuant) {
+      const float sc = row_scale(warp_max(amax)), rc = row_recip(sc);
+      uint32_t* qr = reinterpret_cast<uint32_t*>(q + row * C);
 #pragma unroll
-    for (int i = 0; i < kMaxVecs; ++i) {
-      const int vi = i * 32 + lane;
-      if (vi < nvec) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[i][0], v[i][1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[i][2], v[i][3]);
-        yr[vi] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                            *reinterpret_cast<const uint32_t*>(&hi));
+      for (int k = 0; k < kMaxVecs; ++k) {
+        const int vi = lane + k * kG;
+        if (vi < nv) qr[vi] = code4_recip(v[k], sc, rc);
+      }
+      if (lane == 0) s[row] = sc;
+    } else {
+      uint2* yr = reinterpret_cast<uint2*>(y + row * C);
+#pragma unroll
+      for (int k = 0; k < kMaxVecs; ++k) {
+        const int vi = lane + k * kG;
+        if (vi < nv)
+          yr[vi] = make_uint2(pack_bf16x2(v[k][0], v[k][1]),
+                              pack_bf16x2(v[k][2], v[k][3]));
       }
     }
   }
 }
 
-bool bad_shape(int M, int C) {
-  return M <= 0 || C <= 0 || C % 4 || C > kMaxVecs * 128;
+constexpr uint32_t smem_bytes(int C) {
+  return ring_bytes<kGroups>(C) + 2 * C * 4;
+}
+
+template <bool kQuant, int kWidth>
+cudaError_t launch(const void* x, const void* g, const void* b, void* q,
+                   void* s, void* y, int M, int C, float eps,
+                   cudaStream_t stream) {
+  const auto kernel = ln_kernel<kQuant, kWidth>;
+  // the shared-memory opt-in, once an instantiation, for the widest row
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(kMaxWidth));
+  if (opt_in != cudaSuccess) return opt_in;
+  const uint32_t smem = smem_bytes(C);
+  const int grid = ring_grid(M, kGroups, smem);
+  if (grid < 1) return cudaErrorInvalidDevice;
+  kernel<<<grid, kRowThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(b), static_cast<int8_t*>(q),
+      static_cast<float*>(s), static_cast<__nv_bfloat16*>(y), M, C, eps);
+  return cudaGetLastError();
+}
+
+// EVA-g's trunk width, the main paths' rows, gets an instantiation of its
+// own; any other C % 8 == 0 up to 2048 the general one.
+template <bool kQuant>
+cudaError_t launch_ln(const void* x, const void* g, const void* b, void* q,
+                      void* s, void* y, int M, int C, float eps,
+                      cudaStream_t stream) {
+  if (M <= 0 || C <= 0 || C % 8 || C > kMaxWidth)
+    return cudaErrorInvalidValue;
+  return C == kEvaWidth
+             ? launch<kQuant, kEvaWidth>(x, g, b, q, s, y, M, C, eps, stream)
+             : launch<kQuant, 0>(x, g, b, q, s, y, M, C, eps, stream);
 }
 
 }  // namespace
 
-// x [M, C] bf16, g/b [C] f32, q [M, C] int8, s [M] f32, all contiguous;
-// C % 4 == 0 and C <= 2048. Launches on `stream`; returns cudaGetLastError().
+// x [M, C] bf16, g/b [C] f32, q [M, C] int8, s [M] f32, all contiguous, x
+// 16-byte aligned; C % 8 == 0 and C <= 2048. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int hirest_ln_quant(const void* x, const void* g, const void* b,
                                void* q, void* s, int M, int C, float eps,
                                void* stream) {
-  if (bad_shape(M, C)) return (int)cudaErrorInvalidValue;
-  const int blocks = (M + kWarps - 1) / kWarps;
-  ln_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(b), static_cast<int8_t*>(q),
-      static_cast<float*>(s), nullptr, M, C, eps);
-  return (int)cudaGetLastError();
+  return (int)launch_ln<true>(x, g, b, q, s, nullptr, M, C, eps,
+                              (cudaStream_t)stream);
 }
 
 // As above with the LayerNorm written to y [M, C] bf16 (K10).
 extern "C" int hirest_ln_bf16(const void* x, const void* g, const void* b,
                               void* y, int M, int C, float eps, void* stream) {
-  if (bad_shape(M, C)) return (int)cudaErrorInvalidValue;
-  const int blocks = (M + kWarps - 1) / kWarps;
-  ln_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(b), nullptr, nullptr,
-      static_cast<__nv_bfloat16*>(y), M, C, eps);
-  return (int)cudaGetLastError();
+  return (int)launch_ln<false>(x, g, b, nullptr, nullptr, y, M, C, eps,
+                               (cudaStream_t)stream);
 }
 
 extern "C" const char* hirest_cuda_error_string(int err) {

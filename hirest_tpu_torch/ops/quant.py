@@ -34,8 +34,10 @@ N_CHUNK = 1024  # hidden units per requant scale in the fused MLP
 ACTS = {"gelu_poly": 0, "gelu": 1}  # activation name -> kernel selector
 QUANT_ACTS = {**ACTS, "none": 2}  # act_quant also quantizes without one
 KERNEL_WIDTH = 1408  # trunk width the fused-MLP kernel is built for
-LN_MAX_WIDTH = 2048  # widest row the ln_quant kernel holds in registers
-ACT_MAX_WIDTH = 8192  # widest row the act_quant kernel holds in a block
+LN_MAX_WIDTH = 2048  # widest row the ln_quant kernel takes
+ACT_MAX_WIDTH = 8192  # widest row the act_quant kernel takes
+LN_MULTIPLE = 8  # ln_quant's and ln_bf16's C: 16-byte rows
+ACT_MULTIPLE = 16  # act_quant's C: a thread takes 16 values at a time
 
 
 def _scale_and_codes(y: torch.Tensor, dim: int = -1):
@@ -105,17 +107,20 @@ def _ln_fn(entry: str, n_outputs: int):
     return fn
 
 
-def _bf16_rows(x, what: str, max_width: int = LN_MAX_WIDTH):
-    """x as the contiguous bf16 [M, C] rows the row kernels (K2, K5, K10)
-    take, C a multiple of 4 up to max_width."""
+def _bf16_rows(x, what: str, max_width: int = LN_MAX_WIDTH,
+               multiple: int = LN_MULTIPLE):
+    """x as the contiguous, 16-byte aligned bf16 [M, C] rows the row
+    kernels (K2, K5, K10) take, C a multiple of `multiple` up to
+    max_width: each row comes in by one bulk copy."""
     _require_cuda(x)
-    if x.dim() < 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise TypeError(f"{what}'s kernel takes contiguous bf16 [..., C], "
-                        f"got {x.dtype} {tuple(x.shape)}")
+    if (x.dim() < 2 or x.dtype != torch.bfloat16 or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise TypeError(f"{what}'s kernel takes contiguous, 16-byte aligned "
+                        f"bf16 [..., C], got {x.dtype} {tuple(x.shape)}")
     c = x.shape[-1]
-    if c % 4 or c > max_width:
-        raise ValueError(f"{what}'s kernel takes C % 4 == 0 and C <= "
-                         f"{max_width}, got {c}")
+    if c % multiple or c > max_width:
+        raise ValueError(f"{what}'s kernel takes C % {multiple} == 0 and C "
+                         f"<= {max_width}, got {c}")
     return x.view(-1, c)
 
 
@@ -123,9 +128,9 @@ def ln_quant(x, weight, bias, eps: float):
     """LayerNorm + per-row int8 quantization of x [..., C] -> (q int8 like
     x, s f32 [..., 1]); weight and bias [C] are applied in f32.
 
-    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with C a multiple of 4 up to 2048, and launches the kernel;
-    anything else raises. `ln_quant.launches` counts launches."""
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
+    16-byte aligned bf16 with C a multiple of 8 up to 2048, and launches
+    the kernel; anything else raises. `ln_quant.launches` counts launches."""
     if x.device.type == "cpu":
         return ln_quant_ref(x, weight, bias, eps)
     rows = _bf16_rows(x, "ln_quant")
@@ -147,9 +152,9 @@ def ln_bf16(x, weight, bias, eps: float):
     """LayerNorm of x [..., C] in f32, written back in x's dtype (the bf16
     trunk's `fused_ln`); weight and bias [C] are applied in f32.
 
-    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with C a multiple of 4 up to 2048, and launches the kernel;
-    anything else raises. `ln_bf16.launches` counts launches."""
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
+    16-byte aligned bf16 with C a multiple of 8 up to 2048, and launches
+    the kernel; anything else raises. `ln_bf16.launches` counts launches."""
     if x.device.type == "cpu":
         return ln_bf16_ref(x, weight, bias, eps)
     rows = _bf16_rows(x, "ln_bf16")
@@ -192,13 +197,13 @@ def act_quant(x, *, act: str = "none"):
     (q int8 like x, s f32 [..., 1]), q * s ~= act(x); act is "gelu_poly"
     (gelu_bf16_poly), "gelu" (exact erf) or "none".
 
-    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with C a multiple of 4 up to 8192, and launches the kernel;
-    anything else raises. `act_quant.launches` counts launches."""
+    A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
+    16-byte aligned bf16 with C a multiple of 16 up to 8192, and launches
+    the kernel; anything else raises. `act_quant.launches` counts launches."""
     if x.device.type == "cpu":
         return act_quant_ref(x, act=act)
     _act(act, QUANT_ACTS)
-    m, c = _bf16_rows(x, "act_quant", ACT_MAX_WIDTH).shape
+    m, c = _bf16_rows(x, "act_quant", ACT_MAX_WIDTH, ACT_MULTIPLE).shape
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
     fn = _act_quant_fn()

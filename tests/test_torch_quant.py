@@ -238,6 +238,67 @@ def test_act_quant_and_ln_bf16_cpu_calls_count_nothing():
         ln_bf16(meta, g, b, EPS)
 
 
+# --- K2, K5, K10 at the row kernels' edges -----------------------------------
+
+
+EDGE_KERNELS = {  # case -> its row width
+    "ln_quant": C, "ln_bf16": C, "gelu_poly": F, "gelu": F, "none": C}
+
+
+def _edge_rows(kernel, m):
+    """[m, width] bf16-exact f32 rows for an edge case: random rows and,
+    where m > 1, a row of zeros (row 5 % m); for act "none", rows 0 and 1
+    hold +-127 (scale 1) and every other value on k + 1/2, which must round
+    to even."""
+    c = EDGE_KERNELS[kernel]
+    x = (_ln_inputs(40 + m, m)[0] if kernel.startswith("ln")
+         else _fc1_output(41 + m, m, c=c))
+    if m > 1:
+        x[5 % m] = 0.0
+    if kernel == "none" and m > 2:
+        halves = np.arange(c - 1) % 254 - 126.5
+        x[0, 0], x[0, 1:] = 127.0, halves
+        x[1, 0], x[1, 1:] = -127.0, -halves[::-1]
+    return torch.from_numpy(x).bfloat16()
+
+
+@pytest.mark.parametrize("m", [1, 13])  # one row; not a multiple of 8
+@pytest.mark.parametrize("kernel", list(EDGE_KERNELS))
+def test_row_kernels_plain_match_jax_at_edges(kernel, m):
+    """The plain K2, K5 and K10 against the Pallas kernels in interpret mode
+    at M = 1 and 13 rows, with a row of zeros (K5: scale 1e-8 and codes 0)
+    and, for K5 without activation, rows whose quotients land on k + 1/2:
+    those codes equal JAX's and half-even rounding exactly. Bars as at the
+    main widths."""
+    _, g, b = _ln_inputs(43, 1)
+    xt = _edge_rows(kernel, m)
+    jx = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    if kernel == "ln_bf16":
+        want = np.asarray(jax_ln_bf16(jx, jnp.asarray(g), jnp.asarray(b), EPS,
+                                      interpret=True).astype(jnp.float32))
+        got = ln_bf16(xt, torch.from_numpy(g), torch.from_numpy(b), EPS)
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
+        assert got.shape == (m, C)
+        assert np.all(np.abs(got.float().numpy() - want) <= ulp + 1e-6)
+        return
+    if kernel == "ln_quant":
+        jq, js = jax_ln_quant(jx, jnp.asarray(g), jnp.asarray(b), EPS,
+                              interpret=True)
+        q, s = ln_quant(xt, torch.from_numpy(g), torch.from_numpy(b), EPS)
+    else:
+        jq, js = jax_act_quant(jx, act=kernel, interpret=True)
+        q, s = act_quant(xt, act=kernel)
+    assert q.shape == xt.shape and s.shape == (m, 1)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+    assert_codes_close(q.numpy(), np.asarray(jq), 0.999)
+    if m > 1 and kernel != "ln_quant":  # LN(0) = b, coded as any row
+        assert s[5].item() == np.float32(1e-8) and not q[5].any()
+    if kernel == "none" and m > 2:
+        ties = np.round(xt[:2, 1:].float().numpy()).astype(np.int8)
+        np.testing.assert_array_equal(q[:2].numpy(), np.asarray(jq)[:2])
+        np.testing.assert_array_equal(q[:2, 1:].numpy(), ties)
+
+
 # --- K4 fused_mlp_int8 ----------------------------------------------------
 
 
