@@ -98,6 +98,34 @@ Phases; any failure exits non-zero before the result line is printed:
             towers and the ladder's bf16, int8 and int8+fq (K8) and
             int8+fq+v3 (K5) forwards;
             each plain per-layer op timed alone.
+9. serving  the serving path at full width over phase 3's int8 features
+            (written as .npy): the engine as `python -m
+            hirest_tpu_torch.serve` builds it on the card (EVA-CLIP-g text
+            tower 12 x 768, MomentModel at JointModelConfig(), seeded
+            random weights, 5 beams of 48 words, f32), warmup, then
+            retrieve and analyze on every video, directly and through the
+            HTTP server on 127.0.0.1, port 0, and analyze again with
+            fused_segmentation, with every launch count 0 during the
+            requests (the serving path runs no kernel of the port, as the
+            JAX one runs no Pallas kernel); bounds inside the video, steps
+            sorted; p50/p95 of retrieve and analyze over 20 rounds (each
+            prompt retrieved, each video analyzed in both segmentation
+            modes, one after the other), pooled and per video; analyze's
+            split (text encode, moment retrieval, segmentation iterations,
+            beam decode, host rest) over 5 requests a video, and one
+            request's device time and idle share from the profiler, in
+            each mode. Then one analyze request a video and prompt against
+            the port's CPU f32 engine, within 1e-5 of the CPU value's
+            largest magnitude: moment-retrieval and segmentation logits,
+            the served captioning batch's caption_encode, and each
+            decode_step of the CPU's beam replayed on the card from the
+            CPU's inputs; bounds equal; the two beams make the same choice
+            at every step (a choice may differ only where the CPU's
+            candidates lie closer than the measured differences can move
+            them, and then the caption is not held), and end on the same
+            captions. The served (cached) beam against the full re-decode
+            beam on the card: the full decoder's logits at the served
+            prefixes within 1e-5, and the same choices and captions.
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -802,7 +830,8 @@ def phase_main(cfg, pretrained: Path) -> dict:
               for v in VIDEOS)
     print(f"[main] int8 vs bf16 features (float front end): min cosine "
           f"{cos:.6f}")
-    return {"launches": launches, "encoders": encoders, "frames": frames}
+    return {"launches": launches, "encoders": encoders, "frames": frames,
+            "features": {vid: feats["int8"][False, vid] for vid in VIDEOS}}
 
 
 def factory_weights(cfg, text_cfg, pretrained: Path) -> dict:
@@ -1402,6 +1431,15 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("elementwise (int8_mm dequant epilogues, residual, casts)",
          ("elementwise", "reduce")),
     ),
+    "serving": (
+        ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "gemv")),
+        ("softmax and log_softmax", ("softmax",)),
+        ("top-k and sort (beam)", ("topk", "sort", "radix", "bitonic")),
+        ("reductions (LayerNorm statistics, norms, argmax)", ("reduce",)),
+        ("gathers, index copies, cat", ("index", "gather", "scatter",
+                                        "Cat", "copy")),
+        ("elementwise", ("elementwise",)),
+    ),
     "unrolled": (
         ("K6/K7 attention_split (CUDA)", ("attention_split",)),
         ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1412,39 +1450,49 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
 }
 
 
-def profile_forward(tag: str, enc, batch: np.ndarray, card: str,
-                    group_set: str) -> None:
-    """One forward's device kernels by group from torch.profiler, and the
-    device's idle share of its wall time."""
+def profile_call(label: str, fn, card: str, group_set: str,
+                 tag: str = "profile") -> dict:
+    """One call's device kernels by group from torch.profiler, and the
+    device's idle share of its wall time, after one unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    enc(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        enc(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
     kernels: dict = {}
+    launches = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
+        launches += e.count
         group = next((g for g, keys in KERNEL_GROUPS[group_set]
                       if any(k in e.key for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms
         kernels[e.key] = kernels.get(e.key, 0.0) + ms
     busy = sum(groups.values())
-    print(f"[profile] {card}: one {tag} forward B={BATCH}: wall "
-          f"{wall_ms:.2f} ms (profiled), device busy {busy:.2f} ms, idle "
-          f"share {1 - busy / wall_ms:.4f}")
+    print(f"[{tag}] {card}: {label}: wall {wall_ms:.2f} ms (profiled), "
+          f"device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.4f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {g}: {ms:.2f} ms ({ms / busy:.4f} of busy)")
+        print(f"[{tag}]   {g}: {ms:.2f} ms ({ms / busy:.4f} of busy)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[profile]     kernel {name[:110]}: {ms:.2f} ms")
+        print(f"[{tag}]     kernel {name[:110]}: {ms:.2f} ms")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": launches}
+
+
+def profile_forward(tag: str, enc, batch: np.ndarray, card: str,
+                    group_set: str) -> None:
+    """One forward's device kernels by group, and the idle share."""
+    profile_call(f"one {tag} forward B={BATCH}", lambda: enc(batch), card,
+                 group_set)
 
 
 def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
@@ -1513,6 +1561,507 @@ def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
     for name, fn in ops.items():
         print(f"[profile] {card}: {name}, M={m}: "
               f"{cuda_ms(fn, 10):.4f} ms per call")
+
+
+# the serving phase: prompts, rounds, the bar
+SERVE_PROMPTS = ("make oatmeal pancake mix", "fold a fitted sheet",
+                 "replace a bike inner tube")
+# timed rounds: each prompt retrieved, each video analyzed in each mode
+SERVE_ROUNDS = 20
+SPLIT_ROUNDS = 5  # analyze requests a video and mode for the split
+SERVE_TOL = 1e-5  # card vs CPU f32, cached vs full: of the largest |value|
+MODES = {False: "host segmentation loop", True: "fused_segmentation"}
+
+
+def percentiles(ms: list) -> str:
+    return (f"p50 {np.percentile(ms, 50):.2f} ms, p95 "
+            f"{np.percentile(ms, 95):.2f} ms over {len(ms)} requests")
+
+
+def analysis_ok(res: dict, duration: float) -> None:
+    lo, hi = res["moment_bounds"]
+    require(0 <= lo <= hi <= duration,
+            f"{res['video']}: moment bounds {res['moment_bounds']}")
+    starts = [st["bounds"][0] for st in res["steps"]]
+    require(starts == sorted(starts) and all(
+        0 <= st["bounds"][0] <= st["bounds"][1] <= duration
+        for st in res["steps"]), f"{res['video']}: steps {res['steps']}")
+
+
+def timed_requests(engine, card: str) -> None:
+    """p50/p95 of retrieve and analyze, host clock around each request,
+    whose answer comes back to the host (so its device work has ended).
+    SERVE_ROUNDS rounds, each retrieving every prompt and analyzing every
+    video in both segmentation modes, one after the other, so the modes
+    see the same host; analyze pooled and per video."""
+    ret = []
+    ana = {(fused, vid): [] for fused in MODES for vid in VIDEOS}
+    try:
+        for _ in range(SERVE_ROUNDS):
+            for prompt in SERVE_PROMPTS:
+                t0 = time.perf_counter()
+                engine.retrieve(prompt, top_k=3)
+                ret.append((time.perf_counter() - t0) * 1e3)
+            for vid, (_, duration) in VIDEOS.items():
+                for fused in MODES:
+                    engine.config.fused_segmentation = fused
+                    t0 = time.perf_counter()
+                    engine.analyze(SERVE_PROMPTS[0], f"{vid}.mp4", duration)
+                    ana[fused, vid].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        engine.config.fused_segmentation = False
+    print(f"[serving] {card}: retrieve {percentiles(ret)}")
+    for fused, mode in MODES.items():
+        pooled = [ms for vid in VIDEOS for ms in ana[fused, vid]]
+        print(f"[serving] {card}: analyze ({mode}) pooled "
+              f"{percentiles(pooled)}")
+        for vid, (frames, duration) in VIDEOS.items():
+            print(f"[serving] {card}: analyze ({mode}) {vid} ({frames} "
+                  f"frames) {percentiles(ana[fused, vid])}")
+
+
+def analyze_split(engine, card: str, fused: bool) -> None:
+    """Where an analyze request's wall time goes, SPLIT_ROUNDS requests a
+    video: each trainer step timed with a synchronize on either side, the
+    rest host work (annotations, collate, feature loads, the segmentation
+    walk's bookkeeping); means per video and pooled."""
+    trainer = engine.trainer
+    spans: dict = {}
+    now = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans.setdefault((now["vid"], name), []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    steps = {"text encode": "text_encoder_fn",
+             "moment retrieval": "_predict_moment_retrieval",
+             "segmentation iterations": "_predict_moment_segmentation",
+             "beam decode (caption_encode + 48 steps)":
+                 "_predict_step_captioning"}
+    saved = {attr: trainer.__dict__.get(attr) for attr in steps.values()}
+    for name, attr in steps.items():
+        setattr(trainer, attr, timed(name, getattr(trainer, attr)))
+    total = {vid: [] for vid in VIDEOS}
+    engine.config.fused_segmentation = fused
+    try:
+        for _ in range(SPLIT_ROUNDS):
+            for vid, (_, duration) in VIDEOS.items():
+                now["vid"] = vid
+                t0 = time.perf_counter()
+                engine.analyze(SERVE_PROMPTS[0], f"{vid}.mp4", duration)
+                total[vid].append((time.perf_counter() - t0) * 1e3)
+    finally:  # the instance's own attribute back, or the class's method
+        engine.config.fused_segmentation = False
+        for attr, fn in saved.items():
+            if fn is None:
+                delattr(trainer, attr)
+            else:
+                setattr(trainer, attr, fn)
+    for label, vids in [(vid, (vid,)) for vid in VIDEOS] + [
+            ("pooled", tuple(VIDEOS))]:
+        n = sum(len(total[v]) for v in vids)
+        parts = {name: sum(sum(spans.get((v, name), ())) for v in vids) / n
+                 for name in steps}
+        wall = sum(sum(total[v]) for v in vids) / n
+        parts["host rest"] = wall - sum(parts.values())
+        print(f"[serving] {card}: analyze split ({MODES[fused]}, {label}), "
+              f"mean of {n} requests, {wall:.2f} ms: " + "; ".join(
+                  f"{k} {v:.2f} ms" for k, v in parts.items()))
+
+
+def serving_engine(feat_dir: Path, device: str):
+    """The engine as `python -m hirest_tpu_torch.serve` builds it, at full
+    width: the EVA-CLIP-g text tower (12 x 768) and MomentModel at
+    JointModelConfig() with seeded random weights, 5 beams of 48 words,
+    HirestConfig's defaults otherwise (f32)."""
+    from hirest_tpu_torch.serve.__main__ import build_engine, parse_args
+
+    engine = build_engine(parse_args([
+        "--video_feature_dir", str(feat_dir), "--num_beams", "5",
+        "--pretrained_dir", str(feat_dir / "none"), "--device", device]))
+    return engine
+
+
+def traced_select(trace: list, on_step=None):
+    """A stand-in for infer/beam.py's `_select` that records each step
+    (host copies: the prefixes [B, k, t + 1] and scores [B, k] it was
+    given, the chosen source slots and tokens [B, k], and the least gap
+    between neighbours among each instance's k + 1 best candidates [B],
+    with their largest magnitude) and calls on_step(seqs, logits, t)
+    first. Returns (the stand-in, the function it stands in for)."""
+    from hirest_tpu_torch.infer import beam
+
+    select = beam._select
+
+    def probe(seqs, scores, logits, t):
+        if on_step is not None:
+            on_step(seqs, logits, t)
+        b, k, _ = seqs.shape
+        cand = (scores[:, :, None] + torch.log_softmax(
+            logits.float(), dim=-1).reshape(b, k, -1)).reshape(b, -1)
+        top = cand.topk(k + 1, dim=1).values
+        out = select(seqs, scores, logits, t)
+        trace.append({
+            "seqs": seqs[:, :, :t + 1].cpu().numpy(),
+            "scores": scores.cpu().numpy(),
+            "src": out[2].cpu().numpy(),
+            "tok": out[0][:, :, t + 1].cpu().numpy(),
+            "gap": (top[:, :-1] - top[:, 1:]).min(1).values.cpu().numpy(),
+            "top": top[:, 0].abs().max().item()})
+        return out
+
+    return probe, select
+
+
+def served_captioning(engine, prompt: str, vid: str, on_step=None) -> tuple:
+    """One analyze request as the engine serves it, with the batch that
+    reached `Trainer._predict_step_captioning` kept and its beam's steps
+    traced (traced_select; on_step(arrs, seqs, logits, t)). Returns (the
+    answer, the batch or None, the trace)."""
+    from hirest_tpu_torch.infer import beam
+
+    tr, seen, trace = engine.trainer, {}, []
+    predict = tr._predict_step_captioning
+
+    def predict_probe(arrs):
+        seen["arrs"] = arrs
+        return predict(arrs)
+
+    probe, select = traced_select(trace, None if on_step is None else (
+        lambda seqs, logits, t: on_step(seen["arrs"], seqs, logits, t)))
+    tr._predict_step_captioning, beam._select = predict_probe, probe
+    try:
+        res = engine.analyze(prompt, f"{vid}.mp4", VIDEOS[vid][1])
+    finally:
+        del tr._predict_step_captioning
+        beam._select = select
+    return res, seen.get("arrs"), trace
+
+
+def held(tag: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max |got - want| over the largest |want|, required within SERVE_TOL."""
+    err = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    top = want.float().abs().max().item()
+    print(f"[serving] {tag}: max err {err:.3e}, {err / top:.3e} of max "
+          f"|value| {top:.4f}")
+    require(err <= SERVE_TOL * top, f"{tag} beyond {SERVE_TOL}")
+    return err
+
+
+def same_selections(tag: str, got: tuple, want: tuple, err: float) -> None:
+    """Two runs of one beam (captions, trace) make the same choice at every
+    step, unless the step's inputs were equal and want's least gap among
+    the k + 1 best candidates of the instance lies within what the two
+    runs' differences can move: 2 d + 8 err + 2 ulp, d the largest score
+    difference it was given, err the largest logit difference measured on
+    equal inputs (doubled for each run's own caches), ulp the candidates'
+    rounding. An instance whose choice was excused so is not checked
+    further; every other one must end on the same caption."""
+    (got_caps, got_tr), (want_caps, want_tr) = got, want
+    require(len(got_tr) == len(want_tr), f"{tag}: step counts differ")
+    excused = {}
+    for t, (g, w) in enumerate(zip(got_tr, want_tr)):
+        ulp = float(np.spacing(np.float32(max(g["top"], w["top"]))))
+        for i in range(len(w["gap"])):
+            if i in excused:
+                continue
+            require((g["seqs"][i] == w["seqs"][i]).all(),
+                    f"{tag}: instance {i} reached step {t} on other prefixes")
+            if ((g["src"][i] == w["src"][i]).all()
+                    and (g["tok"][i] == w["tok"][i]).all()):
+                continue
+            d = float(np.abs(g["scores"][i] - w["scores"][i]).max())
+            slack = 2 * d + 8 * err + 2 * ulp
+            print(f"[serving] {tag} instance {i}: choice differs at step "
+                  f"{t}, least gap {w['gap'][i]:.3e}, slack {slack:.3e}")
+            require(w["gap"][i] <= slack,
+                    f"{tag}: instance {i} chose otherwise at step {t}")
+            excused[i] = t
+    for i, (g, w) in enumerate(zip(got_caps, want_caps)):
+        require(i in excused or g == w, f"{tag}: caption {i} differs")
+    gaps = np.concatenate([w["gap"] for w in want_tr])
+    print(f"[serving] {tag}: {sum(g == w for g, w in zip(got_caps, want_caps))}"
+          f" of {len(want_caps)} captions equal; the same choice at every "
+          f"step of {len(want_caps) - len(excused)} instances; least gaps "
+          f"{np.sort(gaps)[:3]}, median {np.median(gaps):.3e}")
+
+
+def moment_logits(engine, prompt: str, name: str, duration: float,
+                  bounds: list) -> dict:
+    """The moment-retrieval and first segmentation iteration's logits of
+    one request's batches."""
+    from hirest_tpu_torch.data.annotations import build_examples
+    from hirest_tpu_torch.data.batching import collate
+
+    tr = engine.trainer
+    anns = {prompt: {name: {"relevant": True, "clip": True,
+                            "v_duration": duration, "bounds": bounds,
+                            "steps": []}}}
+    out = {}
+    for task in ("moment_retrieval", "moment_segmentation"):
+        batch = collate(build_examples(anns, task, -1, end_to_end=True),
+                        tr.store, tr.buckets)
+        arrs = tr._prepare(batch, task)
+        with torch.inference_mode():
+            if task == "moment_retrieval":
+                res = tr.model.moment_retrieval(
+                    arrs["vis_feats"], arrs["text_feat"],
+                    arrs["video_mask"], arrs["moment_mask"])
+                out[task] = torch.cat([res["start_logits"],
+                                       res["end_logits"]])
+            else:
+                out[task] = tr.model.moment_segmentation(
+                    arrs["vis_feats"], arrs["text_feat"], arrs["video_mask"],
+                    arrs["moment_mask"], None, arrs["video_mask"] * 0)
+    return out
+
+
+def compare_card_cpu(engine, cpu_engine) -> None:
+    """One analyze request a video and prompt (SERVE_PROMPTS[1:]) on the
+    card against the port's CPU f32 engine, each within SERVE_TOL of the
+    CPU value's largest magnitude: the moment-retrieval and first
+    segmentation logits; the served step-captioning batch's caption_encode
+    (the CPU's batch on both); and every decode_step of the CPU's served
+    beam, replayed on the card from the CPU's inputs (tokens, cross keys
+    and values, caches). Bounds equal; the two served beams' choices held
+    by same_selections. On the card the served (cached) beam is also held
+    against the full re-decode beam: the full decoder's logits at each
+    served step's prefixes within SERVE_TOL of the cached ones, and the
+    choices by same_selections."""
+    from hirest_tpu_torch.infer import beam
+
+    tr, cpu_tr = engine.trainer, cpu_engine.trainer
+    dec, cpu_dec = tr.model.decoder, cpu_tr.model.decoder
+    k, words = tr.config.num_beams, tr.config.max_words
+    require(tr.tokenizer is None, "captions are ids without a vocabulary")
+
+    def to_card(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(tr.device)
+        return tuple(to_card(y) for y in x)
+
+    def ids_text(row) -> str:  # the trainer's captions without a vocabulary
+        return " ".join(str(int(x)) for x in row if x != 0)
+
+    for prompt in SERVE_PROMPTS[1:]:
+        for vid, (_, duration) in VIDEOS.items():
+            name, tag = f"{vid}.mp4", f"{vid} {prompt!r}"
+            err = {"card": 0.0, "full": 0.0}
+            state = {}
+
+            def full_vs_cached(arrs, seqs, logits, t):
+                if "enc" not in state:
+                    state["enc"] = tr.model.caption_encode(
+                        arrs["vis_feats"], arrs["text_feat"],
+                        arrs.get("asr_feats")).repeat_interleave(k, dim=0)
+                b = seqs.shape[0]
+                full = dec(seqs.reshape(b * k, -1)[:, :words],
+                           state["enc"])[:, t]
+                e = (full - logits).abs().max().item()
+                err["full"] = max(err["full"], e)
+                state["top"] = max(state.get("top", 0.0),
+                                   logits.abs().max().item())
+
+            got, arrs, got_tr = served_captioning(engine, prompt, vid,
+                                                  full_vs_cached)
+            analysis_ok(got, duration)
+            cpu_step = cpu_dec.decode_step
+            tops = []
+
+            def replay(last, t, cross, cache):
+                card_in = (last.to(tr.device), t, to_card(cross),
+                           to_card(cache))
+                logits, cache = cpu_step(last, t, cross, cache)
+                with torch.inference_mode():
+                    on_card = dec.decode_step(*card_in)[0].cpu()
+                err["card"] = max(err["card"],
+                                  (on_card - logits).abs().max().item())
+                tops.append(logits.abs().max().item())
+                return logits, cache
+
+            cpu_dec.decode_step = replay
+            try:
+                want, cpu_arrs, want_tr = served_captioning(cpu_engine,
+                                                            prompt, vid)
+            finally:
+                del cpu_dec.decode_step
+            require(got["moment_bounds"] == want["moment_bounds"]
+                    and [s["bounds"] for s in got["steps"]]
+                    == [s["bounds"] for s in want["steps"]],
+                    f"{tag}: bounds differ card {got} CPU {want}")
+            card_logits = moment_logits(engine, prompt, name, duration,
+                                        want["moment_bounds"])
+            for task, logits in moment_logits(cpu_engine, prompt, name,
+                                              duration,
+                                              want["moment_bounds"]).items():
+                held(f"{tag} {task} logits card vs CPU f32",
+                     card_logits[task], logits)
+            print(f"[serving] {tag}: card and CPU agree on bounds "
+                  f"{got['moment_bounds']} and {len(got['steps'])} steps")
+            if arrs is None:
+                continue
+            with torch.inference_mode():
+                held(f"{tag} caption_encode card vs CPU f32",
+                     tr.model.caption_encode(
+                         *to_card((cpu_arrs["vis_feats"],
+                                   cpu_arrs["text_feat"]))),
+                     cpu_tr.model.caption_encode(cpu_arrs["vis_feats"],
+                                                 cpu_arrs["text_feat"]))
+            top = max(tops)
+            print(f"[serving] {tag} decode_step card vs CPU f32 on the CPU "
+                  f"beam's {len(tops)} steps: max err {err['card']:.3e}, "
+                  f"{err['card'] / top:.3e} of max |logit| {top:.4f}")
+            require(err["card"] <= SERVE_TOL * top,
+                    f"{tag}: decode_step beyond {SERVE_TOL}")
+            captions = [s["caption"] for s in got["steps"]]
+            same_selections(f"{tag} card vs CPU beam", (captions, got_tr),
+                            ([s["caption"] for s in want["steps"]],
+                             want_tr), err["card"])
+
+            print(f"[serving] {tag} full re-decode vs cached logits at the "
+                  f"served beam's prefixes: max err {err['full']:.3e}, "
+                  f"{err['full'] / state['top']:.3e} of max |logit| "
+                  f"{state['top']:.4f}")
+            require(err["full"] <= SERVE_TOL * state["top"],
+                    f"{tag}: cached decode beyond {SERVE_TOL}")
+            b, full_tr = len(got["steps"]), []
+            probe, select = traced_select(full_tr)
+            beam._select = probe
+            try:
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    full, _ = beam.beam_search(
+                        lambda ids, t: dec(ids[:, :words],
+                                           state["enc"])[:, t],
+                        b, k, words, tr.bos_id, tr.eos_id, device=tr.device)
+                    full = [ids_text(row) for row in full.cpu().numpy()]
+                    ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                beam._select = select
+            same_selections(f"{tag} cached vs full beam", (captions, got_tr),
+                            (full, full_tr), err["full"])
+            print(f"[serving] {tag}: full re-decode beam (traced) on {b} "
+                  f"captions x {k} beams x {words} words in {ms:.2f} ms")
+
+
+def http_requests(engine, direct: dict) -> None:
+    """Every request again through the HTTP server on 127.0.0.1, port 0:
+    /health, /v1/retrieve and /v1/analyze give what the engine gave."""
+    import threading
+    import urllib.request
+
+    from hirest_tpu_torch.serve import make_server
+
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        print(f"[serving] http /health: {health}")
+        require(health["indexed_videos"] == len(VIDEOS)
+                and "cuda" in health["devices"][0], "health")
+        for prompt in SERVE_PROMPTS:
+            got = post("/v1/retrieve", {"prompt": prompt, "top_k": 3})
+            require(got == json.loads(json.dumps(direct["retrieve", prompt])),
+                    f"http retrieve {prompt!r}")
+        for vid, (_, duration) in VIDEOS.items():
+            got = post("/v1/analyze", {"prompt": SERVE_PROMPTS[0],
+                                       "video": f"{vid}.mp4",
+                                       "video_duration": duration})
+            require(got == json.loads(json.dumps(direct["analyze", vid])),
+                    f"http analyze {vid}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    print(f"[serving] http: {len(SERVE_PROMPTS)} retrieve and "
+          f"{len(VIDEOS)} analyze requests through {url} gave the engine's "
+          f"answers")
+
+
+def phase_serving(main: dict, card: str) -> None:
+    """The serving path at full width over phase_main's int8 features."""
+    import tempfile
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        feat_dir = Path(tmp)
+        for vid, feats in main["features"].items():
+            np.save(feat_dir / f"{vid}.mp4.npy", feats)
+        t0 = time.perf_counter()
+        engine = serving_engine(feat_dir, "cuda")
+        torch.cuda.synchronize()
+        zero_counts()  # read at the end: no request launches a kernel
+        print(f"[serving] engine on {engine.health()['devices'][0]} built in "
+              f"{time.perf_counter() - t0:.1f} s; warmup {engine.warmup()}")
+        direct = {}
+        for prompt in SERVE_PROMPTS:
+            direct["retrieve", prompt] = engine.retrieve(prompt, top_k=3)
+            print(f"[serving] retrieve {prompt!r}: "
+                  f"{direct['retrieve', prompt]}")
+        for vid, (_, duration) in VIDEOS.items():
+            res = engine.analyze(SERVE_PROMPTS[0], f"{vid}.mp4", duration)
+            analysis_ok(res, duration)
+            direct["analyze", vid] = res
+            first = res["steps"][0] if res["steps"] else {"caption": ""}
+            print(f"[serving] analyze {vid} ({duration} s): moment "
+                  f"{res['moment_bounds']}, steps "
+                  f"{[st['bounds'] for st in res['steps']]}, first caption "
+                  f"{first['caption'][:60]!r}")
+        http_requests(engine, direct)
+        engine.config.fused_segmentation = True
+        for vid, (_, duration) in VIDEOS.items():
+            res = engine.analyze(SERVE_PROMPTS[0], f"{vid}.mp4", duration)
+            analysis_ok(res, duration)
+            print(f"[serving] fused_segmentation analyze {vid}: steps "
+                  f"{[st['bounds'] for st in res['steps']]}; host loop's "
+                  f"{[st['bounds'] for st in direct['analyze', vid]['steps']]}")
+        engine.config.fused_segmentation = False
+        t0 = time.perf_counter()
+        timed_requests(engine, card)
+        print(f"[serving] timed requests took "
+              f"{time.perf_counter() - t0:.1f} s")
+        for fused, mode in MODES.items():
+            analyze_split(engine, card, fused)
+            engine.config.fused_segmentation = fused
+            try:
+                profile_call(f"one analyze request (vid_a, {mode})",
+                             lambda: engine.analyze(
+                                 SERVE_PROMPTS[0], "vid_a.mp4",
+                                 VIDEOS["vid_a"][1]), card, "serving",
+                             tag="serving")
+            finally:
+                engine.config.fused_segmentation = False
+        t0 = time.perf_counter()
+        cpu_engine = serving_engine(feat_dir, "cpu")
+        print(f"[serving] CPU f32 engine built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        compare_card_cpu(engine, cpu_engine)
+        print(f"[serving] checks against the CPU and the full beam took "
+              f"{time.perf_counter() - t0:.1f} s")
+        counts = read_counts()
+        print(f"[serving] kernel launches during every request and check "
+              f"above: {counts}")
+        require(counts == expect(), "the serving path launched a kernel")
+    print(f"[serving] phase done in {time.perf_counter() - start:.1f} s")
 
 
 SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
@@ -1988,6 +2537,7 @@ def main() -> int:
     phase_ladder_depth(cfg, frames)
     timing = phase_timing(cfg, main_res, factory, ladder, card)
     phase_profile(cfg, main_res, factory, ladder, card)
+    phase_serving(main_res, card)
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}
 

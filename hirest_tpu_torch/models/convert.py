@@ -1,16 +1,21 @@
-"""Checkpoint loading and JAX-tree conversion for the EVA towers.
+"""Checkpoint loading and JAX-tree conversion for the EVA towers and the
+joint model.
 
-The port's modules use the EVA reference's state-dict names, so a torch
+The port's modules use the reference's state-dict names, so a torch
 checkpoint needs no renaming: `eva_vision_state_dict` and
-`eva_text_state_dict` only strip the `visual.` or `text.` prefix.
-`eva_vision_from_jax` and `eva_text_from_jax` invert the JAX package's
-`convert_eva_vision` and `convert_eva_text`
-(hirest_tpu/models/convert.py:63-117), turning its `EvaVisionTower` and
-`EvaTextTower` parameter trees back into state dicts.
+`eva_text_state_dict` only strip the `visual.` or `text.` prefix, and
+`load_moment_state_dict` applies only the reference's own key surgery
+(`normalize_joint_keys`) and the position-table enlargement that the JAX
+converters apply (hirest_tpu/models/convert.py:125-258).
+`eva_vision_from_jax`, `eva_text_from_jax` and `moment_model_from_jax`
+invert the JAX package's `convert_eva_vision`, `convert_eva_text` and
+`convert_moment_model`, turning its flax parameter trees back into state
+dicts: that is how weights are carried from one package to the other.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -27,12 +32,21 @@ def load_torch_ckpt(path: str) -> dict:
     return {k: torch.as_tensor(v).detach().float() for k, v in sd.items()}
 
 
+def _f32(v) -> torch.Tensor:
+    return (v.float() if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.asarray(v, dtype=np.float32)))
+
+
+def _sub_state_dict(sd: Mapping, prefix: str) -> dict:
+    """The keys of `sd` under `prefix`, without it, as f32 tensors."""
+    return {k[len(prefix):]: _f32(v) for k, v in sd.items()
+            if k.startswith(prefix)}
+
+
 def _tower_state_dict(sd: Mapping, prefix: str) -> dict:
     if any(k.startswith(prefix) for k in sd):
-        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-    return {k: v.float() if isinstance(v, torch.Tensor) else
-            torch.from_numpy(np.asarray(v, dtype=np.float32))
-            for k, v in sd.items()}
+        return _sub_state_dict(sd, prefix)
+    return _sub_state_dict(sd, "")
 
 
 def eva_vision_state_dict(sd: Mapping) -> dict:
@@ -138,4 +152,144 @@ def eva_text_from_jax(params: Mapping) -> dict:
         sd.update(_linear(f"{r}.attn.out_proj", blk["attn"]["out"]))
         sd.update(_linear(f"{r}.mlp.c_fc", blk["mlp_c_fc"]))
         sd.update(_linear(f"{r}.mlp.c_proj", blk["mlp_c_proj"]))
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The joint model (MomentModel) and its CLIP4Caption encoder and decoder
+# ---------------------------------------------------------------------------
+
+
+def normalize_joint_keys(sd: Mapping) -> dict:
+    """The reference's checkpoint-loading key surgery (trainer_base.py:
+    69-85,128-147): strip DDP's 'module.' and remap the legacy
+    'vis_encoder.' to 'encoder.'."""
+    out = {}
+    for k, v in sd.items():
+        k = re.sub(r"^module\.", "", k)
+        k = re.sub(r"^(model\.)?vis_encoder\.", r"\1encoder.", k)
+        out[k] = v
+    return out
+
+
+def _enlarge_positions(sd: dict, rows: int) -> dict:
+    """Copy the visual encoder's position table into `rows` rows, the tail
+    zero: HiREST enlarges the pretrained 512-row table to 2048
+    (modeling.py:110), as the JAX `convert_visual_encoder` does."""
+    key = "embeddings.position_embeddings.weight"
+    src = sd[key]
+    pos = src.new_zeros(rows, src.shape[1])
+    n = min(src.shape[0], rows)
+    pos[:n] = src[:n]
+    return {**sd, key: pos}
+
+
+def load_moment_state_dict(model: nn.Module, sd: Mapping) -> nn.Module:
+    """Load a trained reference-format joint checkpoint (`BEST.pth`, with
+    or without DDP's `module.` and the legacy `vis_encoder.` names; the
+    frozen `clip_model.*` keys, if any, are ignored) into a MomentModel."""
+    sd = _sub_state_dict(normalize_joint_keys(sd), "")
+    visual = _enlarge_positions(
+        _sub_state_dict(sd, "clip4cap_model.visual."),
+        model.config.visual.max_position_embeddings)
+    sd.update({f"clip4cap_model.visual.{k}": v for k, v in visual.items()})
+    return load_into(model, sd, "joint")
+
+
+def init_from_clip4caption(model: nn.Module, clip4cap_sd: Mapping
+                           ) -> nn.Module:
+    """Overwrite a MomentModel's encoder and decoder with the pretrained
+    CLIP4Caption weights (`clip4caption_vit-b-32_model.bin`: `visual.*`
+    and `decoder.*`), the reference's from_pretrained initializer
+    (modeling.py:102-110)."""
+    visual = _enlarge_positions(_sub_state_dict(clip4cap_sd, "visual."),
+                                model.config.visual.max_position_embeddings)
+    load_into(model.encoder, visual, "clip4caption visual")
+    load_into(model.decoder, _sub_state_dict(clip4cap_sd, "decoder."),
+              "clip4caption decoder")
+    return model
+
+
+def _embed(prefix: str, tree) -> dict:
+    return {f"{prefix}.weight": _t(tree["embedding"])}
+
+
+def _bert_output(prefix: str, tree) -> dict:
+    return {**_linear(f"{prefix}.dense", tree["dense"]),
+            **_norm(f"{prefix}.LayerNorm", tree["LayerNorm"])}
+
+
+def _bert_ffn(prefix: str, ffn) -> dict:
+    return {**_linear(f"{prefix}.intermediate.dense", ffn["intermediate"]),
+            **_linear(f"{prefix}.output.dense", ffn["output"]),
+            **_norm(f"{prefix}.output.LayerNorm", ffn["LayerNorm"])}
+
+
+def _qkv(prefix: str, tree) -> dict:
+    return {k: v for name in ("query", "key", "value")
+            for k, v in _linear(f"{prefix}.{name}", tree[name]).items()}
+
+
+def _layers(p: Mapping) -> int:
+    return sum(1 for k in p if k.startswith("layer_"))
+
+
+def visual_encoder_from_jax(p: Mapping) -> dict:
+    """JAX `VisualEncoder` parameters -> the port's VisualEncoder keys."""
+    sd = {**_linear("embeddings.word_embeddings", p["word_embeddings"]),
+          "embeddings.position_embeddings.weight":
+              _t(p["position_embeddings"]),
+          **_norm("embeddings.LayerNorm", p["emb_LayerNorm"])}
+    for i in range(_layers(p)):
+        blk, r = p[f"layer_{i}"], f"encoder.layer.{i}"
+        sd.update(_qkv(f"{r}.attention.self", blk["attention"]))
+        sd.update(_bert_output(f"{r}.attention.output",
+                               blk["attention_output"]))
+        sd.update(_bert_ffn(r, blk["ffn"]))
+    return sd
+
+
+def caption_decoder_from_jax(p: Mapping) -> dict:
+    """JAX `CaptionDecoder` parameters -> the port's CaptionDecoder keys."""
+    head = "classifier.cls.predictions"
+    sd = {"embeddings.word_embeddings.weight": _t(p["word_embeddings"]),
+          "embeddings.position_embeddings.weight":
+              _t(p["position_embeddings"]),
+          **_norm("embeddings.LayerNorm", p["emb_LayerNorm"]),
+          **_linear(f"{head}.transform.dense", p["cls_transform"]),
+          **_norm(f"{head}.transform.LayerNorm", p["cls_LayerNorm"]),
+          f"{head}.bias": _t(p["cls_bias"])}
+    for i in range(_layers(p)):
+        blk, r = p[f"layer_{i}"], f"decoder.layer.{i}"
+        for attn in ("slf", "enc"):
+            sd.update(_qkv(f"{r}.{attn}_attn.att", blk[f"{attn}_attn"]))
+            sd.update(_bert_output(f"{r}.{attn}_attn.output",
+                                   blk[f"{attn}_output"]))
+        sd.update(_bert_ffn(r, blk["ffn"]))
+    return sd
+
+
+def moment_model_from_jax(params: Mapping) -> dict:
+    """JAX `MomentModel` parameters ({"params": {...}} or bare, numpy
+    leaves) -> the port's (and the reference's) joint state dict: the
+    inverse of `convert_moment_model`."""
+    p = params["params"] if "params" in params else params
+    sd = {**_linear("temporal_embed.0", p["temporal_fc1"]),
+          **_linear("temporal_embed.2", p["temporal_fc2"]),
+          **_embed("mask_embed", p["mask_embed"]),
+          **_embed("boundary_embed", p["boundary_embed"]),
+          **_linear("clip_g_map", p["clip_g_map"]),
+          **_linear("clip_g_map_text", p["clip_g_map_text"]),
+          **_norm("clip4cap_model.normalize_video.visual_norm2d",
+                  p["normalize_video"]),
+          **_linear("start_predictor.0", p["start_predictor"]),
+          **_linear("end_predictor.0", p["end_predictor"]),
+          **_linear("segment_predictor.0", p["segment_predictor"])}
+    if "asr_norm" in p:
+        sd.update(_norm("asr_enc_layer.0", p["asr_norm"]))
+        sd.update(_linear("asr_enc_layer.1", p["asr_proj"]))
+    for prefix, part in (("visual", visual_encoder_from_jax(p["encoder"])),
+                         ("decoder", caption_decoder_from_jax(p["decoder"]))):
+        sd.update({f"clip4cap_model.{prefix}.{k}": v
+                   for k, v in part.items()})
     return sd

@@ -386,6 +386,21 @@ def preprocess_image_u8(img, image_size: int = 224) -> np.ndarray:
     return np.asarray(_resize_center_crop(img, image_size), dtype=np.uint8)
 
 
+def eva_text_encoder(sd: Mapping, text_cfg: EvaTextConfig,
+                     dtype: torch.dtype, device: torch.device):
+    """Stage the text tower of `sd` (`text.`-prefixed or bare keys) on
+    `device` in `dtype`; returns `encode_text(ids [B, <=77]) -> [B, 1024]`
+    f32 on the device."""
+    tower = staged(EvaTextTower, text_cfg, eva_text_state_dict(sd),
+                   "EVA text", device, dtype)
+
+    @torch.inference_mode()
+    def encode_text(ids) -> torch.Tensor:
+        return tower(torch.as_tensor(ids).to(device))
+
+    return encode_text
+
+
 def build_eva_model_and_transforms(
         model_name: str = "EVA_CLIP_g_14",
         pretrained: Union[str, Mapping, None] = None,
@@ -435,8 +450,6 @@ def build_eva_model_and_transforms(
     vision_sd = eva_vision_state_dict(sd)
     if padded_heads:
         vision_sd, vision_cfg = pad_vision_head_params(vision_sd, vision_cfg)
-    text_tower = staged(EvaTextTower, text_cfg, eva_text_state_dict(sd),
-                        "EVA text", device, dtype)
     if scan:
         encode_image = build_scanned_vision_apply(
             vision_sd, vision_cfg, dtype=dtype, int8=int8, attn_v3=True,
@@ -445,10 +458,7 @@ def build_eva_model_and_transforms(
         encode_image = build_unrolled_vision_apply(
             vision_sd, vision_cfg, dtype=dtype, device=device)
 
-    @torch.inference_mode()
-    def encode_text(ids) -> torch.Tensor:
-        return text_tower(torch.as_tensor(ids).to(device))
-
-    model = SimpleNamespace(encode_text=encode_text, encode_image=encode_image,
-                            vision_config=vision_cfg)
+    model = SimpleNamespace(
+        encode_text=eva_text_encoder(sd, text_cfg, dtype, device),
+        encode_image=encode_image, vision_config=vision_cfg)
     return model, preprocess_image

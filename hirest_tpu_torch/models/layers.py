@@ -1,10 +1,14 @@
-"""Shared building blocks of the EVA towers.
+"""Shared building blocks of the EVA towers and the caption stack.
 
-Counterparts of hirest_tpu/models/layers.py: `gelu`, `gelu_bf16_poly`,
+Counterparts of hirest_tpu/models/layers.py: `gelu` (the EVA towers'
+torch GELU) and `gelu_erfc` (its jax.nn.gelu form), `gelu_bf16_poly`,
 `causal_mask`, `dot_product_attention`, `split_heads`, `merge_heads` and
 `MultiHeadAttention` (its `fused` and `fused_qv_bias` modes, the EVA text
-and vision attentions), and `layer_norm_fast_var`, the arithmetic of the
-flax `nn.LayerNorm` that the JAX package's unrolled towers use.
+and vision attentions, and its `separate` mode without an output
+projection, the BERT attention of the caption stack); `layer_norm_fast_var`,
+the arithmetic of the flax `nn.LayerNorm` that the JAX package's unrolled
+towers and joint model use; and `dense`, that of a flax `nn.Dense` whose
+parameters stay f32 while it computes in another dtype.
 """
 
 from __future__ import annotations
@@ -19,6 +23,14 @@ from torch import nn
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, as torch's default nn.GELU in the EVA towers."""
     return F.gelu(x, approximate="none")
+
+
+def gelu_erfc(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=False), the JAX caption stack's GELU, op for
+    op: 0.5 * x * erfc(-x * sqrt(1/2)), the constant and every intermediate
+    in x's dtype (in bf16 each product is rounded, as JAX rounds each op)."""
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=x.dtype, device=x.device)
+    return 0.5 * x * torch.erfc(-x * sqrt_half)
 
 
 # Minimax fit of erf(u)/u as an even polynomial in u^2 on u in [0, 2.9]
@@ -57,6 +69,14 @@ def layer_norm_fast_var(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return ((x32 - mean) * mul + norm.bias.float()).to(x.dtype)
 
 
+def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """flax `nn.Dense(dtype=x.dtype)` on f32 parameters: weight and bias
+    cast to x's dtype, the product rounded to it, then the bias added in
+    it (F.linear with a bias would round once, another number in bf16)."""
+    y = F.linear(x, lin.weight.to(x.dtype))
+    return y + lin.bias.to(x.dtype)
+
+
 def causal_mask(length: int, device=None) -> torch.Tensor:
     """[1, 1, T, T] f32 additive causal bias: -inf above the diagonal."""
     tri = torch.full((length, length), float("-inf"), device=device).triu(1)
@@ -90,21 +110,27 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """Fused-qkv self-attention in two modes, with the reference's
-    parameter names:
+    """Self-attention in three modes, with the reference's parameter
+    names:
 
     - "fused" (the text tower, torch's nn.MultiheadAttention packing):
       `in_proj_weight` [3*inner, dim], `in_proj_bias` [3*inner],
       `out_proj`;
     - "fused_qv_bias" (the vision tower, EVA_clip/vit_model.py:66-150):
       `qkv` without bias, `q_bias` and `v_bias` added after the split in
-      the working dtype, `proj`.
+      the working dtype, `proj`;
+    - "separate" (the BERT self-attention of the caption stack,
+      clip4caption/modules/module_visual.py): `query`, `key`, `value`,
+      each biased, no output projection (the JAX module's
+      `use_out_proj=False`; BertSelfOutput projects), computed as `dense`
+      in the dtype of x on f32 parameters.
 
-    Attention without a bias takes the kernels as the JAX module's
-    use_pallas path does: head width a multiple of 128 -> packed heads
-    (K7), else split heads (K6). With a bias (the text tower's causal mask)
-    it is the plain `dot_product_attention`, which the JAX package never
-    sends to a kernel."""
+    Attention without a bias in the two fused modes takes the kernels as
+    the JAX module's use_pallas path does: head width a multiple of 128 ->
+    packed heads (K7), else split heads (K6). With a bias (the text
+    tower's causal mask), and always in the separate mode (the JAX caption
+    stack leaves use_pallas off), it is the plain
+    `dot_product_attention`."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  mode: str = "fused"):
@@ -121,11 +147,22 @@ class MultiHeadAttention(nn.Module):
             self.q_bias = nn.Parameter(torch.zeros(inner))
             self.v_bias = nn.Parameter(torch.zeros(inner))
             self.proj = nn.Linear(inner, dim)
+        elif mode == "separate":
+            self.query = nn.Linear(dim, inner)
+            self.key = nn.Linear(dim, inner)
+            self.value = nn.Linear(dim, inner)
         else:
             raise ValueError(mode)
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.num_heads
+        if self.mode == "separate":
+            q, k, v = (dense(x, self.query), dense(x, self.key),
+                       dense(x, self.value))
+            return merge_heads(dot_product_attention(
+                split_heads(q, h), split_heads(k, h), split_heads(v, h),
+                bias, self.scale))
         # imported here: ops.attention and ops.quant import this module
         from hirest_tpu_torch.ops.attention import (fused_attention,
                                                     fused_attention_packed)
@@ -139,7 +176,6 @@ class MultiHeadAttention(nn.Module):
             q, k, v = self.qkv(x).chunk(3, -1)
             q, v = q + self.q_bias, v + self.v_bias
             out_proj = self.proj
-        h = self.num_heads
         if bias is None and self.head_dim % 128 == 0:
             out = fused_attention_packed(q, k, v, self.scale, h)
         elif bias is None:

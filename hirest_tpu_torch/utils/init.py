@@ -5,14 +5,17 @@ scale of the JAX package's `shape_only_init` (0.02); LayerNorm weights sit
 near 1. The tower-wide tensors are drawn first and the blocks after them in
 order, so a config with fewer layers gets the same weights as the first
 blocks of a deeper one (a depth-cut run checks the full model's weights).
-Key names are the EVA reference's, without the `visual.` or `text.` prefix.
+Key names are the EVA reference's, without the `visual.` or `text.` prefix,
+and the joint checkpoint's for `random_moment_state_dict`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
+from hirest_tpu_torch.config import (EvaTextConfig, EvaVisionConfig,
+                                     JointModelConfig)
 
 SCALE = 0.02
 
@@ -105,3 +108,16 @@ def random_eva_text_state_dict(cfg: EvaTextConfig = EvaTextConfig(),
     """Reference-named EVA text state dict of float32 numpy arrays."""
     return _draw(eva_text_shapes(cfg), seed,
                  ("ln_1.weight", "ln_2.weight", "ln_final.weight"))
+
+
+def random_moment_state_dict(cfg: JointModelConfig = JointModelConfig(),
+                             seed: int = 0) -> dict:
+    """Reference-named joint (MomentModel) state dict of float32 numpy
+    arrays, drawn in the module's own key order; LayerNorm weights near 1."""
+    from hirest_tpu_torch.models.joint import MomentModel
+
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape)
+                  for k, v in MomentModel(cfg).state_dict().items()}
+    return _draw(shapes, seed, ("LayerNorm.weight", "visual_norm2d.weight",
+                                "asr_enc_layer.0.weight"))

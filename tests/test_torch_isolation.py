@@ -1,9 +1,10 @@
 """The port stands alone: every hirest_tpu_torch module imports and tiny
 forwards (the scanned tower in each kernel flag configuration, unrolled,
-text) run with jax and flax blocked,
-without loading any hirest_tpu module; its entry points refuse to fall back
-to the CPU on their own; and chip_smoke.py refuses to report success where
-there is no GPU."""
+text, and one `analyze` request through the serving engine) run with jax
+and flax blocked, without loading any hirest_tpu module; its entry points
+(the encoder, the factory, the serving engine and its server) refuse to
+fall back to the CPU on their own; and chip_smoke.py refuses to report
+success where there is no GPU."""
 
 import json
 import os
@@ -14,8 +15,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from hirest_tpu_torch.config import HirestConfig
 from hirest_tpu_torch.extraction.features import make_eva_encoder
 from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
+from hirest_tpu_torch.serve import ServingEngine
+from hirest_tpu_torch.train.trainer import Trainer
 from hirest_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,6 +36,8 @@ for n in names:
     importlib.import_module(n)
 from hirest_tpu_torch.config import EvaTextConfig, EvaVisionConfig
 from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
+from hirest_tpu_torch.serve import ServingEngine
+from hirest_tpu_torch.train.trainer import Trainer
 from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
 from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
 cfg = EvaVisionConfig(image_size=28, layers=2, width=128, head_width=32,
@@ -52,11 +58,36 @@ model, _ = build_eva_model_and_transforms(text_config=tcfg,
                                           device="cpu")
 outs += [model.encode_image(np.zeros((2, 28, 28, 3))),
          model.encode_text(np.array([[3, 49, 0, 0, 0, 0, 0, 0]] * 2))]
+import pathlib, shutil, tempfile
+from hirest_tpu_torch.config import (DecoderConfig, HirestConfig,
+                                     JointModelConfig, VisualEncoderConfig)
+from hirest_tpu_torch.serve import ServingEngine
+from hirest_tpu_torch.train.trainer import Trainer
+tmp = pathlib.Path(tempfile.mkdtemp())
+np.save(tmp / "v.mp4.npy",
+        np.random.default_rng(0).normal(size=(30, 1024)).astype(np.float32))
+joint = JointModelConfig(
+    embed_dim=32,
+    visual=VisualEncoderConfig(hidden_size=32, num_hidden_layers=1,
+                               num_attention_heads=4, intermediate_size=64),
+    decoder=DecoderConfig(vocab_size=40, hidden_size=32, num_decoder_layers=1,
+                          num_attention_heads=4, intermediate_size=64,
+                          max_target_embeddings=32))
+run = HirestConfig(video_feature_dir=str(tmp), device="cpu", num_beams=2,
+                   max_words=4, moment_segmentation_max_iterations=2,
+                   frame_buckets=(64,), pretrained_dir=str(tmp / "none"))
+trainer = Trainer(run, text_encoder_fn=lambda ids: np.ones((len(ids), 1024),
+                                                           np.float32),
+                  verbose=False, model_config=joint)
+analysis = ServingEngine(run, trainer=trainer).analyze("make pancakes",
+                                                       "v.mp4")
+shutil.rmtree(tmp)
 loaded = [m for m in sys.modules
           if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
 print(json.dumps({"modules": names,
                   "shapes": [list(o.shape) for o in outs],
                   "finite": all(bool(o.isfinite().all()) for o in outs),
+                  "analysis": sorted(analysis),
                   "loaded": loaded}))
 """
 
@@ -81,8 +112,28 @@ def test_port_imports_and_runs_without_jax():
                 "hirest_tpu_torch.models.eva_pad",
                 "hirest_tpu_torch.models.eva_scan",
                 "hirest_tpu_torch.extraction.features",
-                "hirest_tpu_torch.data.prefetch"):
+                "hirest_tpu_torch.data.prefetch",
+                "hirest_tpu_torch.config", "hirest_tpu_torch.timeline",
+                "hirest_tpu_torch.native", "hirest_tpu_torch.data.srt",
+                "hirest_tpu_torch.data.features",
+                "hirest_tpu_torch.data.annotations",
+                "hirest_tpu_torch.data.batching",
+                "hirest_tpu_torch.tokenizers.bpe",
+                "hirest_tpu_torch.tokenizers.wordpiece",
+                "hirest_tpu_torch.models.layers",
+                "hirest_tpu_torch.models.caption",
+                "hirest_tpu_torch.models.joint",
+                "hirest_tpu_torch.models.convert",
+                "hirest_tpu_torch.infer.segmentation",
+                "hirest_tpu_torch.infer.beam",
+                "hirest_tpu_torch.infer.retrieval",
+                "hirest_tpu_torch.extraction.frames",
+                "hirest_tpu_torch.train.trainer",
+                "hirest_tpu_torch.serve.engine",
+                "hirest_tpu_torch.serve.server",
+                "hirest_tpu_torch.serve.__main__"):
         assert mod in got["modules"]
+    assert got["analysis"] == ["moment_bounds", "prompt", "steps", "video"]
 
 
 def test_resolve_device_without_cuda(monkeypatch):
@@ -108,6 +159,30 @@ def test_factory_refuses_cpu_fallback(monkeypatch, scan):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_eva_model_and_transforms(scan=scan)
+
+
+def test_engine_refuses_cpu_fallback(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(HirestConfig(video_feature_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(HirestConfig(video_feature_dir=str(tmp_path)))
+
+
+def test_serve_cli_refuses_cpu_fallback(tmp_path):
+    """`python -m hirest_tpu_torch.serve` with no GPU visible raises unless
+    it is given --device cpu; --load takes only a .pth."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "hirest_tpu_torch.serve",
+           "--video_feature_dir", str(tmp_path), "--no_warmup"]
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    r = subprocess.run(cmd + ["--device", "cpu", "--load", "ckpt.msgpack"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 2 and ".pth" in r.stderr
 
 
 def test_chip_smoke_fails_without_gpu():
