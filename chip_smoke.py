@@ -75,7 +75,11 @@ Phases; any failure exits non-zero before the result line is printed:
             padded unrolled (40 K7), padded scanned (40 K1 at head width
             128) and padded scanned int8 (80 K2, 40 K3 at 128, 40 K4), each
             with the counts zeroed before and read after, and no other
-            kernel launched.
+            kernel launched; then the unrolled int8 tower
+            (models/eva_quant.py::build_int8_vision_apply, every dense
+            layer int8, with and without quant_attention) on the same
+            weights and frames: 40 K6 a forward and nothing else, cosine
+            >= 0.98 to the float unrolled tower at full depth.
 5. ladder   the kernel flag configurations of build_scanned_vision_apply
             (bench.py's ladder without its TPU layout flags) at full width
             on one staged bf16 and one staged int8 tower: bf16 (v1, K8),
@@ -88,11 +92,15 @@ Phases; any failure exits non-zero before the result line is printed:
             plain path on the CPU in f32: bf16 vs float at cosine >= 0.99;
             int8 vs int8 at >= 0.99 and int8 vs float at >= 0.98; the text
             tower, the unrolled tower, and the padded unrolled and padded
-            scanned towers against the unpadded CPU paths at >= 0.99.
+            scanned towers against the unpadded CPU paths at >= 0.99; the
+            unrolled int8 tower (both quant_attention) against its own CPU
+            f32 path at >= 0.99 and the float unrolled one at >= 0.98.
 7. timing   frames/s at B=128 for every encoder, factory and ladder
             forward, text prompts/s, and each kernel's ms per call beside
             its plain version, one library call computing the same function
-            (or its int8 products, for K4), and the card's bound.
+            (or its int8 products, for K4), and the card's bound; the
+            unrolled int8 tower's frames/s and one profiled forward of
+            each.
 8. profile  where one forward's device time goes, by group of kernels, and
             the device's idle share, for each precision, the unrolled
             towers and the ladder's bf16, int8 and int8+fq (K8) and
@@ -126,6 +134,26 @@ Phases; any failure exits non-zero before the result line is printed:
             captions. The served (cached) beam against the full re-decode
             beam on the card: the full decoder's logits at the served
             prefixes within 1e-5, and the same choices and captions.
+10. training the training path at JointModelConfig()'s width (768 hidden,
+            2 + 2 layers, vocabulary 30522, 48 words, train_batch_size 32)
+            on a synthetic split written to a temp dir (the reference JSON
+            schema, all three tasks, train/val/test, seeded random
+            features, a made-up 30522-entry vocab.txt): (a) one step a task
+            in f32, dropout and TF32 off, on the card against the port's
+            CPU trainer on the same batch: the loss within 1e-5 relative,
+            every gradient within 1e-5 of its tensor's largest magnitude
+            (those zero in exact arithmetic, the key biases and what the
+            segmentation softmax ignores, at noise: <= 1e-6 of the largest
+            gradient), and the optimizer fed the CPU's gradients giving
+            the CPU's parameters within 1e-6; (b) `python -m
+            hirest_tpu_torch.run --train`'s function for 2 epochs with
+            dropout live: finite losses, BEST.pt and LAST.pt, well-formed
+            test JSONs; (c) a fresh trainer loaded from a mid-run LAST:
+            step, epoch, model and optimizer state bit for bit, the next
+            step (dropout off) within 1e-6 of the unbroken run's; (d) 30
+            steps on one fixed batch lower each task's loss; (e) no port
+            kernel launched; (f) steps/s a task, one step's device time
+            and idle share, peak memory.
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1114,6 +1142,99 @@ def phase_factory_depth(cfg, text_cfg, weights: dict, frames) -> None:
     require(bool(cos.min() >= COS_MIN), f"2-layer text tower below {COS_MIN}")
 
 
+# the unrolled int8 tower (models/eva_quant.py): quant_attention -> tag
+INT8_TOWER = {True: "unrolled int8", False: "unrolled int8, bf16 qkv/out"}
+
+
+def phase_int8_tower(cfg, weights: dict, factory: dict) -> dict:
+    """build_int8_vision_apply at full width for each quant_attention, on
+    the factory's seeded weights: FACTORY_FORWARDS forwards of B=128 each
+    with the launch counts zeroed before and read after (40 K6 a forward,
+    nothing else), the outputs finite and at cosine >= 0.98 to the float
+    unrolled tower at full depth. Returns the forwards and the K6 count."""
+    from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
+
+    frames = factory["frames"]
+    want = factory["models"]["unrolled"].encode_image(frames).cpu().numpy()
+    fns, launches = {}, 0
+    for qa, tag in INT8_TOWER.items():
+        t0 = time.perf_counter()
+        fns[qa] = build_int8_vision_apply(weights, cfg, quant_attention=qa,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        print(f"[int8 tower] {tag}: quantized and staged in "
+              f"{time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        for _ in range(FACTORY_FORWARDS):
+            out = fns[qa](frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n = cfg.layers * FACTORY_FORWARDS
+        print(f"[int8 tower] {tag}: {FACTORY_FORWARDS} forwards of {BATCH} "
+              f"frames; launches {counts}")
+        require(counts == expect(K6=n), f"{tag} launches {counts}, "
+                                        f"expected {n} K6 and nothing else")
+        require(tuple(out.shape) == (BATCH, cfg.embed_dim)
+                and bool(out.isfinite().all()), f"{tag}: output "
+                                                f"{tuple(out.shape)}")
+        launches += counts["K6"]
+        cos = cosine(out.cpu().numpy(), want).min()
+        print(f"[int8 tower] {tag} vs the float unrolled tower at full "
+              f"depth: min cosine {cos:.6f} (>= {COS_INT8_VS_FLOAT})")
+        require(cos >= COS_INT8_VS_FLOAT, f"{tag} off the float tower")
+    return {"fns": fns, "frames": frames, "launches": launches}
+
+
+def phase_int8_tower_depth(cfg, weights: dict, frames) -> None:
+    """The unrolled int8 tower cut to 2 layers, on the card in bf16 against
+    the same function on the CPU in f32 (cosine >= 0.99) and against the
+    float unrolled tower on the CPU in f32 (>= 0.98), for each
+    quant_attention."""
+    from dataclasses import replace
+
+    from hirest_tpu_torch.models.eva_clip import build_unrolled_vision_apply
+    from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
+
+    cut = replace(cfg, layers=2)
+    cpu_float = build_unrolled_vision_apply(weights, cut, dtype=torch.float32,
+                                            device="cpu")(frames).numpy()
+    for qa, tag in INT8_TOWER.items():
+        ref = build_int8_vision_apply(weights, cut, quant_attention=qa,
+                                      dtype=torch.float32,
+                                      device="cpu")(frames).numpy()
+        got = build_int8_vision_apply(weights, cut, quant_attention=qa,
+                                      device="cuda")(frames).cpu().numpy()
+        for what, want, bar in (
+                ("card vs the same f32 CPU plain", ref, COS_MIN),
+                ("card vs the float unrolled f32 CPU plain", cpu_float,
+                 COS_INT8_VS_FLOAT)):
+            cos = cosine(got, want).min()
+            print(f"[depth] 2 layers, {tag}, {what}: cosine min={cos:.6f} "
+                  f"(>= {bar})")
+            require(got.shape == (len(frames), cfg.embed_dim)
+                    and bool(cos >= bar), f"2-layer {tag} {what} below "
+                                          f"{bar}")
+
+
+def time_int8_tower(tower: dict, card: str) -> None:
+    """Frames/s of each unrolled int8 forward at B=128, as time_factory,
+    then one profiled forward's groups and idle share."""
+    for qa, tag in INT8_TOWER.items():
+        fn = tower["fns"][qa]
+        fn(tower["frames"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iters = 5
+        for _ in range(iters):
+            fn(tower["frames"])
+        torch.cuda.synchronize()
+        fps = BATCH * iters / (time.perf_counter() - t0)
+        print(f"[timing] {card}: {tag} B={BATCH}: {fps:.2f} frames/s")
+    for qa, tag in INT8_TOWER.items():
+        profile_forward(tag, tower["fns"][qa], tower["frames"], card,
+                        "unrolled int8")
+
+
 def time_encoders(main: dict, card: str) -> dict:
     out = {}
     for tag, encoders in main["encoders"].items():
@@ -1439,6 +1560,23 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("gathers, index copies, cat", ("index", "gather", "scatter",
                                         "Cat", "copy")),
         ("elementwise", ("elementwise",)),
+    ),
+    "unrolled int8": (
+        ("K6 attention_split (CUDA)", ("attention_split",)),
+        ("GEMMs (int8 torch._int_mm; bf16 cuBLAS qkv/out without "
+         "quant_attention)", ("nvjet", "gemm", "cutlass", "xmma", "imma")),
+        ("exact GELU", ("gelu", "Gelu")),
+        ("elementwise and reductions (row quantization, dequant epilogues, "
+         "LayerNorm, q/v bias, residual, casts)", ("elementwise", "reduce")),
+    ),
+    "training": (
+        ("matmuls (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma",
+                                   "gemv")),
+        ("softmax and log_softmax, forward and backward", ("softmax",)),
+        ("reductions (LayerNorm statistics, losses, norms)", ("reduce",)),
+        ("gathers, scatters, index copies (embeddings)",
+         ("index", "gather", "scatter", "Cat", "copy", "embedding")),
+        ("elementwise (GELU, dropout, optimizer update)", ("elementwise",)),
     ),
     "unrolled": (
         ("K6/K7 attention_split (CUDA)", ("attention_split",)),
@@ -2064,6 +2202,371 @@ def phase_serving(main: dict, card: str) -> None:
     print(f"[serving] phase done in {time.perf_counter() - start:.1f} s")
 
 
+# the training phase: the synthetic split, the checks' bars
+TRAIN_PROMPTS = ("make oatmeal pancake mix", "fold a fitted sheet",
+                 "replace a bike inner tube", "brew pour over coffee")
+TRAIN_VIDEOS = {"train": 8, "val": 2, "test": 2}  # videos a prompt: B=32
+TRAIN_TASKS = ("moment_retrieval", "moment_segmentation", "step_captioning")
+TRAIN_EPOCHS = 2
+LOSS_TOL = 1e-5  # card vs CPU: the loss, relative; each gradient
+OPT_TOL = 1e-6  # the optimizer on the CPU's gradients; resume
+FALL_STEPS = 30  # steps on one fixed batch a task
+RATE_STEPS = 60  # timed steps a task, a window of a few seconds
+RATE_WINDOWS = 3  # its parts, each timed too: the spread within a run
+VOCAB_SIZE = 30522
+
+
+def write_training_split(root: Path) -> dict:
+    """A synthetic HiREST split in the reference JSON schema (prompt ->
+    video -> relevant, clip, v_duration, bounds, steps with index, heading
+    and absolute_bounds) for train, val and test, seeded random
+    [round(v_duration), 1024] features, and a made-up 30522-entry WordPiece
+    vocabulary ([PAD], [UNK], [CLS], [SEP], [MASK], then words) whose words
+    make the step headings. Returns the run's directories."""
+    dirs = {k: root / k for k in ("splits", "feats", "pretrained", "ckpt")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    words = [f"word{i}" for i in range(VOCAB_SIZE - 5)]
+    (dirs["pretrained"] / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words) + "\n")
+    rng = np.random.default_rng(11)
+    for split, n_videos in TRAIN_VIDEOS.items():
+        anns = {}
+        for p, prompt in enumerate(TRAIN_PROMPTS):
+            videos = {}
+            for v in range(n_videos):
+                name = f"{split}_{p}_{v}.mp4"
+                duration = float(rng.integers(30, 62)) + 0.4
+                np.save(dirs["feats"] / f"{name}.npy", rng.normal(size=(
+                    round(duration), 1024)).astype(np.float32))
+                start = int(rng.integers(1, 6))
+                end = int(duration) - int(rng.integers(1, 6))
+                cuts = np.sort(rng.choice(np.arange(start + 2, end - 1),
+                                          size=int(rng.integers(2, 5)),
+                                          replace=False)).tolist()
+                edges = [start, *cuts, end]
+                videos[name] = {
+                    "relevant": True, "clip": True, "v_duration": duration,
+                    "bounds": [start, end],
+                    "steps": [{"index": i, "heading": " ".join(
+                        words[j] for j in rng.integers(0, len(words),
+                                                       int(rng.integers(2,
+                                                                        9)))),
+                        "absolute_bounds": [edges[i], edges[i + 1]]}
+                        for i in range(len(edges) - 1)]}
+            anns[prompt] = videos
+        (dirs["splits"] / f"all_data_{split}.json").write_text(
+            json.dumps(anns))
+    return dirs
+
+
+def training_config(dirs: dict, device: str, **overrides):
+    """The run's HirestConfig: JointModelConfig()'s widths (768 hidden,
+    2 + 2 layers, vocabulary 30522, 48 words), train_batch_size 32, all
+    three tasks; the text tower and the joint model get seeded random
+    weights (no checkpoint in pretrained/)."""
+    from hirest_tpu_torch.config import HirestConfig
+
+    kw = dict(data_dir=str(dirs["splits"]),
+              video_feature_dir=str(dirs["feats"]),
+              pretrained_dir=str(dirs["pretrained"]),
+              ckpt_dir=str(dirs["ckpt"]), task_moment_retrieval=True,
+              task_moment_segmentation=True, task_step_captioning=True,
+              train_batch_size=32, eval_batch_size=32, epochs=TRAIN_EPOCHS,
+              num_workers=0, device=device)
+    kw.update(overrides)
+    return HirestConfig(**kw)
+
+
+def training_trainer(dirs: dict, device: str, text_fn, **overrides):
+    from hirest_tpu_torch.tokenizers import WordPieceTokenizer
+    from hirest_tpu_torch.train.trainer import Trainer
+
+    return Trainer(training_config(dirs, device, **overrides),
+                   text_encoder_fn=text_fn, verbose=False,
+                   wordpiece_tokenizer=WordPieceTokenizer(
+                       str(dirs["pretrained"] / "vocab.txt")))
+
+
+def zero_in_exact_arithmetic(task: str, name: str, layers: int) -> bool:
+    """Parameters whose gradient is zero in exact arithmetic (every key
+    bias: a softmax ignores a constant added to all of a query's scores;
+    for segmentation, what adds one vector to every frame ahead of the
+    frame softmax): both devices give f32 rounding noise there."""
+    if name.endswith("key.bias"):
+        return True
+    return task == "moment_segmentation" and name in (
+        "segment_predictor.0.bias",
+        f"clip4cap_model.visual.encoder.layer.{layers - 1}.output."
+        "LayerNorm.bias")
+
+
+def card_vs_cpu_step(dirs: dict, cpu, text_fn, batches: dict) -> None:
+    """(a) One step a task in f32, dropout off: the card's loss and
+    gradients against the CPU trainer's on the CPU's prepared batch; then
+    the optimizer on the card, fed the CPU's gradients, against the CPU's
+    update (no warmup, so the update moves the weights)."""
+    card = training_trainer(dirs, "cuda", text_fn, warmup_steps=0)
+    layers = card.model_cfg.visual.num_hidden_layers
+    for t in (cpu, card):
+        t.dropout = False
+        t.setup_optimizer(len(batches))
+    for name, p in cpu.model.state_dict().items():
+        require(torch.equal(card.model.state_dict()[name].cpu(), p),
+                f"card and CPU trainers start from other weights ({name})")
+    for task, batch in batches.items():
+        arrs = cpu._prepare(batch, task)
+        t0 = time.perf_counter()
+        want_loss, want = cpu.loss_and_grads(task, arrs)
+        cpu_s = time.perf_counter() - t0
+        loss, grads = card.loss_and_grads(
+            task, {k: v.to("cuda") for k, v in arrs.items()})
+        rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        top = max(g.abs().max().item() for g in want.values())
+        worst, worst_name, noise = 0.0, "", 0.0
+        for name, g in want.items():
+            got = grads[name].cpu()
+            if zero_in_exact_arithmetic(task, name, layers):
+                noise = max(noise, got.abs().max().item(),
+                            g.abs().max().item())
+                continue
+            scale = g.abs().max().item()
+            err = (got - g).abs().max().item()
+            require(err <= LOSS_TOL * scale, f"{task} gradient of {name}: "
+                    f"{err:.3e} of max {scale:.3e}")
+            if scale and err / scale > worst:
+                worst, worst_name = err / scale, name
+        print(f"[training] (a) {task}: loss card {float(loss):.6f}, CPU "
+              f"{float(want_loss):.6f} ({rel:.2e} relative, <= {LOSS_TOL}); "
+              f"gradients within {worst:.2e} of each tensor's max (<= "
+              f"{LOSS_TOL}), the farthest {worst_name}; exactly-zero ones "
+              f"at {noise:.2e} (<= 1e-6 of the largest, {top:.3e}); CPU "
+              f"step {cpu_s:.1f} s")
+        require(rel <= LOSS_TOL, f"{task} loss off the CPU's")
+        require(noise <= 1e-6 * top, f"{task}: a gradient that is zero in "
+                                     f"exact arithmetic is not noise")
+        before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+        cpu.apply_gradients(want)
+        card.apply_gradients({k: v.to("cuda") for k, v in want.items()})
+        worst, moved = 0.0, 0.0
+        for name, p in cpu.model.state_dict().items():
+            got = card.model.state_dict()[name].cpu()
+            scale = p.abs().max().item()
+            err = (got - p).abs().max().item()
+            require(err <= OPT_TOL * scale, f"{task} update of {name}: "
+                    f"{err:.3e} of max {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+            moved = max(moved, (p - before[name]).abs().max().item())
+        print(f"[training] (a) {task}: the card's update from the CPU's "
+              f"gradients within {worst:.2e} of each tensor's max (<= "
+              f"{OPT_TOL}); the step moved a parameter up to {moved:.3e}")
+        require(moved > 0, f"{task}: the update moved nothing")
+        # the next task starts from the same weights on both
+        card.model.load_state_dict(cpu.model.state_dict())
+
+
+def check_test_predictions(ckpt: Path, anns: dict) -> None:
+    """(b) The per-task test JSONs: well formed, bounds inside the video,
+    segmentation steps sorted, captions strings."""
+    durations = {v: round(a["v_duration"]) for p in anns.values()
+                 for v, a in p.items()}
+    mr = json.loads((ckpt / "test_moment_retrieval_BEST.json").read_text())
+    n = 0
+    for prompt, videos in mr.items():
+        for vid, r in videos.items():
+            require(all(0 <= b <= durations[vid] for b in r["bounds"]),
+                    f"moment retrieval {vid}: {r['bounds']}")
+            n += 1
+    ms = json.loads((ckpt / "test_moment_segmentation_BEST.json").read_text())
+    for vid, r in ms.items():
+        pred = r["pred_bounds"]
+        require(pred == sorted(pred) and all(
+            0 <= a <= b <= durations[vid] for a, b in r["bounds"]),
+            f"moment segmentation {vid}: {r['bounds']}")
+    sc = json.loads((ckpt / "test_step_captioning_BEST.json").read_text())
+    caps = [c["sentence"] for r in sc.values() for c in r["captions"]]
+    require(bool(caps) and all(isinstance(c, str) for c in caps),
+            "step captions")
+    print(f"[training] (b) test predictions: {n} moments, {len(ms)} "
+          f"segmentations, {len(caps)} captions, e.g. {caps[0][:60]!r}")
+
+
+def tree_clone(x):
+    if isinstance(x, dict):
+        return {k: tree_clone(v) for k, v in x.items()}
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def tree_equal(x, y) -> bool:
+    """Same keys, and every tensor equal bit for bit (dtype included)."""
+    if isinstance(x, dict):
+        return (isinstance(y, dict) and set(x) == set(y)
+                and all(tree_equal(x[k], y[k]) for k in x))
+    if isinstance(x, torch.Tensor):
+        return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                and torch.equal(x, y))
+    return x == y
+
+
+def resume_check(dirs: dict, text_fn, batches: dict) -> None:
+    """(c) A trainer a few steps in (dropout live) saves LAST; a fresh one
+    loads it: step, epoch, model and optimizer state (moments, count) bit
+    for bit; its next step with dropout off equals the unbroken run's
+    within 1e-6 of each tensor's largest magnitude."""
+    from hirest_tpu_torch.data.multitask import MultitaskSchedule
+
+    a = training_trainer(dirs, "cuda", text_fn)
+    # the schedule's length, as load() sets the optimizer up
+    a.setup_optimizer(len(MultitaskSchedule(a.loaders["train"])))
+    prepared = {t: a._prepare(b, t) for t, b in batches.items()}
+    for task, arrs in prepared.items():
+        a.train_step(task, arrs)
+    a.epoch = 1
+    a.save("LAST")
+    saved = tree_clone(a.opt_state)
+    b = training_trainer(dirs, "cuda", text_fn)
+    b.load(str(dirs["ckpt"] / "LAST"))
+    require((b.step, b.start_epoch) == (len(batches), 1),
+            f"resume: step {b.step}, epoch {b.start_epoch}")
+    require(tree_equal(b.opt_state, saved), "resume: optimizer state not "
+                                            "restored bit for bit")
+    require(tree_equal(b.model.state_dict(), a.model.state_dict()),
+            "resume: model not restored bit for bit")
+    task = TRAIN_TASKS[0]
+    for t in (a, b):
+        t.dropout = False
+        t.train_step(task, prepared[task])
+    worst = max((b.model.state_dict()[k] - v).abs().max().item()
+                / max(v.abs().max().item(), 1e-30)
+                for k, v in a.model.state_dict().items())
+    print(f"[training] (c) resumed at step {b.step - 1}, epoch 1: state "
+          f"bit for bit; next step within {worst:.2e} of the unbroken "
+          f"run's (<= {OPT_TOL})")
+    require(worst <= OPT_TOL, "resumed step off the unbroken run's")
+
+
+def loss_falls(dirs: dict, text_fn, batches: dict) -> dict:
+    """(d) Dropout off, FALL_STEPS steps on one fixed batch a task: each
+    task's loss lower after than before. Returns the prepared batches."""
+    t = training_trainer(dirs, "cuda", text_fn, lr=1e-4, warmup_steps=0)
+    t.dropout = False
+    t.setup_optimizer(FALL_STEPS * len(batches))
+    prepared = {task: t._prepare(b, task) for task, b in batches.items()}
+    first = {task: t._eval_loss(task, arrs) for task, arrs in prepared.items()}
+    for _ in range(FALL_STEPS):
+        for task, arrs in prepared.items():
+            t.train_step(task, arrs)
+    for task, arrs in prepared.items():
+        last = t._eval_loss(task, arrs)
+        print(f"[training] (d) {task}: loss {first[task]:.4f} -> "
+              f"{last:.4f} after {FALL_STEPS} steps on one batch")
+        require(last < first[task], f"{task} loss did not fall")
+    return prepared
+
+
+def training_readings(dirs: dict, text_fn, batches: dict, card: str) -> None:
+    """(f) Steps/s a task (host clock around RATE_STEPS steps at B=32,
+    after one, in RATE_WINDOWS windows each ending in a synchronize), one
+    step's device time and idle share from
+    the profiler, and the peak device memory of those steps above what
+    was resident before the trainer was built (earlier phases' tensors,
+    the text tower)."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    t = training_trainer(dirs, "cuda", text_fn)
+    t.setup_optimizer(RATE_STEPS * len(batches))
+    for task, batch in batches.items():
+        arrs = t._prepare(batch, task)
+        rows = tuple(arrs["vis_feats"].shape)
+        require(rows[0] == 32, f"{task} timed at B={rows[0]}, not 32")
+        t.train_step(task, arrs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.perf_counter()]
+        for _ in range(RATE_WINDOWS):
+            for _ in range(RATE_STEPS // RATE_WINDOWS):
+                t.train_step(task, arrs)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        rate = RATE_STEPS / (marks[-1] - marks[0])
+        windows = [RATE_STEPS // RATE_WINDOWS / (b - a)
+                   for a, b in zip(marks, marks[1:])]
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        print(f"[training] (f) {card}: {task} B={rows[0]}, vis_feats "
+              f"{rows}: {rate:.2f} steps/s over {RATE_STEPS} steps in "
+              f"{marks[-1] - marks[0]:.2f} s (windows of "
+              f"{RATE_STEPS // RATE_WINDOWS}: "
+              f"{', '.join(f'{w:.2f}' for w in windows)}), peak memory "
+              f"{peak:.2f} GiB "
+              f"above the {resident / 2 ** 30:.2f} GiB resident before")
+        profile_call(f"one {task} training step", lambda: t.train_step(
+            task, arrs), card, "training", tag="training")
+
+
+def phase_training(card: str) -> None:
+    """The training path at JointModelConfig()'s full width on a synthetic
+    split: (a) the card against the CPU, (b) `python -m
+    hirest_tpu_torch.run --train`'s function for TRAIN_EPOCHS epochs with
+    dropout live, (c) resume, (d) the loss falls, (e) no kernel of the
+    port launched throughout, (f) readings."""
+    import tempfile
+
+    from hirest_tpu_torch.config import EvaTextConfig
+    from hirest_tpu_torch.models.eva_clip import eva_text_encoder
+    from hirest_tpu_torch.run import main as run_main
+    from hirest_tpu_torch.utils.init import random_eva_text_state_dict
+
+    start = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_training_split(Path(tmp))
+        sd = random_eva_text_state_dict(EvaTextConfig(), seed=0)
+        text_fns = {dev: eva_text_encoder(sd, EvaTextConfig(), torch.float32,
+                                          torch.device(dev))
+                    for dev in ("cpu", "cuda")}
+        cpu = training_trainer(dirs, "cpu", text_fns["cpu"], warmup_steps=0)
+        batches = {task: next(iter(cpu.loaders["train"][task]))
+                   for task in TRAIN_TASKS}
+        sizes = {task: len(b) for task, b in cpu.loaders["train"].items()}
+        print(f"[training] split written, {sizes} train batches of 32 a "
+              f"task; CPU trainer built in "
+              f"{time.perf_counter() - start:.1f} s")
+        card_vs_cpu_step(dirs, cpu, text_fns["cuda"], batches)
+        del cpu
+
+        metrics = Path(tmp) / "metrics.jsonl"
+        t0 = time.perf_counter()
+        run_main(["--train", "--data_dir", str(dirs["splits"]),
+                  "--video_feature_dir", str(dirs["feats"]),
+                  "--pretrained_dir", str(dirs["pretrained"]),
+                  "--ckpt_dir", str(dirs["ckpt"]), "--task_moment_retrieval",
+                  "--task_moment_segmentation", "--task_step_captioning",
+                  "--epochs", str(TRAIN_EPOCHS), "--train_batch_size", "32",
+                  "--metrics_log", str(metrics), "--device", "cuda"])
+        torch.cuda.synchronize()
+        records = [json.loads(line) for line in
+                   metrics.read_text().splitlines()]
+        losses = [r[k] for r in records for k in ("train_loss", "val_loss")
+                  if k in r]
+        print(f"[training] (b) `run --train`, {TRAIN_EPOCHS} epochs with "
+              f"dropout live, in {time.perf_counter() - t0:.1f} s: epoch "
+              f"losses {losses}")
+        require(len(losses) == 2 * TRAIN_EPOCHS
+                and all(np.isfinite(losses)), "training losses")
+        for name in ("BEST.pt", "LAST.pt"):
+            require((dirs["ckpt"] / name).exists(), f"{name} not written")
+        check_test_predictions(dirs["ckpt"], json.loads(
+            (dirs["splits"] / "all_data_test.json").read_text()))
+
+        resume_check(dirs, text_fns["cuda"], batches)
+        loss_falls(dirs, text_fns["cuda"], batches)
+        counts = read_counts()
+        print(f"[training] (e) kernel launches during (a)-(d): {counts}")
+        require(counts == expect(), "the training path launched a kernel")
+        training_readings(dirs, text_fns["cuda"], batches, card)
+    print(f"[training] phase done in {time.perf_counter() - start:.1f} s")
+
+
 SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "K1": ("fused_attention_qkv3",
            "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
@@ -2535,11 +3038,16 @@ def main() -> int:
     frames = phase_depth(cfg, pretrained)
     phase_factory_depth(cfg, text_cfg, weights, frames)
     phase_ladder_depth(cfg, frames)
+    int8_tower = phase_int8_tower(cfg, weights, factory)
+    phase_int8_tower_depth(cfg, weights, frames)
     timing = phase_timing(cfg, main_res, factory, ladder, card)
+    time_int8_tower(int8_tower, card)
     phase_profile(cfg, main_res, factory, ladder, card)
     phase_serving(main_res, card)
+    phase_training(card)
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}
+    launches["K6"] += int8_tower["launches"]
 
     print(card)
     print(json.dumps({"kernels": [{

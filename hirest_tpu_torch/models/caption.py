@@ -18,8 +18,13 @@ checkpoint load with `load_state_dict`:
 Parameters stay f32; each module computes in its `dtype` as the flax
 modules do (`dense` and `layer_norm_fast_var` of models/layers.py). The
 attention is the plain `dot_product_attention`: the JAX caption stack
-never reaches a Pallas kernel, and neither does this one. Nothing here
-applies dropout: this is the inference path.
+never reaches a Pallas kernel, and neither does this one.
+
+Dropout (rate 0.1) sits where the JAX modules put it, and only there: after
+the encoder's embedding LayerNorm and after the decoder's in the
+teacher-forced forward (not in `decode_step`). It is live in `train()`
+mode only, drawn from the `torch.Generator` that the trainer hands each
+`Dropout` module; in `eval()` mode every forward is deterministic.
 """
 
 from __future__ import annotations
@@ -34,6 +39,26 @@ from hirest_tpu_torch.models.layers import (MultiHeadAttention, dense,
                                             dot_product_attention, gelu_erfc,
                                             layer_norm_fast_var, merge_heads,
                                             split_heads)
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: in training, keep each value with probability
+    1 - rate and scale it by 1 / (1 - rate), else 0; the identity in
+    eval mode. The keep mask comes from `generator` (the default
+    generator when None), on x's device."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def attention_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -107,6 +132,7 @@ class VisualEncoder(nn.Module):
             VisualLayer(cfg.hidden_size, cfg.num_attention_heads,
                         cfg.intermediate_size, cfg.norm_eps)
             for _ in range(cfg.num_hidden_layers))})
+        self.dropout = Dropout()
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         cfg, emb = self.config, self.embeddings
@@ -116,7 +142,7 @@ class VisualEncoder(nn.Module):
                              f"{cfg.max_position_embeddings}")
         x = dense(feats.to(self.dtype), emb["word_embeddings"])
         x = x + emb["position_embeddings"].weight[:t].to(self.dtype)
-        x = layer_norm_fast_var(x, emb["LayerNorm"])
+        x = self.dropout(layer_norm_fast_var(x, emb["LayerNorm"]))
         for layer in self.encoder["layer"]:
             x = layer(x)
         return x
@@ -227,6 +253,7 @@ class CaptionDecoder(nn.Module):
         self.classifier = nn.ModuleDict({"cls": nn.ModuleDict({
             "predictions": Predictions(cfg.hidden_size, cfg.vocab_size,
                                        cfg.norm_eps)})})
+        self.dropout = Dropout()
 
     @property
     def layers(self):
@@ -250,7 +277,7 @@ class CaptionDecoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, encoder_out: torch.Tensor,
                 answer_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         length = input_ids.shape[1]
-        x = self._embed(input_ids, slice(0, length))
+        x = self.dropout(self._embed(input_ids, slice(0, length)))
         # the reference's mask (module_decoder.py:389-396): causal triu OR'd
         # with the inverted answer mask, then scaled by -10000
         ones = torch.ones(length, length, device=x.device)

@@ -1,8 +1,9 @@
 """Int8 pieces of the EVA vision trunk, and its bf16 LayerNorm kernel.
 
 Counterpart of hirest_tpu/ops/quant.py (ln_quant, act_quant, ln_bf16,
-fused_mlp_int8) and of the int8 helpers of hirest_tpu/models/eva_scan.py
-(_quantize_stacked, _dyn_quant_rows, _int8_mm). Weights keep nn.Linear's
+fused_mlp_int8, int8_matmul, QuantDense) and of the int8 helpers of
+hirest_tpu/models/eva_scan.py (_quantize_stacked, _dyn_quant_rows,
+_int8_mm). Weights keep nn.Linear's
 [out, in] layout, so both operands of every int8 product are contiguous
 along the reduced axis.
 
@@ -13,7 +14,9 @@ csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu) and `fused_mlp_int8`
 version; a CUDA tensor launches the kernel or raises. The qkv and out
 projections (`int8_mm`) are int8 x int8 -> int32 products that the JAX
 package leaves to XLA; here they go to `torch._int_mm` with the
-dequantization in eager PyTorch.
+dequantization in eager PyTorch. `int8_matmul` and `QuantDense` (the
+unrolled int8 tower's dense layers, models/eva_quant.py) quantize the
+activations per row and pad to the shapes `torch._int_mm` takes.
 
 Every quantization is the reference's: scale max(max|y| / 127, 1e-8),
 codes round-half-even(y / scale) clipped to +-127, products accumulated in
@@ -73,6 +76,50 @@ def int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype) -> torch.Tensor:
     if bias is not None:
         out.add_(bias.float())
     return out.to(out_dtype)
+
+
+# torch._int_mm on a CUDA tensor takes M > 16 rows and K, N multiples of 8
+INT_MM_MIN_ROWS = 17
+INT_MM_MULTIPLE = 8
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                bias=None, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [..., in] float -> [..., out] (hirest_tpu/ops/quant.py::
+    int8_matmul): x quantized per row from f32 (`dyn_quant_rows`), the
+    int8 x int8 -> int32 product and the `int8_mm` epilogue
+    (acc * x_s * w_s + bias in f32, then the cast). w_q [out, in'] with
+    in' >= in: the weight's input axis may be zero-padded (QuantDense pads
+    it to a multiple of 8); x's codes are padded to match, and its rows to
+    at least INT_MM_MIN_ROWS, with zeros. Zero codes add nothing to an
+    int32 sum, so the padding changes no number."""
+    shape = x.shape
+    x_q, x_s = dyn_quant_rows(x.reshape(-1, shape[-1]))
+    m, k = x_q.shape
+    rows = max(m, INT_MM_MIN_ROWS)
+    if rows != m or w_q.shape[1] != k:
+        x_q = F.pad(x_q, (0, w_q.shape[1] - k, 0, rows - m))
+        x_s = F.pad(x_s, (0, 0, 0, rows - m))
+    out = int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype)[:m]
+    return out.reshape(*shape[:-1], w_q.shape[0])
+
+
+class QuantDense:
+    """An int8 stand-in for a float Linear (hirest_tpu/ops/quant.py::
+    QuantDense), callable on activations: the weight [out, in] quantized
+    per output channel once, its input axis zero-padded to a multiple of
+    8 (exact: see int8_matmul), the bias kept in f32."""
+
+    def __init__(self, weight: torch.Tensor, bias=None,
+                 out_dtype=torch.bfloat16):
+        w_q, self.w_s = quantize_weight(weight)
+        pad = -w_q.shape[1] % INT_MM_MULTIPLE
+        self.w_q = F.pad(w_q, (0, pad)) if pad else w_q
+        self.bias = None if bias is None else bias.float()
+        self.out_dtype = out_dtype
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_matmul(x, self.w_q, self.w_s, self.bias, self.out_dtype)
 
 
 # --- K2 and K10: LayerNorm, quantized per row or written back -------------

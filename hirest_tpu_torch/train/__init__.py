@@ -1,1 +1,2 @@
-"""The multitask engine (train/trainer.py); its inference half so far."""
+"""Training: the multitask engine (train/trainer.py), its losses,
+optimizers and prediction formatting, and caption-generator pretraining."""

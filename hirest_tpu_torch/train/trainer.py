@@ -1,21 +1,40 @@
-"""The inference half of the multitask engine.
+"""The multitask training and inference engine.
 
-Counterpart of hirest_tpu/train/trainer.py::Trainer, under the same name so
-that the serving engine reads like the JAX one: the joint model, the frozen
-EVA-CLIP text tower, the feature store, the frame buckets, the batch
-preparation and the three prediction forwards (moment retrieval, iterative
-moment segmentation, step captioning with the KV-cached beam). Training,
-`predict`/`evaluate` over a split and the checkpoint round trip are not
-ported yet.
+Counterpart of hirest_tpu/train/trainer.py::Trainer: the joint model, the
+frozen EVA-CLIP text tower, the feature store, the frame buckets and the
+split loaders; the training loop (`train`: the multitask schedule, one
+optimizer step a batch, validation loss a task, BEST by validation loss,
+LAST, the per-epoch JSONs, the test split scored with BEST), the split
+predictions (`predict`/`evaluate`, in the evaluate.py JSON schemas), the
+three prediction forwards (moment retrieval, iterative moment
+segmentation, step captioning with the KV-cached beam) and the checkpoint
+round trip.
 
 Everything runs on `config.device`: CUDA unless "cpu" is asked for, never
 a fallback. The host keeps the data-dependent parts the JAX package keeps
 there: the moment trim of step captioning and, unless
 `fused_segmentation`, the greedy walk of segmentation.
+
+A training step is autograd over the plain modules (the JAX training code
+reaches no Pallas kernel and has no custom_vjp) followed by the optax
+semantics of train/optim.py. Dropout is live during the step only (the
+model is in `train()` mode for it, `eval()` otherwise), drawn from one
+`torch.Generator` seeded from (config.seed, step) each step, as the JAX
+step folds the step into PRNGKey(seed); `dropout = False` turns it off.
+Losses stay on the device and are fetched every 50 steps.
+
+Checkpoints are `torch.save` of {"model": state dict, "opt_state",
+"step", "epoch"} at `{ckpt_dir}/{name}.pt`; `load` of one with optimizer
+state into a fresh trainer sets the optimizer up first, so Adam's moments,
+its count and the accumulator are restored, not restarted. JAX `.msgpack`
+checkpoints need flax and are not read; reference `.pth` files load with
+`load_torch_checkpoint`. `mesh_shape` (data parallelism over a mesh) is not
+ported and raises.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Callable, Optional
 
@@ -23,16 +42,34 @@ import numpy as np
 import torch
 
 from hirest_tpu_torch.config import EvaTextConfig, HirestConfig
+from hirest_tpu_torch.data.annotations import (build_examples,
+                                               caption_targets,
+                                               load_annotations)
+from hirest_tpu_torch.data.batching import TaskBatcher
 from hirest_tpu_torch.data.features import FeatureStore
+from hirest_tpu_torch.data.multitask import MultitaskSchedule
 from hirest_tpu_torch.infer.beam import beam_search_cached
 from hirest_tpu_torch.infer.segmentation import (iterative_segmentation,
                                                  iterative_segmentation_scan)
+from hirest_tpu_torch.models.caption import Dropout
 from hirest_tpu_torch.models.joint import MomentModel
 from hirest_tpu_torch.native import trim_to_moment
 from hirest_tpu_torch.tokenizers import clip_tokenize
+from hirest_tpu_torch.train import losses as L
+from hirest_tpu_torch.train.formatting import (format_moment_retrieval,
+                                               format_moment_segmentation,
+                                               format_step_captioning)
+from hirest_tpu_torch.train.optim import (apply_updates, grads_of,
+                                          make_optimizer)
 from hirest_tpu_torch.utils.device import resolve_device
+from hirest_tpu_torch.utils.meters import LossMeter
+from hirest_tpu_torch.utils.profiling import MetricsLogger, PhaseTimer, trace
 
 BOS_ID, EOS_ID = 101, 102  # BERT [CLS] / [SEP]
+FETCH_EVERY = 50  # steps between fetches of the device-side losses
+TARGET_KEYS = {"moment_retrieval": "moment_retrieval_start_target",
+               "moment_segmentation": "moment_segmentation_target",
+               "step_captioning": "output_caption_ids"}
 
 
 class Trainer:
@@ -46,6 +83,11 @@ class Trainer:
         verbose: bool = True,
         model_config=None,
     ):
+        if config.mesh_shape:
+            raise NotImplementedError(
+                f"mesh_shape={config.mesh_shape!r}: the port trains on one "
+                "device; data parallelism over a mesh is ROADMAP's M10, not "
+                "ported yet")
         self.config = config
         self.verbose = verbose
         self.device = resolve_device(config.device)
@@ -61,6 +103,16 @@ class Trainer:
             config.asr_feature_dir)
         self.buckets = tuple(config.frame_buckets)
         self.model = (model or self._init_params()).to(self.device).eval()
+        self.dropout = True  # dropout live in training steps
+        self.dropout_gen = torch.Generator(device=self.device)
+        for mod in self.model.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = self.dropout_gen
+        self.tx = None
+        self.opt_state = None
+        self.step = 0
+        self.epoch = self.start_epoch = 0
+        self.loaders = self._build_loaders()
 
     # -- construction ----------------------------------------------------
 
@@ -106,6 +158,35 @@ class Trainer:
                 print(f"Initialized encoder/decoder from {bin_path}")
         return model
 
+    def _build_loaders(self) -> dict:
+        """split -> task -> TaskBatcher over the split files of data_dir
+        (the train split shuffled per epoch; a missing file is skipped)."""
+        cfg = self.config
+        loaders: dict = {}
+        if not cfg.data_dir:
+            return loaders
+        for split in ("train", "val", "test"):
+            path = os.path.join(cfg.data_dir, f"all_data_{split}.json")
+            if not os.path.exists(path):
+                continue
+            anns = load_annotations(path)
+            loaders[split] = {}
+            for task in cfg.tasks:
+                ex = build_examples(anns, task, cfg.n_model_frames,
+                                    is_train=(split == "train"),
+                                    end_to_end=cfg.end_to_end)
+                if task == "step_captioning" and self.tokenizer is not None:
+                    for e in ex:
+                        e.update(caption_targets(
+                            self.tokenizer, e["target_text_raw"],
+                            cfg.max_words))
+                bs = (cfg.train_batch_size if split == "train"
+                      else cfg.eval_batch_size)
+                loaders[split][task] = TaskBatcher(
+                    ex, batch_size=bs, store=self.store, buckets=self.buckets,
+                    shuffle=(split == "train"), seed=cfg.seed)
+        return loaders
+
     # -- batch prep -------------------------------------------------------
 
     def _prepare(self, batch: dict, task: str) -> dict:
@@ -121,8 +202,9 @@ class Trainer:
         def dev(a):
             return torch.as_tensor(np.asarray(a)).to(self.device)
 
-        arrs = {"text_feat": torch.as_tensor(text_feat, dtype=torch.float32,
-                                             device=self.device)}
+        # a copy made outside inference mode: autograd may save it
+        arrs = {"text_feat": torch.as_tensor(
+            text_feat, dtype=torch.float32, device=self.device).clone()}
         if task == "step_captioning":
             mf = self.config.max_frames_step_captioning
             keys = ["vis_feats"] + (["asr_feats"] if "asr_feats" in batch
@@ -142,6 +224,243 @@ class Trainer:
             if key in batch:
                 arrs[key] = dev(batch[key])
         return arrs
+
+    # -- training -----------------------------------------------------------
+
+    def _loss_for_task(self, task: str, arrs: dict) -> torch.Tensor:
+        m = self.model
+        if task == "moment_retrieval":
+            out = m.moment_retrieval(arrs["vis_feats"], arrs["text_feat"],
+                                     arrs["video_mask"], arrs["moment_mask"],
+                                     arrs.get("asr_feats"))
+            return L.moment_retrieval_loss(
+                out["start_logits"], out["end_logits"],
+                arrs["moment_retrieval_start_target"],
+                arrs["moment_retrieval_end_target"], arrs["moment_mask"],
+                arrs.get("batch_mask"))
+        if task == "moment_segmentation":
+            logits = m.moment_segmentation(
+                arrs["vis_feats"], arrs["text_feat"], arrs["video_mask"],
+                arrs["moment_mask"], arrs.get("asr_feats"),
+                arrs["prev_boundary_mask"])
+            return L.moment_segmentation_loss(
+                logits, arrs["moment_segmentation_target"],
+                arrs["moment_mask"], arrs.get("batch_mask"))
+        if task == "step_captioning":
+            vis = m.caption_encode(arrs["vis_feats"], arrs["text_feat"],
+                                   arrs.get("asr_feats"))
+            logits = m.caption_logits(vis, arrs["input_caption_ids"],
+                                      arrs["decoder_mask"])
+            return L.step_captioning_loss(logits, arrs["output_caption_ids"],
+                                          arrs.get("batch_mask"))
+        raise ValueError(task)
+
+    def loss_and_grads(self, task: str, arrs: dict) -> tuple:
+        """One batch's loss with dropout live (unless `dropout` is False),
+        its masks drawn from (config.seed, step), and the gradient of every
+        parameter (zeros where the loss does not reach it). Returns (the
+        loss, detached, on the device; {name: gradient})."""
+        self.dropout_gen.manual_seed(self.config.seed * 2 ** 32 + self.step)
+        self.model.zero_grad(set_to_none=True)
+        self.model.train(self.dropout)
+        try:
+            loss = self._loss_for_task(task, arrs)
+            loss.backward()
+        finally:
+            self.model.eval()
+        return loss.detach(), grads_of(dict(self.model.named_parameters()))
+
+    def apply_gradients(self, grads: dict) -> None:
+        """One optimizer update of the parameters from `grads`."""
+        params = dict(self.model.named_parameters())
+        with torch.no_grad():
+            updates, self.opt_state = self.tx.update(grads, self.opt_state,
+                                                     params)
+            apply_updates(params, updates)
+        self.model.zero_grad(set_to_none=True)
+
+    def train_step(self, task: str, arrs: dict) -> torch.Tensor:
+        loss, grads = self.loss_and_grads(task, arrs)
+        self.apply_gradients(grads)
+        self.step += 1
+        return loss
+
+    @torch.inference_mode()
+    def _eval_loss(self, task: str, arrs: dict) -> float:
+        return float(self._loss_for_task(task, arrs))
+
+    def setup_optimizer(self, steps_per_epoch: int):
+        cfg = self.config
+        total = ((steps_per_epoch // cfg.gradient_accumulation_steps)
+                 * cfg.epochs)
+        self.tx = make_optimizer(cfg.lr, cfg.warmup_steps, max(total, 1),
+                                 cfg.clip_grad_norm, cfg.weight_decay,
+                                 cfg.gradient_accumulation_steps)
+        # keep an optimizer state restored by load(): re-initializing here
+        # would restart Adam's moments, the accumulator and the schedule's
+        # count on resume (the reference's flaw, trainer_base.py:109-126)
+        if self.opt_state is None:
+            self.opt_state = self.tx.init(
+                dict(self.model.named_parameters()))
+
+    def _dump(self, name: str, obj) -> None:
+        os.makedirs(self.config.ckpt_dir, exist_ok=True)
+        with open(os.path.join(self.config.ckpt_dir, name), "w") as f:
+            json.dump(obj, f, indent=4)
+
+    def train(self) -> dict:
+        cfg = self.config
+        if "step_captioning" in cfg.tasks and self.tokenizer is None:
+            raise ValueError(
+                "step-captioning TRAINING needs a WordPiece tokenizer for the "
+                "teacher-forcing targets: put bert-base-uncased vocab.txt in "
+                f"{cfg.pretrained_dir} (inference-only runs work without it)")
+        if "val" not in self.loaders:
+            # before the first epoch, not at its end: BEST is chosen by
+            # validation loss
+            val = os.path.join(cfg.data_dir or "<data_dir>",
+                               "all_data_val.json")
+            raise ValueError(f"validation split not found: expected {val} "
+                             "(train() selects BEST by val loss)")
+        schedule = MultitaskSchedule(self.loaders["train"], shuffle=True)
+        self.setup_optimizer(len(schedule))
+
+        best_valid, best_epoch = float("inf"), 0
+        meter = LossMeter()
+        timer = PhaseTimer()
+        metrics = MetricsLogger(cfg.metrics_log)
+        traced = False
+        pending: list = []  # device scalars, fetched every FETCH_EVERY steps
+
+        for epoch in range(self.start_epoch, self.start_epoch + cfg.epochs):
+            self.epoch = epoch
+            schedule.set_epoch(epoch)
+            it = iter(schedule)
+            if cfg.num_workers > 0:
+                from hirest_tpu_torch.data.prefetch import prefetch
+
+                it = prefetch(it, depth=max(2, cfg.num_workers))
+            while True:
+                with timer.phase("data"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                task = batch["tasks"][0]
+                with timer.phase("prepare"):
+                    arrs = self._prepare(batch, task)
+                with timer.phase("train_step"), \
+                        trace(None if traced else cfg.trace_dir):
+                    traced = True
+                    pending.append(self.train_step(task, arrs))
+                if self.step % FETCH_EVERY == 0:
+                    for loss in pending:
+                        meter.update(float(loss))
+                    pending.clear()
+                    metrics.log(self.step, epoch=epoch, task=task,
+                                loss=meter.val)
+                if cfg.save_every_steps and \
+                        self.step % cfg.save_every_steps == 0:
+                    self.save("LAST")  # a periodic snapshot
+            for loss in pending:  # the epoch's tail
+                meter.update(float(loss))
+            pending.clear()
+
+            val_loss = 0.0
+            epoch_results = {}
+            for task in cfg.tasks:
+                has_target = task != "moment_segmentation"
+                res = self.evaluate(self.loaders["val"][task], task,
+                                    has_target=has_target)
+                epoch_results[task] = res
+                if has_target and "loss" in res:
+                    val_loss += res["loss"]
+
+            metrics.log(self.step, epoch=epoch, train_loss=meter.val,
+                        val_loss=val_loss, **{f"time_{k}": v["total_s"]
+                                              for k, v in
+                                              timer.report().items()})
+            if self.verbose:
+                print(f"Epoch {epoch} | train loss {meter.val:.4f} | "
+                      f"val loss {val_loss:.4f} | phases {timer.report()}")
+                for task, res in epoch_results.items():
+                    self._dump(f"{task}_epoch_{str(epoch).zfill(3)}.json",
+                               res)
+            timer.reset()
+            if val_loss < best_valid or epoch == self.start_epoch:
+                best_valid, best_epoch = val_loss, epoch
+                self.save("BEST")
+        self.save("LAST")
+        metrics.close()
+
+        if self.verbose:
+            print("Best Epoch:", best_epoch)
+        self.load(os.path.join(cfg.ckpt_dir, "BEST"))
+        results = {}
+        if "test" in self.loaders:
+            for task in cfg.tasks:
+                results[task] = self.evaluate(self.loaders["test"][task],
+                                              task, has_target=False)
+                self._dump(f"test_{task}_BEST.json", results[task])
+        return results
+
+    # -- split predictions ------------------------------------------------
+
+    def predict(self, batcher: TaskBatcher, task: str,
+                has_target: bool = False) -> dict:
+        """Predictions over one task's batches in the evaluate.py schema,
+        with the mean loss over the batches that carry targets when
+        has_target."""
+        cfg = self.config
+        predictions, targets, fnames, prompts, durations, losses = (
+            [], [], [], [], [], [])
+        batches = batcher
+        if cfg.num_workers > 0:
+            from hirest_tpu_torch.data.prefetch import prefetch
+
+            batches = prefetch(iter(batcher), depth=max(2, cfg.num_workers))
+        for batch in batches:
+            arrs = self._prepare(batch, task)
+            if has_target and TARGET_KEYS[task] in batch:
+                losses.append(self._eval_loss(task, arrs))
+            # host lists carry the real rows; arrays may be padded
+            n_real = len(batch["prompts"])
+            if task == "moment_retrieval":
+                preds = self._predict_moment_retrieval(arrs)
+                if "moment_retrieval_start_target" in batch:
+                    targets.extend(np.stack([
+                        batch["moment_retrieval_start_target"][:n_real],
+                        batch["moment_retrieval_end_target"][:n_real]],
+                        axis=1).tolist())
+            elif task == "moment_segmentation":
+                preds = self._predict_moment_segmentation(arrs, batch)
+                targets.extend(batch.get("all_bound_frames",
+                                         [[]] * n_real)[:n_real])
+            elif task == "step_captioning":
+                preds = self._predict_step_captioning(arrs)
+                targets.extend(batch.get("target_text_raw",
+                                         [""] * n_real)[:n_real])
+            else:
+                raise ValueError(task)
+            predictions.extend(list(preds)[:n_real])
+            fnames.extend(batch["video_fnames"])
+            prompts.extend(batch["prompts"])
+            durations.extend(batch["video_duration"])
+
+        loss = float(np.mean(losses)) if losses else None
+        if task == "moment_retrieval":
+            return format_moment_retrieval(
+                prompts, fnames, durations, predictions, cfg.n_model_frames,
+                targets if has_target else None, loss)
+        if task == "moment_segmentation":
+            return format_moment_segmentation(
+                fnames, durations, predictions, cfg.n_model_frames, targets,
+                loss)
+        return format_step_captioning(fnames, durations, predictions,
+                                      targets if has_target else None, loss)
+
+    def evaluate(self, batcher: TaskBatcher, task: str,
+                 has_target: bool = False) -> dict:
+        return self.predict(batcher, task, has_target=has_target)
 
     # -- prediction forwards ---------------------------------------------
 
@@ -218,6 +537,37 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------
 
+    def save(self, name: str) -> None:
+        os.makedirs(self.config.ckpt_dir, exist_ok=True)
+        path = os.path.join(self.config.ckpt_dir, f"{name}.pt")
+        state = {"model": self.model.state_dict(), "step": self.step,
+                 "epoch": self.epoch}
+        if self.opt_state is not None:
+            state["opt_state"] = self.opt_state
+        torch.save(state, path)
+        if self.verbose:
+            print("Model saved at", path)
+
+    def load(self, path: str) -> None:
+        """Restore a checkpoint of `save` (".pt" may be left off)."""
+        if not path.endswith(".pt"):
+            path = path + ".pt"
+        state = torch.load(path, map_location=self.device, weights_only=True)
+        if (self.opt_state is None and "train" in self.loaders
+                and "opt_state" in state):
+            # a fresh-process resume: set the optimizer up first, so its
+            # state below is restored rather than dropped
+            self.setup_optimizer(len(MultitaskSchedule(
+                self.loaders["train"], shuffle=True)))
+        self.model.load_state_dict(state["model"])
+        self.step = int(state["step"])
+        self.start_epoch = int(state.get("epoch", 0))
+        if self.opt_state is not None and "opt_state" in state:
+            _check_same_structure(self.opt_state, state["opt_state"])
+            self.opt_state = state["opt_state"]
+        if self.verbose:
+            print("Model loaded from", path)
+
     def load_torch_checkpoint(self, ckpt_path: str):
         """Load a reference-format .pth joint checkpoint (its key surgery
         included) into the model."""
@@ -228,3 +578,18 @@ class Trainer:
             self.model, load_torch_ckpt(ckpt_path)).to(self.device)
         if self.verbose:
             print("Model loaded from", ckpt_path)
+
+
+def _check_same_structure(want, got, path: str = "opt_state") -> None:
+    """Raise ValueError unless `got` has `want`'s keys and tensor shapes
+    throughout: the optimizer set up here and the one saved differ."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"checkpoint {path} does not match the "
+                             f"optimizer set up: keys differ")
+        for k in want:
+            _check_same_structure(want[k], got[k], f"{path}.{k}")
+    elif isinstance(want, torch.Tensor) and (
+            not isinstance(got, torch.Tensor) or got.shape != want.shape):
+        raise ValueError(f"checkpoint {path} does not match the optimizer "
+                         f"set up")

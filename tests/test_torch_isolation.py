@@ -2,9 +2,9 @@
 forwards (the scanned tower in each kernel flag configuration, unrolled,
 text, and one `analyze` request through the serving engine) run with jax
 and flax blocked, without loading any hirest_tpu module; its entry points
-(the encoder, the factory, the serving engine and its server) refuse to
-fall back to the CPU on their own; and chip_smoke.py refuses to report
-success where there is no GPU."""
+(the encoder, the factory, the unrolled int8 tower, the serving engine
+and its server, the run CLI) refuse to fall back to the CPU on their own;
+and chip_smoke.py refuses to report success where there is no GPU."""
 
 import json
 import os
@@ -18,6 +18,7 @@ import torch
 from hirest_tpu_torch.config import HirestConfig
 from hirest_tpu_torch.extraction.features import make_eva_encoder
 from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
+from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
 from hirest_tpu_torch.serve import ServingEngine
 from hirest_tpu_torch.train.trainer import Trainer
 from hirest_tpu_torch.utils.device import resolve_device
@@ -131,7 +132,18 @@ def test_port_imports_and_runs_without_jax():
                 "hirest_tpu_torch.train.trainer",
                 "hirest_tpu_torch.serve.engine",
                 "hirest_tpu_torch.serve.server",
-                "hirest_tpu_torch.serve.__main__"):
+                "hirest_tpu_torch.serve.__main__",
+                "hirest_tpu_torch.models.eva_quant",
+                "hirest_tpu_torch.data.multitask",
+                "hirest_tpu_torch.train.losses",
+                "hirest_tpu_torch.train.optim",
+                "hirest_tpu_torch.train.formatting",
+                "hirest_tpu_torch.train.contrastive",
+                "hirest_tpu_torch.train.pretrain",
+                "hirest_tpu_torch.utils.meters",
+                "hirest_tpu_torch.utils.profiling",
+                "hirest_tpu_torch.infer.pipeline",
+                "hirest_tpu_torch.run"):
         assert mod in got["modules"]
     assert got["analysis"] == ["moment_bounds", "prompt", "steps", "video"]
 
@@ -161,6 +173,14 @@ def test_factory_refuses_cpu_fallback(monkeypatch, scan):
         build_eva_model_and_transforms(scan=scan)
 
 
+def test_int8_tower_refuses_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_int8_vision_apply({}, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_int8_vision_apply({})
+
+
 def test_engine_refuses_cpu_fallback(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -183,6 +203,23 @@ def test_serve_cli_refuses_cpu_fallback(tmp_path):
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 2 and ".pth" in r.stderr
+
+
+def test_run_cli_refuses_cpu_fallback(tmp_path):
+    """`python -m hirest_tpu_torch.run` with no GPU visible raises unless it
+    is given --device cpu."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", "hirest_tpu_torch.run",
+                        "--train", "--task_moment_retrieval",
+                        "--data_dir", str(tmp_path),
+                        "--video_feature_dir", str(tmp_path),
+                        "--ckpt_dir", str(tmp_path / "ckpt"),
+                        "--pretrained_dir", str(tmp_path / "none")],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_chip_smoke_fails_without_gpu():

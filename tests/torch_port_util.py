@@ -178,3 +178,58 @@ def hirest_configs(**kw):
     fields = dataclasses.asdict(jax_cfg)
     fields["device"] = "cpu"
     return jax_cfg, port_config.HirestConfig(**fields)
+
+
+# a 40-entry WordPiece vocabulary (the SERVE_JOINT decoder's size):
+# [PAD] [UNK] [CLS] [SEP] [MASK], the words of the synthetic headings
+TINY_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "add", "salt",
+               "and", "water", "mix", "##ing", "##ed", "pan", "##cake", "oat",
+               "##meal", ",", "."] + [f"w{i}" for i in range(22)])
+HEADINGS = ("add salt", "mix water and oatmeal", "pancake mix", "add water",
+            "mixed salt , water .", "w1 w2 w3")
+
+
+def write_split(root, n_videos: int = 4, prompts=("make pancakes",
+                                                  "mix oatmeal"),
+                seed: int = 0) -> tuple:
+    """A synthetic HiREST split in the reference JSON schema under root:
+    `all_data_{train,val,test}.json` (n_videos videos a prompt a split,
+    3-4 steps each with headings of TINY_VOCAB's words), seeded random
+    [round(v_duration), 1024] features in `feats/` (the extractor's rows),
+    and `pretrained/vocab.txt`.
+    Returns (the data dir, the feature dir, the pretrained dir)."""
+    import json
+    from pathlib import Path
+
+    root = Path(root)
+    data, feats, pre = root / "splits", root / "feats", root / "pretrained"
+    for d in (data, feats, pre):
+        d.mkdir(parents=True, exist_ok=True)
+    (pre / "vocab.txt").write_text("\n".join(TINY_VOCAB) + "\n")
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val", "test"):
+        anns = {}
+        for p, prompt in enumerate(prompts):
+            videos = {}
+            for v in range(n_videos):
+                name = f"{split}_{p}_{v}.mp4"
+                duration = float(rng.integers(24, 60)) + 0.3
+                np.save(feats / f"{name}.npy", rng.normal(size=(
+                    round(duration), 1024)).astype(np.float32))
+                start = int(rng.integers(1, 6))
+                end = int(duration) - int(rng.integers(1, 6))
+                cuts = np.sort(rng.choice(np.arange(start + 2, end - 1),
+                                          size=int(rng.integers(2, 4)),
+                                          replace=False))
+                edges = [start, *cuts.tolist(), end]
+                videos[name] = {
+                    "relevant": True, "clip": True, "v_duration": duration,
+                    "bounds": [start, end],
+                    "steps": [{"index": i,
+                               "heading": HEADINGS[int(rng.integers(
+                                   len(HEADINGS)))],
+                               "absolute_bounds": [edges[i], edges[i + 1]]}
+                              for i in range(len(edges) - 1)]}
+            anns[prompt] = videos
+        (data / f"all_data_{split}.json").write_text(json.dumps(anns))
+    return data, feats, pre
