@@ -134,7 +134,33 @@ Phases; any failure exits non-zero before the result line is printed:
             captions. The served (cached) beam against the full re-decode
             beam on the card: the full decoder's logits at the served
             prefixes within 1e-5, and the same choices and captions.
-10. training the training path at JointModelConfig()'s width (768 hidden,
+10. asr      the ASR path at full width (Whisper small.en: 12 + 12 layers
+            x 768, 12 heads, vocabulary 51864; MiniLM-L6: 6 x 384; seeded
+            random weights, f32, TF32 off) on 45 s of seeded 16 kHz audio
+            written as a .wav (two 30 s windows), with a made-up byte-level
+            vocab.json/merges.txt over ids 0-50256: transcribe_audio_dir_torch
+            under the default DecodeOptions (5 temperatures, best_of 5,
+            224 steps), then embed_srt_dir with MiniLM; each window's encoder
+            output against the CPU f32 encoder, and every decode_step of
+            the first window against the CPU f32 decoder fed the card's
+            inputs (its encoder output and tokens; one uncached CPU forward
+            a decode), logits within 1e-5 of the largest; the greedy mode
+            end to end,
+            and its greedy_decode tokens against the CPU's wherever the top-2
+            margin exceeds the measured error; MiniLM's embeddings against
+            the CPU's within 1e-5; the SRT and [n_segments, 384] .npy well
+            formed; those features beside phase 3's int8 ones into a Trainer
+            with JointModelConfig(asr_dim=384) and run_end_to_end, its JSON
+            well formed; no port kernel launched throughout; readings (the
+            real-time factor, encoder ms a window, ms a step split into the
+            step and the host rules, steps and temperatures a window, one
+            decode_segment's device time and idle share, MiniLM
+            sentences/s); then the custom-video EVA step as run_custom_video
+            chains it (make_eva_encoder(uint8_frontend=True), batches of 64
+            uint8 frames): 40 K1 a forward, [45, 1024] unit-norm features.
+            It names the host decoders (cv2, Pillow, ffmpeg, openai-whisper)
+            the machine lacks; it decodes no mp4.
+11. training the training path at JointModelConfig()'s width (768 hidden,
             2 + 2 layers, vocabulary 30522, 48 words, train_batch_size 32)
             on a synthetic split written to a temp dir (the reference JSON
             schema, all three tasks, train/val/test, seeded random
@@ -1569,6 +1595,16 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("elementwise and reductions (row quantization, dequant epilogues, "
          "LayerNorm, q/v bias, residual, casts)", ("elementwise", "reduce")),
     ),
+    "asr": (
+        ("matmuls (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma",
+                                   "gemv")),
+        ("softmax", ("softmax",)),
+        ("layer_norm", ("layer_norm",)),
+        ("reductions", ("reduce",)),
+        ("gathers, index copies, cache writes, cat",
+         ("index", "gather", "scatter", "Cat", "copy")),
+        ("elementwise (GELU, bias, residual, mask)", ("elementwise",)),
+    ),
     "training": (
         ("matmuls (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma",
                                    "gemv")),
@@ -2200,6 +2236,514 @@ def phase_serving(main: dict, card: str) -> None:
               f"above: {counts}")
         require(counts == expect(), "the serving path launched a kernel")
     print(f"[serving] phase done in {time.perf_counter() - start:.1f} s")
+
+
+# the ASR phase: the audio, the bars, the readings' sizes
+ASR_SECONDS = 45.0  # two 30 s windows of seeded audio
+ASR_VIDEO = "vid_b"  # its int8 features (phase 3) sit beside the ASR ones
+ASR_TOL = 1e-5  # card vs CPU f32 (TF32 off): of the largest |value|
+ASR_PROMPTS = ("make oatmeal pancake mix", "fold a fitted sheet")
+MINILM_BATCH = 64  # sentences an embed call when timed
+MINILM_ROUNDS = 20
+CUSTOM_BATCH = 64  # extract_video_features' frames a forward
+PROFILE_STEPS = 48  # sampled steps of the profiled decode_segment
+
+
+def speechlike_audio(seconds: float, seed: int) -> np.ndarray:
+    """16-bit mono 16 kHz samples made from the seed: voiced bursts (five
+    harmonics of a drifting pitch under a syllable-rate envelope) over
+    noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.3 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = np.clip(np.sin(2 * np.pi * 3.7 * t + rng.uniform(0, 6)), 0, 1)
+    x = 0.3 * voice * env + 0.02 * rng.normal(size=t.size)
+    return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+
+
+def write_byte_vocab(root: Path) -> tuple:
+    """A byte-level GPT-2 BPE pair (vocab.json, merges.txt) with ids
+    0 .. 50256: the 256 byte symbols, then merged pairs of them, and
+    <|endoftext|> at 50256, so every text id a decode can emit has a
+    token. Returns (vocab path, merges path)."""
+    from hirest_tpu_torch.tokenizers.gpt2_bpe import bytes_to_unicode
+
+    sym = [bytes_to_unicode()[b] for b in range(256)]
+    order = sorted(range(256), key=lambda b: (not chr(b).isalnum(), b))
+    pairs = [(sym[a], sym[b]) for a in order for b in order][: 50257 - 257]
+    tokens = sym + [a + b for a, b in pairs] + ["<|endoftext|>"]
+    (root / "vocab.json").write_text(json.dumps(
+        {tok: i for i, tok in enumerate(tokens)}))
+    (root / "merges.txt").write_text("#version: 0.2\n" + "\n".join(
+        f"{a} {b}" for a, b in pairs))
+    return str(root / "vocab.json"), str(root / "merges.txt")
+
+
+def write_minilm_pretrained(root: Path) -> dict:
+    """`minilm.pt` (seeded all-MiniLM-L6-v2-shaped weights) and a
+    30522-entry WordPiece vocab.txt (the specials, letters and digits and
+    their ## forms, then words) under root. Returns the state dict."""
+    import string
+
+    from hirest_tpu_torch.utils.init import random_minilm_state_dict
+
+    sd = random_minilm_state_dict(seed=0)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               root / "minilm.pt")
+    chars = list(string.ascii_lowercase + string.digits)
+    words = chars + [f"##{c}" for c in chars]
+    words += [f"word{i}" for i in range(VOCAB_SIZE - 5 - len(words))]
+    (root / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words) + "\n")
+    return sd
+
+
+class AsrRecorder:
+    """Wraps, for the length of a `with`, the transcriber's `transcribe`,
+    the adapter's encode, init_state and step, and `decode_segment`,
+    recording each 30 s
+    window: its mel and the card's encoder output, the encode time
+    (synchronized), every decode_segment's temperature, steps and wall
+    time, every step's wall time (launches, device work and the logits'
+    fetch); and for the first window every adapter call in order with its
+    inputs and the card's logits, for the CPU replay."""
+
+    def __init__(self):
+        self.windows: list = []
+        self.transcribe_s: list = []
+
+    def __enter__(self):
+        from hirest_tpu_torch.extraction import asr, whisper_decode as wd
+
+        A = wd.TorchWhisperAdapter
+        self.saved = [(A, n, getattr(A, n)) for n in
+                      ("encode", "init_state", "step")]
+        self.saved += [(wd, "decode_segment", wd.decode_segment),
+                       (asr.TorchWhisperTranscriber, "transcribe",
+                        asr.TorchWhisperTranscriber.transcribe)]
+        orig = {n: f for _, n, f in self.saved}
+        rec = self
+
+        def encode(adapter, mel):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = orig["encode"](adapter, mel)
+            torch.cuda.synchronize()
+            rec.windows.append({"mel": mel.copy(), "enc": enc,
+                                "encode_ms": (time.perf_counter() - t0) * 1e3,
+                                "segments": [], "step_ms": [], "calls": []})
+            return enc
+
+        def init_state(adapter, enc, n_seq, max_len):
+            w = rec.windows[-1]
+            if len(rec.windows) == 1:
+                w["calls"].append(("init", enc, n_seq, max_len))
+            return orig["init_state"](adapter, enc, n_seq, max_len)
+
+        def step(adapter, state, tokens, pos):
+            t0 = time.perf_counter()
+            logits, state = orig["step"](adapter, state, tokens, pos)
+            w = rec.windows[-1]
+            w["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if len(rec.windows) == 1:
+                w["calls"].append(("step", np.array(tokens), pos, logits))
+            return logits, state
+
+        def decode_segment(adapter, enc, tok, options, temperature, **kw):
+            w = rec.windows[-1]
+            n0, t0 = len(w["step_ms"]), time.perf_counter()
+            res = orig["decode_segment"](adapter, enc, tok, options,
+                                         temperature, **kw)
+            w["segments"].append({
+                "temperature": temperature,
+                "steps": len(w["step_ms"]) - n0,
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "tokens": len(res.tokens)})
+            return res
+
+        def transcribe(tr, audio):
+            t0 = time.perf_counter()
+            out = orig["transcribe"](tr, audio)
+            rec.transcribe_s.append(time.perf_counter() - t0)
+            return out
+
+        wrapped = {"encode": encode, "init_state": init_state, "step": step,
+                   "decode_segment": decode_segment, "transcribe": transcribe}
+        for owner, name, _ in self.saved:
+            setattr(owner, name, wrapped[name])
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def asr_held(tag: str, got, want) -> float:
+    """Max |got - want| over the largest |want|, required within ASR_TOL;
+    returns the absolute error."""
+    got = torch.as_tensor(got).float().cpu()
+    want = torch.as_tensor(want).float().cpu()
+    require(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)} vs "
+                                     f"{tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    print(f"[asr] {tag}: max err {err:.3e}, {err / top:.3e} of max |value| "
+          f"{top:.4f}")
+    require(err <= ASR_TOL * top, f"{tag} beyond {ASR_TOL}")
+    return err
+
+
+def replay_first_window(rec: AsrRecorder, sd: dict, card: str) -> None:
+    """Both windows' encoder outputs against the CPU f32 encoder on the same
+    mel; then every decode_step of the card's first window against the
+    CPU f32 decoder fed the card's inputs (its encoder output, and each
+    row's tokens up to the step's position; the default options sample,
+    so no beam reorders the rows): within ASR_TOL of the CPU's largest
+    logit at that step. The CPU computes a decode's steps in one uncached
+    forward over its rows' tokens (the cached step is that forward's last
+    position: tests/test_torch_asr.py holds the two together on the CPU);
+    a step-by-step CPU replay took 82 ms a step on the card's host, 92 s
+    for the window."""
+    from hirest_tpu_torch.models.whisper import load_whisper
+
+    t0 = time.perf_counter()
+    cpu_enc, cpu_dec = load_whisper(sd, device="cpu")
+    with torch.inference_mode():
+        for i, w in enumerate(rec.windows):
+            asr_held(f"window {i + 1} encoder [1, 1500, 768] card vs CPU f32",
+                     w["enc"], cpu_enc(torch.from_numpy(w["mel"][None])))
+    print(f"[asr] CPU encoder on {len(rec.windows)} windows in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    decodes = []  # one a temperature: its encoder output, ids and steps
+    for call in rec.windows[0]["calls"]:
+        if call[0] == "init":
+            _, enc, n, max_len = call
+            decodes.append({"enc": enc, "steps": [],
+                            "ids": np.zeros((n, max_len), np.int64)})
+        else:
+            _, tokens, pos, card_logits = call
+            decodes[-1]["ids"][:, pos] = tokens
+            decodes[-1]["steps"].append((pos, card_logits))
+    ratio, err, steps = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for d in decodes:
+            length = d["steps"][-1][0] + 1
+            full = cpu_dec(torch.from_numpy(d["ids"][:, :length]),
+                           d["enc"].cpu())
+            for pos, card_logits in d["steps"]:
+                want = full[:, pos]
+                e = float(np.abs(card_logits - want.numpy()).max())
+                err = max(err, e)
+                ratio = max(ratio, e / want.abs().max().item())
+                steps += 1
+    print(f"[asr] {card}: window 1's {steps} decode_steps ({len(decodes)} "
+          f"decodes) against the CPU f32 decoder on the card's inputs "
+          f"(one CPU forward a decode, {time.perf_counter() - t0:.1f} s): "
+          f"max err {err:.3e}, {ratio:.3e} of the step's max |logit|")
+    require(steps > 0 and ratio <= ASR_TOL,
+            f"window 1 decode_step beyond {ASR_TOL}")
+
+
+def greedy_check(sd: dict, audio: np.ndarray, tok, card: str):
+    """The greedy path (`use_rules=False`) on the card: transcribe() end to
+    end, then greedy_decode on the first 30 s chunk on the card and on the
+    CPU (from the card's encoder output), each step's logits recorded: the
+    logits within ASR_TOL while the prefixes are equal, and the tokens
+    equal wherever the CPU's top-2 margin exceeds what the measured
+    differences can move (2 err + 2 ulp); at a step inside that, the two
+    may part, and the check ends there. Returns the card transcriber."""
+    from hirest_tpu_torch.extraction.asr import (EOT, SOT,
+                                                 TorchWhisperTranscriber)
+    from hirest_tpu_torch.extraction.mel import N_SAMPLES, log_mel_spectrogram
+    from hirest_tpu_torch.models.whisper import greedy_decode, load_whisper
+
+    tr = TorchWhisperTranscriber(sd, tokenizer=tok, use_rules=False,
+                                 device="cuda")
+    t0 = time.perf_counter()
+    segs = tr.transcribe(audio)
+    wall = time.perf_counter() - t0
+    print(f"[asr] {card}: greedy mode, {len(segs)} segments from "
+          f"{ASR_SECONDS} s in {wall:.2f} s (real-time factor "
+          f"{ASR_SECONDS / wall:.1f})")
+    require(all(0 <= s["start"] <= s["end"] for s in segs), "greedy segments")
+    mel = log_mel_spectrogram(audio[:N_SAMPLES])
+    with torch.inference_mode():
+        enc = tr.encoder(torch.from_numpy(mel[None]).cuda())
+    _, cpu_dec = load_whisper(sd, device="cpu")
+    runs = {}
+    for name, dec, e in (("card", tr.decoder, enc),
+                         ("cpu", cpu_dec, enc.cpu())):
+        logs, step = [], dec.decode_step
+
+        def rec_step(ids, pos, cross, cache, step=step, logs=logs):
+            logits, cache = step(ids, pos, cross, cache)
+            logs.append(logits[0].float().cpu())
+            return logits, cache
+
+        dec.decode_step = rec_step
+        try:
+            t0 = time.perf_counter()
+            ids = greedy_decode(dec, e, np.array([[SOT]], np.int32), 224,
+                                EOT)[0]
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            del dec.decode_step
+        runs[name] = (ids, logs, ms)
+    (ids, logs, ms), (cids, clogs, cms) = runs["card"], runs["cpu"]
+    print(f"[asr] {card}: greedy_decode 224 steps, card {ms:.1f} ms "
+          f"({ms / 224:.2f} ms a step, logits fetched each step for the "
+          f"check), CPU {cms:.1f} ms")
+    err, equal = 0.0, 0
+    for t in range(len(clogs)):
+        if not np.array_equal(ids[: t + 1], cids[: t + 1]):
+            break
+        err = max(err, (logs[t] - clogs[t]).abs().max().item())
+        if ids[t + 1] == cids[t + 1]:
+            equal += 1
+            continue
+        top2 = clogs[t].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        ulp = float(np.spacing(np.float32(top2[0].abs().item())))
+        print(f"[asr] greedy tokens part at step {t}: CPU top-2 margin "
+              f"{margin:.3e}, measured err {err:.3e}")
+        require(margin <= 2 * err + 2 * ulp,
+                f"greedy token {t + 1} differs beyond the measured error")
+        break
+    top = max(x.abs().max().item() for x in clogs)
+    print(f"[asr] greedy: {equal} of {len(clogs)} tokens equal card vs CPU; "
+          f"logits max err {err:.3e}, {err / top:.3e} of max |logit| "
+          f"{top:.4f}")
+    require(err <= ASR_TOL * top, f"greedy logits beyond {ASR_TOL}")
+    return tr
+
+
+def asr_readings(rec: AsrRecorder, card: str) -> None:
+    """The rules transcription's readings, beside the card."""
+    wall = sum(rec.transcribe_s)
+    print(f"[asr] {card}: transcribe_audio_dir_torch, {ASR_SECONDS} s of "
+          f"audio in {wall:.2f} s: real-time factor "
+          f"{ASR_SECONDS / wall:.2f} (audio s per wall s)")
+    enc_ms = [w["encode_ms"] for w in rec.windows]
+    print(f"[asr] {card}: encoder {np.mean(enc_ms):.2f} ms per 30 s window "
+          f"({', '.join(f'{x:.2f}' for x in enc_ms)})")
+    for i, w in enumerate(rec.windows):
+        temps = [s["temperature"] for s in w["segments"]]
+        dec_ms = sum(s["ms"] for s in w["segments"])
+        step_ms = sum(w["step_ms"])
+        n = len(w["step_ms"])
+        print(f"[asr] {card}: window {i + 1}: {n} steps, temperatures "
+              f"reached {temps}, steps a temperature "
+              f"{[s['steps'] for s in w['segments']]}, sampled tokens "
+              f"{[s['tokens'] for s in w['segments']]}; decode "
+              f"{dec_ms:.1f} ms: {dec_ms / n:.2f} ms a step, of which the "
+              f"step (launches, device, logits fetch) {step_ms / n:.2f} ms "
+              f"and the host rules {(dec_ms - step_ms) / n:.2f} ms")
+
+
+def phase_asr(main: dict, card: str) -> None:
+    """The ASR path at full width (Whisper small.en 12 + 12 x 768, vocab
+    51864; MiniLM-L6 6 x 384; seeded random weights, f32) on seeded audio,
+    into the joint model's use_asr branch, and the custom-video EVA step."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import wave
+
+    from hirest_tpu_torch.config import EvaTextConfig, HirestConfig
+    from hirest_tpu_torch.data.srt import load_srt
+    from hirest_tpu_torch.extraction import asr
+    from hirest_tpu_torch.extraction.features import finish_video_features
+    from hirest_tpu_torch.extraction.whisper_decode import (DecodeOptions,
+                                                            decode_segment)
+    from hirest_tpu_torch.infer.pipeline import run_end_to_end
+    from hirest_tpu_torch.models.eva_clip import eva_text_encoder
+    from hirest_tpu_torch.models.minilm import make_minilm_embedder
+    from hirest_tpu_torch.tokenizers.gpt2_bpe import WhisperEnTokenizer
+    from hirest_tpu_torch.train.trainer import Trainer
+    from hirest_tpu_torch.utils.init import (random_eva_text_state_dict,
+                                             random_whisper_state_dict)
+
+    start = time.perf_counter()
+    missing = [name for name, found in (
+        ("cv2 (OpenCV)", importlib.util.find_spec("cv2")),
+        ("PIL (Pillow)", importlib.util.find_spec("PIL")),
+        ("ffmpeg", shutil.which("ffmpeg")),
+        ("whisper (openai-whisper)", importlib.util.find_spec("whisper")))
+        if not found]
+    print(f"[asr] host decoders missing on this machine: "
+          f"{', '.join(missing) or 'none'} (the phase decodes no mp4: its "
+          f"audio and frames are made from the seed, and no device step "
+          f"is skipped)")
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: Path(tmp) / k for k in (
+            "audio", "tok", "pretrained", "ASR", "ASR_feats_all-MiniLM-L6-v2",
+            "feats", "splits", "out")}
+        for d in dirs.values():
+            d.mkdir()
+        samples = speechlike_audio(ASR_SECONDS, 13)
+        with wave.open(str(dirs["audio"] / f"{ASR_VIDEO}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(samples.tobytes())
+        audio = asr.read_wav_mono16k(str(dirs["audio"] / f"{ASR_VIDEO}.wav"))
+        vocab, merges = write_byte_vocab(dirs["tok"])
+        tok = WhisperEnTokenizer(vocab, merges)
+        t0 = time.perf_counter()
+        sd = random_whisper_state_dict(seed=0)
+        t1 = time.perf_counter()
+        minilm_sd = write_minilm_pretrained(dirs["pretrained"])
+        print(f"[asr] seeded weights: Whisper small.en "
+              f"{sum(v.size for v in sd.values()) / 1e6:.1f} M parameters "
+              f"in {t1 - t0:.1f} s, MiniLM-L6 "
+              f"{sum(v.size for v in minilm_sd.values()) / 1e6:.1f} M "
+              f"(drawn and saved) in {time.perf_counter() - t1:.1f} s")
+
+        zero_counts()  # read after the trainer: the ASR steps launch none
+        rec = AsrRecorder()
+        t0 = time.perf_counter()
+        with rec:
+            n = asr.transcribe_audio_dir_torch(
+                str(dirs["audio"]), str(dirs["ASR"]), sd, vocab_path=vocab,
+                merges_path=merges, device="cuda")
+        print(f"[asr] transcribe_audio_dir_torch (default DecodeOptions, "
+              f"the transcriber's build included) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        subs = load_srt(str(dirs["ASR"] / f"{ASR_VIDEO}.srt"))
+        require(n == 1 and subs and all(
+            0 <= s.start_seconds <= s.end_seconds <= ASR_SECONDS + 30
+            for s in subs), f"SRT: {n} files, {len(subs)} segments")
+        print(f"[asr] SRT: {len(subs)} segments, "
+              f"{subs[0].start_seconds}-{subs[-1].end_seconds} s; first "
+              f"text {subs[0].text[:40]!r}")
+        asr_readings(rec, card)
+        replay_first_window(rec, sd, card)
+        greedy = greedy_check(sd, audio, tok, card)
+
+        t0 = time.perf_counter()
+        n = asr.embed_srt_dir(str(dirs["ASR"]),
+                              str(dirs["ASR_feats_all-MiniLM-L6-v2"]),
+                              pretrained_dir=str(dirs["pretrained"]),
+                              device="cuda")
+        emb = np.load(dirs["ASR_feats_all-MiniLM-L6-v2"] / f"{ASR_VIDEO}.npy")
+        print(f"[asr] embed_srt_dir (MiniLM-L6 on the card, its build "
+              f"included) in {time.perf_counter() - t0:.2f} s: {emb.shape}")
+        require(n == 1 and emb.shape == (len(subs), 384)
+                and emb.dtype == np.float32 and np.isfinite(emb).all()
+                and np.allclose(np.linalg.norm(emb, axis=-1), 1, atol=1e-5),
+                f"ASR features {emb.shape}")
+        texts = [s.text for s in subs]
+        vocab_txt = str(dirs["pretrained"] / "vocab.txt")
+        cpu_embed = make_minilm_embedder(minilm_sd, vocab_txt, device="cpu")
+        asr_held(f"MiniLM embeddings of the {len(texts)} segments, card vs "
+                 f"CPU f32", emb, cpu_embed(texts))
+        card_embed = make_minilm_embedder(minilm_sd, vocab_txt, device="cuda")
+        batch = (texts * MINILM_BATCH)[:MINILM_BATCH]
+        card_embed(batch)
+        t0 = time.perf_counter()
+        for _ in range(MINILM_ROUNDS):
+            card_embed(batch)
+        wall = time.perf_counter() - t0
+        print(f"[asr] {card}: MiniLM {MINILM_BATCH * MINILM_ROUNDS / wall:.1f}"
+              f" sentences/s ({MINILM_ROUNDS} calls of {MINILM_BATCH} "
+              f"sentences at 128 tokens, host tokenization and the fetch "
+              f"included)")
+
+        # the use_asr branch: these features beside phase 3's int8 ones
+        name, duration = f"{ASR_VIDEO}.mp4", VIDEOS[ASR_VIDEO][1]
+        np.save(dirs["feats"] / f"{name}.npy", main["features"][ASR_VIDEO])
+        (dirs["splits"] / "all_data_test.json").write_text(json.dumps({
+            prompt: {name: {
+                "relevant": True, "clip": True, "v_duration": duration,
+                "bounds": [0, int(duration)],
+                "steps": [{"index": i, "heading": "",
+                           "absolute_bounds": [i, i + 1]}
+                          for i in range(5)]}} for prompt in ASR_PROMPTS}))
+        cfg = HirestConfig(
+            data_dir=str(dirs["splits"]),
+            video_feature_dir=str(dirs["feats"]),
+            asr_dir=str(dirs["ASR"]),
+            asr_feature_dir=str(dirs["ASR_feats_all-MiniLM-L6-v2"]),
+            pretrained_dir=str(dirs["pretrained"]),
+            ckpt_dir=str(dirs["out"]), task_moment_retrieval=True,
+            task_moment_segmentation=True, task_step_captioning=True,
+            end_to_end=True, eval_batch_size=1, device="cuda")
+        t0 = time.perf_counter()
+        text_fn = eva_text_encoder(random_eva_text_state_dict(
+            EvaTextConfig(), seed=0), EvaTextConfig(), torch.float32,
+            torch.device("cuda"))
+        trainer = Trainer(cfg, text_encoder_fn=text_fn, verbose=False)
+        require(trainer.model_cfg.use_asr and trainer.model_cfg.asr_dim == 384
+                and trainer.store.has_asr, "the trainer has no ASR branch")
+        res = run_end_to_end(trainer)
+        torch.cuda.synchronize()
+        final = json.loads((dirs["out"]
+                            / "final_end_to_end_results.json").read_text())
+        require(final == json.loads(json.dumps(res))
+                and sorted(final) == sorted(ASR_PROMPTS),
+                "final_end_to_end_results.json")
+        for prompt in ASR_PROMPTS:
+            entry = final[prompt][name]
+            require(len(entry["bounds"]) == 2 and all(
+                0 <= b <= duration for b in entry["bounds"]) and all(
+                isinstance(st["heading"], str)
+                and len(st["absolute_bounds"]) == 2 for st in entry["steps"]),
+                f"end-to-end entry {entry}")
+        print(f"[asr] Trainer (JointModelConfig(asr_dim=384), the ASR "
+              f"branch live) and run_end_to_end on {name} in "
+              f"{time.perf_counter() - t0:.1f} s: moments "
+              f"{[final[p][name]['bounds'] for p in ASR_PROMPTS]}, steps "
+              f"{[len(final[p][name]['steps']) for p in ASR_PROMPTS]}")
+        counts = read_counts()
+        print(f"[asr] kernel launches during transcription, the checks, "
+              f"MiniLM and the end-to-end run: {counts}")
+        require(counts == expect(), "the ASR path launched a kernel")
+
+        mel = rec.windows[0]["mel"]
+        print(f"[asr] {card}: encoder, warm, "
+              f"{cuda_ms(lambda: greedy.adapter.encode(mel), 5):.2f} ms per "
+              f"30 s window (CUDA events, 5 calls)")
+        window = greedy.adapter.encode(mel)
+        profile_call(f"one decode_segment (window 1, t=0.15, best_of 5, "
+                     f"{PROFILE_STEPS} steps)", lambda: decode_segment(
+                         greedy.adapter, window, tok,
+                         DecodeOptions(sample_len=PROFILE_STEPS), 0.15,
+                         rng=np.random.default_rng(0)), card, "asr",
+                     tag="asr")
+        del greedy, trainer
+
+    # the custom-video EVA step, as run_custom_video chains it:
+    # make_eva_encoder(pretrained_dir, uint8_frontend=True) (phase 3 built
+    # it with these arguments), extract_video_features' batches of 64
+    # zero-padded, its per-video finish
+    enc = main["encoders"]["bf16"][True]
+    frames = np.random.default_rng(17).integers(
+        0, 256, (int(ASR_SECONDS), 224, 224, 3), dtype=np.uint8)
+    zero_counts()
+    t0 = time.perf_counter()
+    embs, forwards = [], 0
+    for i in range(0, len(frames), CUSTOM_BATCH):
+        chunk = frames[i: i + CUSTOM_BATCH]
+        batch = np.zeros((CUSTOM_BATCH, 224, 224, 3), np.uint8)
+        batch[: len(chunk)] = chunk
+        embs.append(enc(batch)[: len(chunk)])
+        forwards += 1
+    feats = finish_video_features(embs, duration=ASR_SECONDS)
+    counts = read_counts()
+    print(f"[asr] custom-video EVA step: {len(frames)} uint8 frames, "
+          f"{forwards} forward(s) of {CUSTOM_BATCH} in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches {counts}")
+    require(counts == expect(K1=40 * forwards),
+            f"custom-video EVA launches {counts}")
+    require(feats.shape == (round(ASR_SECONDS), 1024)
+            and np.isfinite(feats).all() and np.allclose(
+                np.linalg.norm(feats, axis=-1), 1, atol=1e-3),
+            f"custom-video features {feats.shape}")
+    print(f"[asr] {card}: phase done in {time.perf_counter() - start:.1f} s")
 
 
 # the training phase: the synthetic split, the checks' bars
@@ -3044,6 +3588,7 @@ def main() -> int:
     time_int8_tower(int8_tower, card)
     phase_profile(cfg, main_res, factory, ladder, card)
     phase_serving(main_res, card)
+    phase_asr(main_res, card)
     phase_training(card)
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}

@@ -35,8 +35,9 @@ def _stage_batcher(trainer, anns: dict, task: str):
                        buckets=trainer.buckets)
 
 
-def run_end_to_end(trainer) -> dict:
-    """Run the staged pipeline; returns the final results dict."""
+def run_end_to_end(trainer, test_path: str | None = None) -> dict:
+    """Run the staged pipeline over `test_path` (the config's test split by
+    default); returns the final results dict."""
     cfg = trainer.config
     tasks = cfg.tasks
     if not tasks:
@@ -51,7 +52,8 @@ def run_end_to_end(trainer) -> dict:
               "verbatim copy of the test annotations. Pass "
               "--task_moment_retrieval --task_moment_segmentation "
               "--task_step_captioning.", file=sys.stderr)
-    test = load_annotations(os.path.join(cfg.data_dir, "all_data_test.json"))
+    test_path = test_path or os.path.join(cfg.data_dir, "all_data_test.json")
+    test = load_annotations(test_path)
     os.makedirs(cfg.ckpt_dir, exist_ok=True)
 
     def dump(name, obj):

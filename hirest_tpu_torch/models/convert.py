@@ -1,5 +1,5 @@
-"""Checkpoint loading and JAX-tree conversion for the EVA towers and the
-joint model.
+"""Checkpoint loading and JAX-tree conversion for the EVA towers, the
+joint model, Whisper and MiniLM.
 
 The port's modules use the reference's state-dict names, so a torch
 checkpoint needs no renaming: `eva_vision_state_dict` and
@@ -7,10 +7,12 @@ checkpoint needs no renaming: `eva_vision_state_dict` and
 `load_moment_state_dict` applies only the reference's own key surgery
 (`normalize_joint_keys`) and the position-table enlargement that the JAX
 converters apply (hirest_tpu/models/convert.py:125-258).
-`eva_vision_from_jax`, `eva_text_from_jax` and `moment_model_from_jax`
-invert the JAX package's `convert_eva_vision`, `convert_eva_text` and
-`convert_moment_model`, turning its flax parameter trees back into state
-dicts: that is how weights are carried from one package to the other.
+`eva_vision_from_jax`, `eva_text_from_jax`, `moment_model_from_jax`,
+`whisper_from_jax` and `minilm_from_jax` invert the JAX package's
+`convert_eva_vision`, `convert_eva_text`, `convert_moment_model`,
+`convert_whisper_encoder`/`_decoder` and `convert_minilm`, turning its
+flax parameter trees back into state dicts: that is how weights are carried
+from one package to the other.
 """
 
 from __future__ import annotations
@@ -292,4 +294,77 @@ def moment_model_from_jax(params: Mapping) -> dict:
                          ("decoder", caption_decoder_from_jax(p["decoder"]))):
         sd.update({f"clip4cap_model.{prefix}.{k}": v
                    for k, v in part.items()})
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Whisper and MiniLM
+# ---------------------------------------------------------------------------
+
+
+def _whisper_attn(prefix: str, tree) -> dict:
+    return {**_linear(f"{prefix}.q_proj", tree["q_proj"]),
+            f"{prefix}.k_proj.weight": _t(
+                tree["k_proj"]["kernel"]).T.contiguous(),
+            **_linear(f"{prefix}.v_proj", tree["v_proj"]),
+            **_linear(f"{prefix}.out_proj", tree["out_proj"])}
+
+
+def _whisper_layers(prefix: str, p: Mapping, cross: bool) -> dict:
+    sd = {}
+    n = sum(1 for k in p if k.startswith("layers_"))
+    for i in range(n):
+        blk, r = p[f"layers_{i}"], f"{prefix}.layers.{i}"
+        names = ("self_attn", "encoder_attn") if cross else ("self_attn",)
+        for attn in names:
+            sd.update(_whisper_attn(f"{r}.{attn}", blk[attn]))
+            sd.update(_norm(f"{r}.{attn}_layer_norm",
+                            blk[f"{attn}_layer_norm"]))
+        sd.update(_linear(f"{r}.fc1", blk["fc1"]))
+        sd.update(_linear(f"{r}.fc2", blk["fc2"]))
+        sd.update(_norm(f"{r}.final_layer_norm", blk["final_layer_norm"]))
+    return sd
+
+
+def whisper_from_jax(enc_params: Mapping, dec_params: Mapping) -> dict:
+    """JAX `WhisperEncoder` and `WhisperDecoder` parameters ({"params":
+    {...}} or bare, numpy leaves) -> one HF `WhisperModel` state dict
+    (`encoder.*`, `decoder.*`), the port's names: the inverse of
+    `convert_whisper_encoder` / `convert_whisper_decoder`. flax conv
+    kernels [k, in, out] -> torch Conv1d weights [out, in, k]."""
+    e = enc_params["params"] if "params" in enc_params else enc_params
+    d = dec_params["params"] if "params" in dec_params else dec_params
+    sd = {}
+    for conv in ("conv1", "conv2"):
+        sd[f"encoder.{conv}.weight"] = _t(
+            e[conv]["kernel"]).permute(2, 1, 0).contiguous()
+        sd[f"encoder.{conv}.bias"] = _t(e[conv]["bias"])
+    sd.update(_norm("encoder.layer_norm", e["layer_norm"]))
+    sd.update(_whisper_layers("encoder", e, cross=False))
+    sd["decoder.embed_tokens.weight"] = _t(d["embed_tokens"])
+    sd["decoder.embed_positions.weight"] = _t(d["embed_positions"])
+    sd.update(_norm("decoder.layer_norm", d["layer_norm"]))
+    sd.update(_whisper_layers("decoder", d, cross=True))
+    return sd
+
+
+def minilm_from_jax(params: Mapping) -> dict:
+    """JAX `MiniLmEncoder` parameters ({"params": {...}} or bare, numpy
+    leaves) -> the port's (HF `BertModel`'s) state dict: the inverse of
+    `convert_minilm`."""
+    p = params["params"] if "params" in params else params
+    sd = {"embeddings.word_embeddings.weight":
+              _t(p["word_embeddings"]["embedding"]),
+          "embeddings.position_embeddings.weight":
+              _t(p["position_embeddings"]),
+          "embeddings.token_type_embeddings.weight":
+              _t(p["token_type_embeddings"]),
+          **_norm("embeddings.LayerNorm", p["emb_LayerNorm"])}
+    n = sum(1 for k in p if re.fullmatch(r"layer_\d+_ffn", k))
+    for i in range(n):
+        r = f"encoder.layer.{i}"
+        sd.update(_qkv(f"{r}.attention.self", p[f"layer_{i}_attention"]))
+        sd.update(_bert_output(f"{r}.attention.output",
+                               p[f"layer_{i}_attention_output"]))
+        sd.update(_bert_ffn(r, p[f"layer_{i}_ffn"]))
     return sd

@@ -6,7 +6,8 @@ near 1. The tower-wide tensors are drawn first and the blocks after them in
 order, so a config with fewer layers gets the same weights as the first
 blocks of a deeper one (a depth-cut run checks the full model's weights).
 Key names are the EVA reference's, without the `visual.` or `text.` prefix,
-and the joint checkpoint's for `random_moment_state_dict`.
+the joint checkpoint's for `random_moment_state_dict`, and HF's for
+Whisper and MiniLM.
 """
 
 from __future__ import annotations
@@ -110,14 +111,44 @@ def random_eva_text_state_dict(cfg: EvaTextConfig = EvaTextConfig(),
                  ("ln_1.weight", "ln_2.weight", "ln_final.weight"))
 
 
+def _module_shapes(make) -> dict:
+    """The state-dict shapes of the module `make()` builds on meta."""
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in make().state_dict().items()}
+
+
 def random_moment_state_dict(cfg: JointModelConfig = JointModelConfig(),
                              seed: int = 0) -> dict:
     """Reference-named joint (MomentModel) state dict of float32 numpy
     arrays, drawn in the module's own key order; LayerNorm weights near 1."""
     from hirest_tpu_torch.models.joint import MomentModel
 
-    with torch.device("meta"):
-        shapes = {k: tuple(v.shape)
-                  for k, v in MomentModel(cfg).state_dict().items()}
-    return _draw(shapes, seed, ("LayerNorm.weight", "visual_norm2d.weight",
-                                "asr_enc_layer.0.weight"))
+    return _draw(_module_shapes(lambda: MomentModel(cfg)), seed,
+                 ("LayerNorm.weight", "visual_norm2d.weight",
+                  "asr_enc_layer.0.weight"))
+
+
+def random_whisper_state_dict(cfg=None, seed: int = 0) -> dict:
+    """HF `WhisperModel`-named (`encoder.*`, `decoder.*`) Whisper state dict
+    of float32 numpy arrays (small.en by default), in the modules' own key
+    order; LayerNorm weights near 1."""
+    from hirest_tpu_torch.models.whisper import (WhisperConfig,
+                                                 WhisperDecoder,
+                                                 WhisperEncoder)
+
+    cfg = cfg or WhisperConfig()
+    shapes = {f"encoder.{k}": s for k, s in
+              _module_shapes(lambda: WhisperEncoder(cfg)).items()}
+    shapes.update({f"decoder.{k}": s for k, s in
+                   _module_shapes(lambda: WhisperDecoder(cfg)).items()})
+    return _draw(shapes, seed, ("layer_norm.weight",))
+
+
+def random_minilm_state_dict(cfg=None, seed: int = 0) -> dict:
+    """HF `BertModel`-named MiniLM state dict of float32 numpy arrays
+    (all-MiniLM-L6-v2's shape by default); LayerNorm weights near 1."""
+    from hirest_tpu_torch.models.minilm import MiniLmConfig, MiniLmEncoder
+
+    cfg = cfg or MiniLmConfig()
+    return _draw(_module_shapes(lambda: MiniLmEncoder(cfg)), seed,
+                 ("LayerNorm.weight",))

@@ -1,10 +1,12 @@
 """The port stands alone: every hirest_tpu_torch module imports and tiny
 forwards (the scanned tower in each kernel flag configuration, unrolled,
-text, and one `analyze` request through the serving engine) run with jax
-and flax blocked, without loading any hirest_tpu module; its entry points
-(the encoder, the factory, the unrolled int8 tower, the serving engine
-and its server, the run CLI) refuse to fall back to the CPU on their own;
-and chip_smoke.py refuses to report success where there is no GPU."""
+text, one `analyze` request through the serving engine, a Whisper
+transcription under the decoding rules, MiniLM) run with jax and flax
+blocked, without loading any hirest_tpu module; its entry points (the
+encoder, the factory, the unrolled int8 tower, the serving engine and its
+server, the run CLI, the Whisper transcriber, the MiniLM embedder, the ASR
+and custom-video CLIs) refuse to fall back to the CPU on their own; and
+chip_smoke.py refuses to report success where there is no GPU."""
 
 import json
 import os
@@ -30,6 +32,7 @@ import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 import numpy as np
+import torch
 import hirest_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hirest_tpu_torch.__path__,
                                                "hirest_tpu_torch.")]
@@ -82,6 +85,30 @@ trainer = Trainer(run, text_encoder_fn=lambda ids: np.ones((len(ids), 1024),
                   verbose=False, model_config=joint)
 analysis = ServingEngine(run, trainer=trainer).analyze("make pancakes",
                                                        "v.mp4")
+from hirest_tpu_torch.extraction.whisper_decode import (DecodeOptions,
+    TorchWhisperAdapter, transcribe_with_rules)
+from hirest_tpu_torch.models.minilm import MiniLmConfig, load_minilm
+from hirest_tpu_torch.models.whisper import WhisperConfig, load_whisper
+from hirest_tpu_torch.utils.init import (random_minilm_state_dict,
+                                         random_whisper_state_dict)
+wcfg = WhisperConfig(d_model=32, encoder_layers=1, decoder_layers=1, heads=2,
+                     ffn_dim=64)
+enc, dec = load_whisper(random_whisper_state_dict(wcfg), wcfg, "cpu")
+class Tok:  # the .en special ids, text as the ids themselves
+    EOT, SOT, TRANSLATE, TRANSCRIBE, SOT_LM = 50256, 50257, 50357, 50358, 50359
+    SOT_PREV, NO_SPEECH, NO_TIMESTAMPS = 50360, 50361, 50362
+    TIMESTAMP_BEGIN = 50363
+    encode = lambda self, text: [32] * len(text)
+    decode = lambda self, ids: ",".join(map(str, ids))
+    non_speech_tokens = lambda self: [5]
+asr_out = transcribe_with_rules(
+    TorchWhisperAdapter(enc, dec), np.zeros(32000, np.float32), Tok(),
+    DecodeOptions(sample_len=4, temperature=(0.5,), best_of=2,
+                  logprob_threshold=None, no_speech_threshold=None))
+mcfg = MiniLmConfig(vocab_size=50, hidden_size=32, num_hidden_layers=1,
+                    num_attention_heads=4, intermediate_size=64)
+outs.append(load_minilm(random_minilm_state_dict(mcfg), mcfg, "cpu")(
+    torch.ones((2, 5), dtype=torch.long), torch.ones((2, 5))))
 shutil.rmtree(tmp)
 loaded = [m for m in sys.modules
           if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
@@ -89,6 +116,7 @@ print(json.dumps({"modules": names,
                   "shapes": [list(o.shape) for o in outs],
                   "finite": all(bool(o.isfinite().all()) for o in outs),
                   "analysis": sorted(analysis),
+                  "segments": len(asr_out["segments"]),
                   "loaded": loaded}))
 """
 
@@ -106,7 +134,8 @@ def test_port_imports_and_runs_without_jax():
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
-    assert got["shapes"] == [[2, 32]] * 9 and got["finite"]
+    assert got["shapes"] == [[2, 32]] * 10 and got["finite"]
+    assert got["segments"] >= 1
     for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
                 "hirest_tpu_torch.ops.quant",
                 "hirest_tpu_torch.models.eva_clip",
@@ -143,7 +172,16 @@ def test_port_imports_and_runs_without_jax():
                 "hirest_tpu_torch.utils.meters",
                 "hirest_tpu_torch.utils.profiling",
                 "hirest_tpu_torch.infer.pipeline",
-                "hirest_tpu_torch.run"):
+                "hirest_tpu_torch.run",
+                "hirest_tpu_torch.tokenizers.gpt2_bpe",
+                "hirest_tpu_torch.extraction.mel",
+                "hirest_tpu_torch.extraction.audio",
+                "hirest_tpu_torch.extraction.whisper_decode",
+                "hirest_tpu_torch.extraction.asr",
+                "hirest_tpu_torch.models.whisper",
+                "hirest_tpu_torch.models.minilm",
+                "hirest_tpu_torch.infer.custom_video",
+                "hirest_tpu_torch.pipeline_custom_video"):
         assert mod in got["modules"]
     assert got["analysis"] == ["moment_bounds", "prompt", "steps", "video"]
 
@@ -232,3 +270,44 @@ def test_chip_smoke_fails_without_gpu():
                        timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_asr_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    from hirest_tpu_torch.extraction.asr import (TorchWhisperTranscriber,
+                                                 embed_srt_dir)
+    from hirest_tpu_torch.models.minilm import make_minilm_embedder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchWhisperTranscriber({}, decode_text_fn=str)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_minilm_embedder({}, str(tmp_path / "vocab.txt"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        embed_srt_dir(str(tmp_path), str(tmp_path / "out"),
+                      pretrained_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize("cli", [
+    ["hirest_tpu_torch.extraction.asr", "--audio_dir", "{t}",
+     "--asr_dir", "{t}/srt", "--ckpt", "{t}/whisper.bin"],
+    ["hirest_tpu_torch.extraction.asr", "--embed", "--asr_dir", "{t}",
+     "--save_dir", "{t}/emb", "--pretrained_dir", "{t}"],
+    ["hirest_tpu_torch.pipeline_custom_video", "--video", "{t}/v.mp4",
+     "--prompt", "make pancakes", "--work_dir", "{t}/work"]])
+def test_asr_and_custom_video_clis_refuse_cpu_fallback(tmp_path, cli):
+    """`python -m hirest_tpu_torch.extraction.asr` (transcription with the
+    port's Whisper, and --embed) and `python -m
+    hirest_tpu_torch.pipeline_custom_video` with no GPU visible raise
+    before any work unless given --device cpu."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    args = [a.format(t=tmp_path) for a in cli]
+    r = subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not any(p.name in ("srt", "emb", "work")
+                   for p in tmp_path.iterdir())
+    r = subprocess.run([sys.executable, "-m", *args, "--device", "cpu"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "no CUDA device" not in r.stderr

@@ -233,3 +233,53 @@ def write_split(root, n_videos: int = 4, prompts=("make pancakes",
             anns[prompt] = videos
         (data / f"all_data_{split}.json").write_text(json.dumps(anns))
     return data, feats, pre
+
+
+# Whisper: the tiny config of tests/test_whisper.py:24 (d=64, 2 + 2 layers,
+# 4 heads, a 200-token vocabulary), and the decode tests' (d=32, 1 + 1
+# layers, the real .en vocabulary of 51864 so the special tokens exist)
+WHISPER_TINY = dict(num_mel_bins=80, d_model=64, encoder_layers=2,
+                    decoder_layers=2, heads=4, ffn_dim=128,
+                    max_source_positions=100, max_target_positions=50,
+                    vocab_size=200)
+WHISPER_DECODE = dict(d_model=32, encoder_layers=1, decoder_layers=1,
+                      heads=2, ffn_dim=64)
+
+
+def whisper_state_dict(spec: dict, seed: int = 0) -> dict:
+    """Seeded HF-named Whisper state dict (float32 numpy), the q and k
+    projections scaled up (scores of order one)."""
+    from hirest_tpu_torch.models.whisper import WhisperConfig
+    from hirest_tpu_torch.utils.init import random_whisper_state_dict
+
+    sd = random_whisper_state_dict(WhisperConfig(**spec), seed=seed)
+    for k in sd:
+        if k.endswith(("q_proj.weight", "k_proj.weight")):
+            sd[k] = sd[k] * np.float32(QKV_GAIN)
+    return sd
+
+
+def write_byte_vocab(root, n_tokens: int = 50257) -> tuple:
+    """A byte-level GPT-2 BPE pair under root (`vocab.json`, `merges.txt`)
+    with ids 0 .. n_tokens - 1: the 256 byte symbols, then merged pairs of
+    them in a fixed order, `<|endoftext|>` last (id 50256 at the default
+    size), so every text id a Whisper decode can emit decodes to bytes.
+    Returns (vocab path, merges path)."""
+    import json
+    from pathlib import Path
+
+    from hirest_tpu_torch.tokenizers.gpt2_bpe import bytes_to_unicode
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    sym = [bytes_to_unicode()[b] for b in range(256)]
+    # printable symbols first, so the earliest merges are letter pairs
+    order = sorted(range(256), key=lambda b: (not chr(b).isalnum(), b))
+    pairs = [(sym[a], sym[b]) for a in order for b in order][
+        : n_tokens - 257]
+    tokens = sym + [a + b for a, b in pairs] + ["<|endoftext|>"]
+    vocab, merges = root / "vocab.json", root / "merges.txt"
+    vocab.write_text(json.dumps({t: i for i, t in enumerate(tokens)}))
+    merges.write_text("#version: 0.2\n" + "\n".join(f"{a} {b}"
+                                                     for a, b in pairs))
+    return str(vocab), str(merges)
