@@ -59,7 +59,13 @@ Phases; any failure exits non-zero before the result line is printed:
             multiple of the persistent grid's rows) with a row of zeros,
             K5 on rows whose quotients land on k + 1/2, and the row
             kernels' quotients y / s against PyTorch's IEEE division on every
-            element.
+            element. The f32 body (attention_f32.cu) through every
+            wrapper, within 1e-5 of the largest output with TF32 off: K6
+            at ViT-B/32's [B, 12, 50, 64] and EVA-g's [B, 16, 257, 88],
+            K7 packed at d = 128, K1/K9's layout with n_real = 257 of 264
+            (d = 88 and 128), K8's with nonzero biases, B = 2 and 128, one
+            batch row's keys all masked, 33 queries over 600 keys; and
+            bf16 K6 at ViT-B/32's [B, 12, 50, 64].
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -95,10 +101,17 @@ Phases; any failure exits non-zero before the result line is printed:
             scanned towers against the unpadded CPU paths at >= 0.99; the
             unrolled int8 tower (both quant_attention) against its own CPU
             f32 path at >= 0.99 and the float unrolled one at >= 0.98.
+            Then the f32 paths, 2 layers, card against CPU within 1e-5 of
+            the largest value: build_eva_model_and_transforms(dtype=
+            torch.float32) scanned (2 K1 f32) and unrolled (2 K6 f32),
+            padded unrolled (K7 f32) and padded scanned (K1 f32 at
+            d = 128), the scanned forward's v1 (K8 f32) and v2 (K9 f32),
+            each with its launch counts, and the text tower.
 7. timing   frames/s at B=128 for every encoder, factory and ladder
             forward, text prompts/s, and each kernel's ms per call beside
             its plain version, one library call computing the same function
-            (or its int8 products, for K4), and the card's bound; the
+            (or its int8 products, for K4; SDPA in f32 for the f32 body),
+            and the card's bound; the
             unrolled int8 tower's frames/s and one profiled forward of
             each.
 8. profile  where one forward's device time goes, by group of kernels, and
@@ -180,6 +193,28 @@ Phases; any failure exits non-zero before the result line is printed:
             steps on one fixed batch lower each task's loss; (e) no port
             kernel launched; (f) steps/s a task, one step's device time
             and idle share, peak memory.
+12. eval     the evaluation and zero-shot retrieval entry points at full
+            width on seeded random weights, in a temp directory laid out as
+            a user's (pretrained_weights/ViT-B-32.pt, eva_clip_psz14.pt
+            from the factory's weights, bertscore.bin at bert-base width,
+            nli/ at bert-base width as model.safetensors; a split of 8
+            prompts, 16 test and 16 negative videos with JPEG frames and
+            features): inference_video_retrieval's flow for clip --raw_frame
+            (f32: 12 K6 f32 a forward; --fp16: 12 K6), clip_g from
+            features (no kernel), clip_g --raw_frame (bf16: 40 K6; f32 on
+            a 2-prompt split: 40 K6 f32), every other count 0, and its
+            main(argv) once; ViT-B/32 embeddings and scores and the EVA
+            text tower at full depth against the CPU f32 port within 1e-5;
+            bf16 embeddings at cosine >= 0.99 to f32; then `python -m
+            hirest_tpu_torch.evaluate`'s main for the four tasks on the
+            card and with --device cpu (moment segmentation with
+            --preprocess_moment_bounds; step captioning with CLIPScore,
+            BERTScore and the NLI cross-encoder): host metrics equal,
+            CLIPScore and BERTScore within 1e-5, NLI labels equal wherever
+            the CPU's top-2 margin exceeds the measured error; readings:
+            videos/s a run, CLIPScore ms a step and one step's idle share,
+            BERTScore and NLI pairs/s. (The EVA-g vision tower's f32
+            card-vs-CPU check is phase 6's 2-layer cut.)
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -208,6 +243,8 @@ VIDEOS = {"vid_a": (200, 199.6), "vid_b": (90, 88.4), "vid_c": (17, 17.0)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak
+F32_FLOP_PER_S = 67e12  # f32 FFMA on the CUDA cores (no TF32)
+F32_TOL = 1e-5  # the f32 attention body and f32 paths: of the largest |value|
 # f32 issue slots: 132 SMs x 4 schedulers x 32 lanes at the 1.98 GHz boost
 # clock. __fmul_rn / __fadd_rn issue one slot each, never paired as FMAs.
 ISSUE_SLOTS_PER_S = 132 * 4 * 32 * 1.98e9
@@ -283,15 +320,20 @@ def counters() -> dict:
                                             ln_bf16, ln_quant)
 
     return {"K1": (fused_attention_qkv3, "launches"),
+            "K1f32": (fused_attention_qkv3, "launches_f32"),
             "K2": (ln_quant, "launches"),
             "K3": (fused_attention_qkv3, "quant_launches"),
             "K4": (fused_mlp_int8, "launches"),
             "K5": (act_quant, "launches"),
             "K6": (fused_attention, "launches"),
+            "K6f32": (fused_attention, "launches_f32"),
             "K7": (fused_attention_packed, "launches"),
+            "K7f32": (fused_attention_packed, "launches_f32"),
             "K8": (fused_attention_qkv, "launches"),
+            "K8f32": (fused_attention_qkv, "launches_f32"),
             "K8q": (fused_attention_qkv, "quant_launches"),
             "K9": (fused_attention_qkv2, "launches"),
+            "K9f32": (fused_attention_qkv2, "launches_f32"),
             "K9q": (fused_attention_qkv2, "quant_launches"),
             "K10": (ln_bf16, "launches")}
 
@@ -427,6 +469,117 @@ def check_close(tag: str, got, want) -> float:
     require(bool(got.isfinite().all()) and err <= 2 ** -7 * top,
             f"{tag} off its plain version")
     return err
+
+
+def f32_inputs(batch: int, seed: int, tokens: int, hd: int):
+    """An f32 [B, S, 3 hd] projection at the trunk's scale."""
+    return torch.randn((batch, tokens, 3 * hd), generator=gen(seed),
+                       device="cuda") * 0.75
+
+
+def check_f32(tag: str, got, want) -> float:
+    """The f32 body against its plain version (TF32 off): within 1e-5 of
+    the output's largest magnitude. Returns the largest error."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    print(f"[kernels] {tag}: max_abs_err={err} max_err/max|ref|={err / top} "
+          f"tol={F32_TOL * top}")
+    require(got.dtype == torch.float32 and bool(got.isfinite().all())
+            and err <= F32_TOL * top, f"{tag} off its plain version")
+    return err
+
+
+def f32_checks() -> dict:
+    """attention_f32.cu through each wrapper against its plain version:
+    split heads at ViT-B/32's [B, 12, 50, 64] and EVA-g's
+    [B, 16, 257, 88] (B = 2 and 128), packed heads at d = 128, K1/K9's
+    layout with n_real = 257 of 264 (d = 88 and 128), K8's with nonzero
+    biases, one batch row's keys all masked, and 33 queries over 600 keys;
+    then bf16 K6 at ViT-B/32's shape. Returns the worst errors (K6: the
+    bf16 ViT-B/32 shape's)."""
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_packed_ref,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv2,
+                                                fused_attention_qkv2_ref,
+                                                fused_attention_qkv3,
+                                                fused_attention_qkv3_ref,
+                                                fused_attention_qkv_ref,
+                                                fused_attention_ref)
+
+    worst = dict.fromkeys(("K1f32", "K6f32", "K7f32", "K8f32", "K9f32"),
+                          0.0)
+
+    def note(key, err):
+        worst[key] = max(worst[key], err)
+
+    for batch in (2, BATCH):
+        for heads, tokens, d in ((12, 50, 64), (16, TOKENS, 88)):
+            q, k, v = split_views(f32_inputs(batch, 200 + batch + d, tokens,
+                                             heads * d), heads)
+            note("K6f32", check_f32(
+                f"K6 f32 fused_attention [{batch},{heads},{tokens},{d}]",
+                fused_attention(q, k, v, d ** -0.5),
+                fused_attention_ref(q, k, v, d ** -0.5)))
+        q, k, v = f32_inputs(batch, 210 + batch, TOKENS, PADDED_HD).chunk(3,
+                                                                          -1)
+        note("K7f32", check_f32(
+            f"K7 f32 fused_attention_packed [{batch},257,16*128]",
+            fused_attention_packed(q, k, v, 128 ** -0.5, 16),
+            fused_attention_packed_ref(q, k, v, 128 ** -0.5, 16)))
+        for d in (88, 128):
+            qkv = f32_inputs(batch, 220 + batch + d, 264, 16 * d)
+            shape = f"[{batch},264,{3 * 16 * d}] n_real={TOKENS}"
+            for key, fn, ref in (
+                    ("K1f32", fused_attention_qkv3, fused_attention_qkv3_ref),
+                    ("K9f32", fused_attention_qkv2, fused_attention_qkv2_ref)):
+                note(key, check_f32(
+                    f"{key[:2]} f32 {fn.__name__} {shape}",
+                    fn(qkv, d ** -0.5, 16, n_real=TOKENS),
+                    ref(qkv, d ** -0.5, 16, n_real=TOKENS)))
+    for batch, d in ((2, 88), (BATCH, 88), (2, 128)):
+        qkv = f32_inputs(batch, 230 + batch + d, TOKENS, 16 * d)
+        g = gen(231 + d)
+        qb, vb = (torch.randn(16 * d, generator=g, device="cuda") * 0.5
+                  for _ in range(2))
+        note("K8f32", check_f32(
+            f"K8 f32 fused_attention_qkv [{batch},{TOKENS},{3 * 16 * d}] "
+            f"biased", fused_attention_qkv(qkv, qb, vb, d ** -0.5, 16),
+            fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, 16)))
+    q, k, v, mask = masked_inputs(seed=240, valid=(15, 0))
+    q, k, v = q.float(), k.float(), v.float()
+    note("K6f32", check_f32(
+        "K6 f32 fused_attention [2,12,48,64] over 20 keys, 15 and 0 valid",
+        fused_attention(q, k, v, 0.125, mask),
+        fused_attention_ref(q, k, v, 0.125, mask)))
+    q, k, v, mask = masked_inputs(seed=241, sq=33, sk=600, valid=(590, 600),
+                                  heads=16, d=88)
+    q, k, v = q.float(), k.float(), v.float()
+    note("K6f32", check_f32(
+        "K6 f32 fused_attention [2,16,33,88] over 600 keys, 590 and 600 "
+        "valid", fused_attention(q, k, v, 88 ** -0.5, mask),
+        fused_attention_ref(q, k, v, 88 ** -0.5, mask)))
+    for seed, sq, sk, valid in ((242, 33, 600, (600, 600)),
+                                (243, 48, 20, (15, 0))):
+        q, k, v, mask = masked_inputs(seed=seed, sq=sq, sk=sk, valid=valid,
+                                      heads=16, d=128)
+        packed = [t.float().transpose(1, 2).flatten(2) for t in (q, k, v)]
+        note("K7f32", check_f32(
+            f"K7 f32 fused_attention_packed [2,{sq},16*128] over {sk} keys, "
+            f"{valid[0]} and {valid[1]} valid",
+            fused_attention_packed(*packed, 128 ** -0.5, 16, mask),
+            fused_attention_packed_ref(*packed, 128 ** -0.5, 16, mask)))
+    worst["K6"] = 0.0
+    for batch in (2, BATCH):
+        q, k, v = split_views(attention_inputs(batch, seed=250 + batch,
+                                               tokens=50, hd=12 * 64), 12)
+        worst["K6"] = max(worst["K6"], check_close(
+            f"K6 fused_attention [{batch},12,50,64]",
+            fused_attention(q, k, v, 0.125),
+            fused_attention_ref(q, k, v, 0.125)))
+    return worst
 
 
 ROW_EDGE_M = (1, 2, 257, 5000)  # 5000: not a multiple of any grid's rows
@@ -810,6 +963,9 @@ def phase_kernels(cfg) -> dict:
             fused_attention_qkv2_ref(qkv, scale, heads, quant_out=True,
                                      n_real=n_real), 0.99, 2 ** -7))
 
+    f32 = f32_checks()
+    worst["K6"] = max(worst["K6"], f32.pop("K6"))
+    worst.update(f32)
     worst.update(row_checks()[0])
     return worst
 
@@ -1126,11 +1282,12 @@ def phase_depth(cfg, pretrained: Path) -> np.ndarray:
     return frames
 
 
-def phase_factory_depth(cfg, text_cfg, weights: dict, frames) -> None:
+def phase_factory_depth(cfg, text_cfg, weights: dict, frames) -> dict:
     """The factory's towers cut to 2 layers, on the card in bf16 against the
     unpadded plain paths on the CPU in f32, at cosine >= 0.99: the text
     tower, the unrolled tower, the padded unrolled tower against the
-    unrolled one and the padded scanned tower against the scanned one."""
+    unrolled one and the padded scanned tower against the scanned one.
+    Returns the CPU's outputs (image by scan, text) and the prompts."""
     from dataclasses import replace
 
     from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
@@ -1166,6 +1323,79 @@ def phase_factory_depth(cfg, text_cfg, weights: dict, frames) -> None:
     print(f"[depth] 2 layers, text tower: bf16 card vs f32 CPU plain: "
           f"cosine min={cos.min():.6f} (>= {COS_MIN})")
     require(bool(cos.min() >= COS_MIN), f"2-layer text tower below {COS_MIN}")
+    return {"image": ref_image, "text": ref_text, "ids": ids}
+
+
+# f32 2-layer configuration -> (factory options, or build_scanned_vision_
+# apply flags under "scanned", launches a layer); the factory in f32 is
+# build_eva_model_and_transforms(dtype=torch.float32), which sends every
+# attention to the f32 body
+F32_DEPTH = {
+    "factory scan=True": (dict(scan=True), dict(K1f32=1)),
+    "factory scan=False": (dict(scan=False), dict(K6f32=1)),
+    "factory padded unrolled": (dict(scan=False, padded_heads=True),
+                                dict(K7f32=1)),
+    "factory padded scanned": (dict(scan=True, padded_heads=True),
+                               dict(K1f32=1)),
+    "scanned v1": (dict(scanned={}), dict(K8f32=1)),
+    "scanned v2": (dict(scanned=dict(attn_v2=True)), dict(K9f32=1)),
+}
+
+
+def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
+    """The f32 paths on the card, each cut to 2 layers, against the CPU's
+    f32 outputs of phase_factory_depth within 1e-5 of the largest value:
+    the factory with dtype=torch.float32 (scanned and unrolled, padded
+    heads or not; the padded ones against the unpadded CPU paths, an
+    identity), the scanned forward's v1 (K8's function) and v2 (K9's)
+    against the scanned CPU path, and the text tower. Launch counts zeroed
+    before each forward and read after. Returns the f32 launches."""
+    from dataclasses import replace
+
+    from hirest_tpu_torch.models.convert import eva_vision_state_dict
+    from hirest_tpu_torch.models.eva_clip import build_eva_model_and_transforms
+    from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
+
+    cut = replace(cfg, layers=2)
+    cuts = dict(text_config=replace(text_cfg, layers=2), vision_config=cut)
+    launches: dict = {}
+    for tag, (options, per_layer) in F32_DEPTH.items():
+        options = dict(options)
+        scanned = options.pop("scanned", None)
+        if scanned is None:
+            model = build_eva_model_and_transforms(
+                pretrained=weights, device="cuda", dtype=torch.float32,
+                **cuts, **options)[0]
+            encode, want = model.encode_image, ref["image"][options["scan"]]
+        else:
+            encode = build_scanned_vision_apply(
+                eva_vision_state_dict(weights), cut, dtype=torch.float32,
+                device="cuda", **scanned)
+            want = ref["image"][True]
+        zero_counts()
+        got = encode(frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(**{k: v * cut.layers for k, v in per_layer.items()})
+        require(counts == expected, f"f32 {tag} launches {counts}, expected "
+                                    f"{expected}")
+        got = got.cpu().numpy()
+        err = np.abs(got - want).max()
+        top = np.abs(want).max()
+        print(f"[f32] 2 layers, {tag}: f32 card vs f32 CPU plain: "
+              f"max_abs_err={err} of max|ref|={top}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        require(err <= F32_TOL * top, f"f32 2-layer {tag} beyond {F32_TOL}")
+        for k, v in counts.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+    got = model.encode_text(ref["ids"]).cpu().numpy()
+    err = np.abs(got - ref["text"]).max()
+    top = np.abs(ref["text"]).max()
+    print(f"[f32] 2 layers, text tower: f32 card vs f32 CPU plain: "
+          f"max_abs_err={err} of max|ref|={top}")
+    require(err <= F32_TOL * top, f"f32 2-layer text tower beyond {F32_TOL}")
+    return launches
 
 
 # the unrolled int8 tower (models/eva_quant.py): quant_attention -> tag
@@ -1525,7 +1755,65 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
             x10, (w,), g10.bfloat16(), b10.bfloat16(), EPS), 20),
         **bound(m * w * 2 * 2 + 2 * w * 4, ROW_SLOTS["K10"] * m * w,
                 ISSUE_SLOTS_PER_S)}
-    for name, r in {**res, **stages, **padded, **extra}.items():
+    # the f32 body (attention_f32.cu) through each wrapper: K6 at
+    # ViT-B/32's split heads [128, 12, 50, 64] (the eval path's), and at
+    # EVA-g's; K7 packed at d = 128; K1/K9's and K8's layouts at EVA-g's
+    # width; each beside SDPA in f32 on the same heads (K8's pre-biased)
+    qkv = f32_inputs(BATCH, 260, 50, 12 * 64)
+    q, k, v = split_views(qkv, 12)
+    res["K6f32"] = {
+        "ms": cuda_ms(lambda: fused_attention(q, k, v, 0.125), 20),
+        "plain_ms": cuda_ms(lambda: fused_attention_ref(q, k, v, 0.125), 5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=0.125), 20),
+        **bound(4 * q.numel() * 4, 2 * 2 * BATCH * 12 * 50 * 50 * 64,
+                F32_FLOP_PER_S)}
+    qkv = f32_inputs(BATCH, 261, TOKENS, w)
+    q, k, v = split_views(qkv)
+    f32_extra = {"K6f32 EVA-g [128,16,257,88]": {
+        "ms": cuda_ms(lambda: fused_attention(q, k, v, scale), 5),
+        "plain_ms": cuda_ms(lambda: fused_attention_ref(q, k, v, scale), 3),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 5),
+        **bound(4 * q.numel() * 4, attn_flops, F32_FLOP_PER_S)}}
+    res["K1f32"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv3(qkv, scale, heads), 5),
+        "plain_ms": cuda_ms(lambda: fused_attention_qkv3_ref(
+            qkv, scale, heads), 3),
+        "library_ms": f32_extra["K6f32 EVA-g [128,16,257,88]"]["library_ms"],
+        **bound((qkv.numel() + m * w) * 4, attn_flops, F32_FLOP_PER_S)}
+    res["K9f32"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv2(qkv, scale, heads), 5),
+        "plain_ms": cuda_ms(lambda: fused_attention_qkv2_ref(
+            qkv, scale, heads), 3),
+        "library_ms": res["K1f32"]["library_ms"],
+        **bound((qkv.numel() + m * w) * 4, attn_flops, F32_FLOP_PER_S)}
+    gb = gen(263)
+    qb32, vb32 = (torch.randn(w, generator=gb, device="cuda") * 0.5
+                  for _ in range(2))
+    qbh, vbh = (split_heads(t + bias, heads) for t, bias in
+                ((qkv[..., :w], qb32), (qkv[..., 2 * w:], vb32)))
+    res["K8f32"] = {
+        "ms": cuda_ms(lambda: fused_attention_qkv(qkv, qb32, vb32, scale,
+                                                  heads), 5),
+        "plain_ms": cuda_ms(lambda: fused_attention_qkv_ref(
+            qkv, qb32, vb32, scale, heads), 3),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qbh, k, vbh, scale=scale), 5),
+        **bound((qkv.numel() + 2 * w + m * w) * 4, attn_flops,
+                F32_FLOP_PER_S)}
+    pq, pk, pv = f32_inputs(BATCH, 262, TOKENS, PADDED_HD).chunk(3, -1)
+    sq, sk, sv = (split_heads(t, heads) for t in (pq, pk, pv))
+    res["K7f32"] = {
+        "ms": cuda_ms(lambda: fused_attention_packed(pq, pk, pv, p128,
+                                                     heads), 5),
+        "plain_ms": cuda_ms(lambda: fused_attention_packed_ref(
+            pq, pk, pv, p128, heads), 3),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, scale=p128), 5),
+        **bound(4 * pq.numel() * 4, flops128, F32_FLOP_PER_S)}
+    for name, r in {**res, **stages, **padded, **extra,
+                    **f32_extra}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
@@ -1613,6 +1901,14 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("gathers, scatters, index copies (embeddings)",
          ("index", "gather", "scatter", "Cat", "copy", "embedding")),
         ("elementwise (GELU, dropout, optimizer update)", ("elementwise",)),
+    ),
+    "clip": (
+        ("K6 f32 attention_f32 (CUDA)", ("attention_f32",)),
+        ("matmuls (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma",
+                                   "gemv")),
+        ("reductions (LayerNorm statistics, norms)", ("reduce",)),
+        ("copies, cat", ("copy", "Cat", "index")),
+        ("elementwise (QuickGELU, bias, residual, casts)", ("elementwise",)),
     ),
     "unrolled": (
         ("K6/K7 attention_split (CUDA)", ("attention_split",)),
@@ -3111,6 +3407,413 @@ def phase_training(card: str) -> None:
     print(f"[training] phase done in {time.perf_counter() - start:.1f} s")
 
 
+EVAL_PROMPTS = ("make oatmeal pancake mix", "fold a fitted sheet",
+                "boil an egg", "tie a tie", "plant a tree", "wash a car",
+                "bake bread", "sharpen a knife")
+EVAL_VIDEOS = 2  # test videos a prompt, and as many negative samples
+EVAL_FRAMES = 8  # --n_model_frames: one forward a video
+EVAL_SMALL = 2  # prompts of the small split (CPU comparisons, f32 EVA-g)
+BERT_BASE = dict(hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072)
+MODEL_SCORES = ("CLIPScore", "BERTScore_F1")
+NLI_SHARES = ("Entailment", "Contradiction", "Netural")
+# retrieval run -> (flags, data dir, launches a forward); a forward a video
+RETRIEVAL = {
+    "clip f32": (["--video_retrieval_model", "clip", "--raw_frame"],
+                 "splits", dict(K6f32=12)),
+    "clip bf16": (["--video_retrieval_model", "clip", "--raw_frame",
+                   "--fp16"], "splits", dict(K6=12)),
+    "clip_g features f32": (["--video_retrieval_model", "clip_g"], "splits",
+                            {}),
+    "clip_g bf16": (["--video_retrieval_model", "clip_g", "--raw_frame",
+                     "--fp16"], "splits", dict(K6=40)),
+    "clip_g f32": (["--video_retrieval_model", "clip_g", "--raw_frame"],
+                   "small", dict(K6f32=40)),
+}
+
+
+def write_eval_workspace(root: Path, weights: dict) -> dict:
+    """The eval phase's working directory, as a user of the two CLIs has
+    it: ./pretrained_weights (ViT-B-32.pt, seeded; eva_clip_psz14.pt, the
+    factory's weights; bertscore.bin at bert-base width with vocab.txt;
+    nli/ at bert-base width with an MNLI id2label, vocab.txt and
+    model.safetensors), ./data (a split of EVAL_PROMPTS with EVAL_VIDEOS
+    test videos and as many negatives a prompt, its formatted GT, a small
+    split of the first EVAL_SMALL prompts), JPEG frames at 1 fps,
+    [n_seconds, 1024] features, and seeded predictions for the moment
+    tasks and step captioning. Returns the split and the GT."""
+    from PIL import Image
+
+    from hirest_tpu_torch.eval.make_gt import build_formatted_gt
+    from hirest_tpu_torch.models.convert import save_safetensors
+    from hirest_tpu_torch.models.minilm import MiniLmConfig
+    from hirest_tpu_torch.utils.init import (random_clip_state_dict,
+                                             random_minilm_state_dict,
+                                             random_nli_state_dict)
+
+    pre = root / "pretrained_weights"
+    (pre / "nli").mkdir(parents=True)
+    t0 = time.perf_counter()
+    torch.save({k: torch.from_numpy(v) for k, v in
+                random_clip_state_dict(seed=0).items()}, pre / "ViT-B-32.pt")
+    torch.save({k: torch.as_tensor(v) for k, v in weights.items()},
+               pre / "eva_clip_psz14.pt")
+    words = [f"word{i}" for i in range(VOCAB_SIZE - 5)]
+    vocab = "\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                      + words) + "\n"
+    (pre / "vocab.txt").write_text(vocab)
+    (pre / "nli" / "vocab.txt").write_text(vocab)
+    bert = MiniLmConfig(**BERT_BASE)
+    torch.save({k: torch.from_numpy(v) for k, v in
+                random_minilm_state_dict(bert, seed=1).items()},
+               pre / "bertscore.bin")
+    nli_sd = random_nli_state_dict(bert, seed=2)
+    # the layers' weights 3x the init's, the head's 100x without biases:
+    # pairs that get all three labels
+    for k in nli_sd:
+        if k.startswith("bert.encoder") and k.endswith("dense.weight") or \
+                k.endswith(("query.weight", "key.weight", "value.weight")):
+            nli_sd[k] = nli_sd[k] * np.float32(3.0)
+        elif k.startswith(("classifier", "bert.pooler")):
+            nli_sd[k] = (nli_sd[k] * np.float32(100.0)
+                         if k.endswith("weight") else np.zeros_like(nli_sd[k]))
+    save_safetensors(pre / "nli" / "model.safetensors", nli_sd)
+    (pre / "nli" / "config.json").write_text(json.dumps({
+        "model_type": "bert", "vocab_size": VOCAB_SIZE,
+        "max_position_embeddings": 512, "type_vocab_size": 2,
+        "layer_norm_eps": 1e-12, **BERT_BASE,
+        "id2label": {"0": "contradiction", "1": "neutral",
+                     "2": "entailment"}}))
+    print(f"[eval] checkpoints written in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(12)
+    splits = {}
+    for split in ("test", "test_negative_samples"):
+        anns = {}
+        for p, prompt in enumerate(EVAL_PROMPTS):
+            videos = {}
+            for v in range(EVAL_VIDEOS):
+                name = f"{split[:4]}{split[-1]}_{p}_{v}.mp4"
+                duration = float(rng.integers(16, 31)) + 0.4
+                start = int(rng.integers(1, 4))
+                end = int(duration) - int(rng.integers(1, 4))
+                cuts = np.sort(rng.choice(np.arange(start + 2, end - 1), 2,
+                                          replace=False)).tolist()
+                edges = [start, *cuts, end]
+                videos[name] = {
+                    "relevant": True, "clip": True, "v_duration": duration,
+                    "bounds": [start, end],
+                    "steps": [{"index": i, "heading": " ".join(
+                        words[j] for j in rng.integers(0, 2000, 4)),
+                        "absolute_bounds": [edges[i], edges[i + 1]]}
+                        for i in range(3)]}
+            anns[prompt] = videos
+        splits[split] = anns
+    for d in ("splits", "small", "evaluation"):
+        (root / "data" / d).mkdir(parents=True)
+    for split, anns in splits.items():
+        (root / "data" / "splits" / f"all_data_{split}.json").write_text(
+            json.dumps(anns))
+        small = {p: anns[p] for p in EVAL_PROMPTS[:EVAL_SMALL]}
+        (root / "data" / "small" / f"all_data_{split}.json").write_text(
+            json.dumps(small))
+    gt = build_formatted_gt(splits["test"])
+    (root / "data" / "evaluation" /
+     "formatted_moment_evaluation_gt.json").write_text(json.dumps(gt))
+
+    (root / "feats").mkdir()
+    t0 = time.perf_counter()
+    for anns in splits.values():
+        for videos in anns.values():
+            for name, ann in videos.items():
+                n = round(ann["v_duration"])
+                np.save(root / "feats" / f"{name}.npy",
+                        rng.normal(size=(n, 1024)).astype(np.float32))
+                d = root / "frames" / name
+                d.mkdir(parents=True)
+                for i in range(1, n + 1):
+                    Image.fromarray(rng.integers(0, 256, (96, 128, 3),
+                                                 dtype=np.uint8)).save(
+                        d / f"frame_{i:04d}.jpg", quality=90)
+    print(f"[eval] frames and features written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    test = splits["test"]
+    mr = {p: {v: {"bounds": (np.asarray(a["bounds"]) + rng.integers(
+        -3, 4, 2)).tolist()} for v, a in test[p].items()} for p in test}
+    ms = {v: {"bounds": (np.asarray(g["bounds"]) + rng.integers(
+        -2, 3, (len(g["bounds"]), 2))).tolist()} for v, g in gt.items()}
+    heads = [c["sentence"] for g in gt.values() for c in g["captions"]]
+    sc = {v: {"captions": [{"sentence": heads[int(rng.integers(len(heads)))]}
+                           for _ in g["captions"]]} for v, g in gt.items()}
+    (root / "preds").mkdir()
+    for name, obj in (("mr", mr), ("ms", ms), ("sc", sc)):
+        (root / "preds" / f"{name}.json").write_text(json.dumps(obj))
+    return {"test": test, "gt": gt, "sc": sc}
+
+
+def retrieval_run(argv: list, device: str) -> tuple:
+    """What `python -m hirest_tpu_torch.inference_video_retrieval` runs
+    (inference_video_retrieval.main: the towers, then run_video_retrieval),
+    with the launch counts zeroed after the towers are built and read after
+    the scoring: (result, seconds of the scoring, counts, (encode_text,
+    encode_image))."""
+    from hirest_tpu_torch.config import HirestConfig
+    from hirest_tpu_torch.infer.retrieval import run_video_retrieval
+    from hirest_tpu_torch.inference_video_retrieval import _build_towers
+    from hirest_tpu_torch.models.eva_clip import preprocess_image
+
+    config = HirestConfig.from_args(argv + ["--device", device])
+    towers = _build_towers(config, torch.device(device))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_video_retrieval(config, *towers,
+                              preprocess_image if config.raw_frame else None)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts(), towers
+
+
+def eval_close(tag: str, got, want, tol: float = F32_TOL) -> float:
+    """got against want (both on the host) within tol of want's largest
+    magnitude; returns the error."""
+    got = got.detach().float().cpu().numpy() if isinstance(
+        got, torch.Tensor) else np.asarray(got, np.float32)
+    want = want.detach().float().cpu().numpy() if isinstance(
+        want, torch.Tensor) else np.asarray(want, np.float32)
+    err = float(np.abs(got - want).max())
+    top = float(np.abs(want).max())
+    print(f"[eval] {tag}: max_abs_err={err} of max|ref|={top}")
+    require(got.shape == want.shape and err <= tol * top,
+            f"{tag} beyond {tol}")
+    return err
+
+
+def frame_batch(root: Path, video: str) -> np.ndarray:
+    """EVAL_FRAMES preprocessed frames of one video, as the retrieval CLI
+    samples them."""
+    from PIL import Image
+
+    from hirest_tpu_torch.models.eva_clip import preprocess_image
+    from hirest_tpu_torch.timeline import subsample_indices
+
+    paths = sorted((root / "frames" / video).glob("frame_*.jpg"))
+    return np.stack([preprocess_image(Image.open(paths[i]).convert("RGB"))
+                     for i in subsample_indices(len(paths), EVAL_FRAMES)])
+
+
+def eval_retrieval(root: Path, weights: dict, split: dict,
+                   card: str) -> dict:
+    """The retrieval CLI's runs (RETRIEVAL) on the card, their launch
+    counts and videos/s; main(argv) itself once; the card against the
+    port's CPU f32 towers and run; bf16 against f32. Returns the f32
+    run's JSON path and the launches."""
+    from hirest_tpu_torch.config import EvaTextConfig
+    from hirest_tpu_torch.inference_video_retrieval import main as vr_main
+    from hirest_tpu_torch.models.eva_clip import eva_text_encoder
+    from hirest_tpu_torch.tokenizers import clip_tokenize
+
+    base = ["--video_feature_dir", "feats", "--video_dir", "frames",
+            "--pretrained_dir", "pretrained_weights", "--n_model_frames",
+            str(EVAL_FRAMES)]
+    launches: dict = {}
+    towers, results = {}, {}
+    for tag, (flags, data, per_forward) in RETRIEVAL.items():
+        argv = base + flags + ["--data_dir", f"data/{data}", "--run_name",
+                               tag.replace(" ", "_")]
+        res, secs, counts, towers[tag] = retrieval_run(argv, "cuda")
+        results[tag] = res
+        videos = len(next(iter(res.values()))["videos"])
+        want = expect(**{k: v * videos for k, v in per_forward.items()})
+        print(f"[eval] {card}: retrieval {tag}: {len(res)} prompts x "
+              f"{videos} videos in {secs:.3f} s, {videos / secs:.2f} "
+              f"videos/s; launches { {k: v for k, v in counts.items() if v} }")
+        require(counts == want, f"retrieval {tag} launches {counts}, "
+                                f"expected {want}")
+        for prompt, row in res.items():
+            require(len(row["scores"]) == videos
+                    and bool(np.isfinite(row["scores"]).all()),
+                    f"retrieval {tag}: scores of {prompt!r}")
+        launches.update({k: launches.get(k, 0) + v
+                         for k, v in counts.items() if v})
+
+    # the entry point itself gives the decomposed run's JSON
+    zero_counts()
+    got = vr_main(base + RETRIEVAL["clip f32"][0] + [
+        "--data_dir", "data/splits", "--run_name", "clip_f32_main",
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    main_counts = read_counts()
+    for k, v in main_counts.items():
+        if v:
+            launches[k] = launches.get(k, 0) + v
+    eval_close("inference_video_retrieval.main clip f32 vs run_video_"
+               "retrieval", [r["scores"] for r in got.values()],
+               [r["scores"] for r in results["clip f32"].values()])
+
+    # ViT-B/32 at full depth, the card against the CPU f32 towers and run
+    ids = clip_tokenize(list(EVAL_PROMPTS))
+    frames = frame_batch(root, next(iter(split["test"][EVAL_PROMPTS[0]])))
+    cpu_argv = base + RETRIEVAL["clip f32"][0] + ["--data_dir", "data/small",
+                                                 "--run_name", "clip_cpu"]
+    cpu_res, _, _, (cpu_text, cpu_image) = retrieval_run(cpu_argv, "cpu")
+    card_small = retrieval_run(cpu_argv[:-1] + ["clip_small"], "cuda")[0]
+    text, image = towers["clip f32"]
+    eval_close("ViT-B/32 text embeddings, card vs CPU f32", text(ids),
+               cpu_text(ids))
+    eval_close("ViT-B/32 image embeddings, card vs CPU f32", image(frames),
+               cpu_image(frames))
+    eval_close("ViT-B/32 retrieval scores (small split), card vs CPU f32",
+               [r["scores"] for r in card_small.values()],
+               [r["scores"] for r in cpu_res.values()])
+    # the EVA-CLIP-g text tower at full depth
+    cpu_eva_text = eva_text_encoder(weights, EvaTextConfig(), torch.float32,
+                                    torch.device("cpu"))
+    eval_close("EVA-CLIP-g text embeddings, card vs CPU f32",
+               towers["clip_g features f32"][0](ids), cpu_eva_text(ids))
+    # bf16 against f32 on the card
+    for what, bf16, f32 in (
+            ("ViT-B/32 text", towers["clip bf16"][0](ids), text(ids)),
+            ("ViT-B/32 image", towers["clip bf16"][1](frames),
+             image(frames)),
+            ("EVA-CLIP-g text", towers["clip_g bf16"][0](ids),
+             towers["clip_g features f32"][0](ids)),
+            ("EVA-CLIP-g image", towers["clip_g bf16"][1](frames),
+             towers["clip_g f32"][1](frames))):
+        cos = cosine(bf16.float().cpu().numpy(), f32.float().cpu().numpy())
+        print(f"[eval] {what} embeddings bf16 vs f32 on the card: min "
+              f"cosine {cos.min():.6f} (>= {COS_MIN})")
+        require(bool(cos.min() >= COS_MIN), f"{what} bf16 off f32")
+    return {"vr_json": "VR_results/clip_f32.json", "launches": launches}
+
+
+def eval_tasks(split: dict, vr_json: str, card: str) -> None:
+    """`python -m hirest_tpu_torch.evaluate`'s main for the four tasks on
+    the card and with --device cpu: host metrics equal; CLIPScore and
+    BERTScore within 1e-5; entailment labels equal wherever the CPU's top-2
+    margin exceeds the measured logit error (the shares may differ only by
+    the pairs under it; the logits' error is printed, not bounded: the
+    sharpened head's logits reach ~100). Then the scorers' readings on the
+    card."""
+    from hirest_tpu_torch.eval import cli
+    from hirest_tpu_torch.models.nli import make_nli_entailment_fn
+
+    tasks = {
+        "video_retrieval": ["--pred_data", vr_json],
+        "moment_retrieval": ["--pred_data", "preds/mr.json"],
+        "moment_segmentation": ["--pred_data", "preds/ms.json",
+                                "--preprocess_moment_bounds"],
+        "step_captioning": ["--pred_data", "preds/sc.json", "--frame_dir",
+                            "frames"]}
+    for task, extra in tasks.items():
+        argv = ["--task", task, "--data_root", "data", *extra]
+        t0 = time.perf_counter()
+        got = cli.main(argv + ["--device", "cuda"])
+        t1 = time.perf_counter()
+        want = cli.main(argv + ["--device", "cpu"])
+        t2 = time.perf_counter()
+        print(f"[eval] {card}: evaluate --task {task}: card {t1 - t0:.2f} "
+              f"s, CPU {t2 - t1:.2f} s; card {got['all']}")
+        if task != "step_captioning":
+            require(got == want and bool(got["all"]),
+                    f"evaluate {task}: card {got} vs CPU {want}")
+            continue
+        g, w = got["all"], want["all"]
+        require(set(g) == set(w) and set(MODEL_SCORES + NLI_SHARES) <= set(g),
+                f"step_captioning keys {sorted(g)} vs {sorted(w)}")
+        for k in MODEL_SCORES:
+            print(f"[eval] step_captioning {k}: card {g[k]!r}, CPU {w[k]!r}, "
+                  f"|diff| {abs(g[k] - w[k])}")
+            require(abs(g[k] - w[k]) <= F32_TOL * max(1.0, abs(w[k])),
+                    f"step_captioning {k} beyond {F32_TOL}")
+        host = [k for k in w if k not in MODEL_SCORES + NLI_SHARES]
+        require({k: g[k] for k in host} == {k: w[k] for k in host},
+                "step_captioning host metrics differ")
+
+    # the entailment labels pair by pair: the evaluator's (reference,
+    # candidate) pairs, lowercased, in its order
+    gt, sc = split["gt"], split["sc"]
+    pairs = [(c["sentence"].lower(),
+              sc[v]["captions"][i]["sentence"].lower())
+             for v in gt for i, c in enumerate(gt[v]["captions"])]
+    nli_dir = "pretrained_weights/nli"
+    card_fn = make_nli_entailment_fn(nli_dir, device="cuda")
+    cpu_fn = make_nli_entailment_fn(nli_dir, device="cpu")
+    lc, lp = card_fn.logits(pairs), cpu_fn.logits(pairs)
+    err = float(np.abs(lc - lp).max())
+    top2 = np.sort(lp, 1)
+    margin = top2[:, -1] - top2[:, -2]
+    clear = margin > err
+    same = lc.argmax(1) == lp.argmax(1)
+    print(f"[eval] NLI logits over {len(pairs)} pairs, card vs CPU: "
+          f"max_abs_err={err} of max|ref|={np.abs(lp).max()}; labels "
+          f"{np.bincount(lp.argmax(1), minlength=3).tolist()} (CPU), "
+          f"{int(same.sum())} equal, {int((~clear).sum())} pairs with a "
+          f"top-2 margin under the error")
+    require(bool(np.isfinite(lc).all()) and bool(same[clear].all()),
+            "NLI labels differ where the CPU's top-2 margin is clear")
+    require(all(abs(g[k] - w[k]) <= 100 * int((~clear).sum()) / len(pairs)
+                for k in NLI_SHARES), "entailment shares differ")
+
+    # readings on the card
+    clip_fn = cli._try_build_clipscore("frames", "pretrained_weights",
+                                       device="cuda")
+    steps = [(v, sc[v]["captions"][i]["sentence"].lower(), c["start"],
+              c["end"]) for v in gt for i, c in enumerate(gt[v]["captions"])]
+    clip_fn(*steps[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in steps:
+        clip_fn(*step)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
+    print(f"[eval] {card}: CLIPScore {step_ms:.2f} ms a step (4 frames "
+          f"decoded and preprocessed on the host, ViT-B/32 f32 on the "
+          f"card), {len(steps)} steps")
+    profile_call("one CLIPScore step", lambda: clip_fn(*steps[0]), card,
+                 "clip", tag="eval")
+    bs = cli._try_build_bertscore("pretrained_weights", device="cuda")
+    cands, refs = [h for _, h in pairs], [p for p, _ in pairs]
+    bs(cands, refs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs(cands, refs)
+    torch.cuda.synchronize()
+    rate = len(pairs) / (time.perf_counter() - t0)
+    print(f"[eval] {card}: BERTScore (bert-base width) {rate:.1f} pairs/s "
+          f"over {len(pairs)} pairs")
+    card_fn.batch(pairs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_fn.batch(pairs)
+    torch.cuda.synchronize()
+    rate = len(pairs) / (time.perf_counter() - t0)
+    print(f"[eval] {card}: NLI cross-encoder (bert-base width) {rate:.1f} "
+          f"pairs/s over {len(pairs)} pairs")
+
+
+def phase_eval(weights: dict, card: str) -> dict:
+    """The evaluation and zero-shot retrieval entry points at full width on
+    seeded random weights, in a temp directory that holds what a user's
+    working directory does (write_eval_workspace). Returns the launches."""
+    import os
+    import tempfile
+
+    start = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        split = write_eval_workspace(root, weights)
+        os.chdir(root)
+        try:
+            res = eval_retrieval(root, weights, split, card)
+            eval_tasks(split, res["vr_json"], card)
+        finally:
+            os.chdir(cwd)
+    print(f"[eval] {card}: phase done in {time.perf_counter() - start:.1f} s")
+    return res["launches"]
+
+
 SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "K1": ("fused_attention_qkv3",
            "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
@@ -3143,6 +3846,22 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
             "hirest_tpu/ops/attention.py:378"),
     "K10": ("ln_bf16", "hirest_tpu_torch/ops/csrc/ln_quant.cu",
             "hirest_tpu/ops/quant.py:220"),
+    # the f32 body, one kernel for each wrapper's f32 inputs
+    "K6f32": ("fused_attention (float32)",
+              "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+              "hirest_tpu/ops/attention.py:69"),
+    "K7f32": ("fused_attention_packed (float32)",
+              "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+              "hirest_tpu/ops/attention.py:188"),
+    "K1f32": ("fused_attention_qkv3 (float32)",
+              "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+              "hirest_tpu/ops/attention.py:471"),
+    "K9f32": ("fused_attention_qkv2 (float32)",
+              "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+              "hirest_tpu/ops/attention.py:349"),
+    "K8f32": ("fused_attention_qkv (float32)",
+              "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+              "hirest_tpu/ops/attention.py:551"),
 }
 
 
@@ -3580,7 +4299,8 @@ def main() -> int:
     factory = phase_factory(cfg, text_cfg, weights)
     ladder = phase_ladder(cfg, weights)
     frames = phase_depth(cfg, pretrained)
-    phase_factory_depth(cfg, text_cfg, weights, frames)
+    cpu_refs = phase_factory_depth(cfg, text_cfg, weights, frames)
+    f32_launches = phase_f32_depth(cfg, text_cfg, weights, frames, cpu_refs)
     phase_ladder_depth(cfg, frames)
     int8_tower = phase_int8_tower(cfg, weights, factory)
     phase_int8_tower_depth(cfg, weights, frames)
@@ -3590,9 +4310,13 @@ def main() -> int:
     phase_serving(main_res, card)
     phase_asr(main_res, card)
     phase_training(card)
+    eval_launches = phase_eval(weights, card)
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}
     launches["K6"] += int8_tower["launches"]
+    for part in (f32_launches, eval_launches):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -33,6 +33,19 @@ def _host(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def load_retrieval_split(data_dir: str, split: str):
+    """(prompts, video_fnames) with the reference's per-(prompt, video)
+    enumeration order (inference_video_retrieval.py:87-106)."""
+    with open(os.path.join(data_dir, f"all_data_{split}.json")) as f:
+        data = json.load(f)
+    prompts, videos = [], []
+    for prompt in data:
+        prompts.append(prompt)
+        for video in data[prompt]:
+            videos.append(video)
+    return prompts, videos
+
+
 def encode_texts(encode_text_fn: Callable, prompts: Sequence[str],
                  batch_size: int = 32) -> np.ndarray:
     """Batch-encode prompts -> L2-normalized [P, D]."""
@@ -129,3 +142,40 @@ def score_and_dump(prompts: Sequence[str], video_ids: Sequence[str],
         json.dump(results, f, indent=4)
     print(f"Saved results to {path}")
     return results
+
+
+def run_video_retrieval(config, encode_text_fn, encode_image_fn=None,
+                        preprocess_fn=None) -> dict:
+    """The whole retrieval flow (the reference __main__, lines 150-355):
+    the test split's prompts against its videos and the negative samples',
+    from features, or with `config.raw_frame` from the extracted frames
+    under `config.video_dir`; writes VR_results/{run_name}.json."""
+    prompts, test_videos = load_retrieval_split(config.data_dir, "test")
+    _, distractors = load_retrieval_split(config.data_dir,
+                                          "test_negative_samples")
+    all_videos = test_videos + distractors
+    print(f"Number of prompts: {len(prompts)}")
+    print(f"Number of videos: {len(all_videos)}")
+
+    text_embeds = encode_texts(encode_text_fn, prompts,
+                               config.eval_batch_size)
+
+    if config.raw_frame:
+        # the extracted-frames root is its own flag (reference
+        # inference_video_retrieval.py:221 uses args.video_dir): neither the
+        # splits dir nor the feature dir
+        if not config.video_dir:
+            raise ValueError(
+                "--raw_frame needs --video_dir: the root of per-video "
+                "extracted frame directories (see extraction/frames.py)")
+        video_embeds = encode_videos_from_frames(
+            config.video_dir, all_videos, encode_image_fn, preprocess_fn,
+            config.n_model_frames, batch_size=config.eval_batch_size,
+            save_feature_dir=(config.video_feature_dir if config.save_feats
+                              else None))
+    else:
+        video_embeds = encode_videos_from_features(
+            config.video_feature_dir, all_videos, config.n_model_frames)
+
+    return score_and_dump(prompts, all_videos, text_embeds, video_embeds,
+                          config.run_name)

@@ -1,5 +1,6 @@
 """Checkpoint loading and JAX-tree conversion for the EVA towers, the
-joint model, Whisper and MiniLM.
+joint model, Whisper, MiniLM, the OpenAI CLIP towers and the NLI
+cross-encoder.
 
 The port's modules use the reference's state-dict names, so a torch
 checkpoint needs no renaming: `eva_vision_state_dict` and
@@ -8,15 +9,23 @@ checkpoint needs no renaming: `eva_vision_state_dict` and
 (`normalize_joint_keys`) and the position-table enlargement that the JAX
 converters apply (hirest_tpu/models/convert.py:125-258).
 `eva_vision_from_jax`, `eva_text_from_jax`, `moment_model_from_jax`,
-`whisper_from_jax` and `minilm_from_jax` invert the JAX package's
+`whisper_from_jax`, `minilm_from_jax`, `clip_from_jax`,
+`clip_resnet_from_jax` and `nli_from_jax` invert the JAX package's
 `convert_eva_vision`, `convert_eva_text`, `convert_moment_model`,
-`convert_whisper_encoder`/`_decoder` and `convert_minilm`, turning its
-flax parameter trees back into state dicts: that is how weights are carried
-from one package to the other.
+`convert_whisper_encoder`/`_decoder`, `convert_minilm`,
+`convert_clip_text`/`convert_clip_vision`, `convert_clip_resnet` and
+`convert_nli`, turning its flax parameter trees back into state dicts:
+that is how weights are carried from one package to the other.
+
+`load_safetensors` reads the `.safetensors` format itself (the
+`safetensors` package is not needed) and `save_safetensors` writes it: an
+8-byte little-endian header length, a JSON header of dtype, shape and byte
+offsets per tensor, then the raw little-endian buffers.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Mapping
 
@@ -24,10 +33,77 @@ import numpy as np
 import torch
 from torch import nn
 
+# safetensors dtype -> the numpy dtype of its buffer (BF16 is read as its
+# 16 bits and widened to f32 by a shift)
+_SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2",
+                       "BF16": "<u2", "I64": "<i8", "I32": "<i4",
+                       "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
+
+
+def load_safetensors(path: str) -> dict:
+    """A `.safetensors` file -> {key: CPU tensor in the file's dtype}
+    (F64, F32, F16, BF16, I64, I32, I16, I8, U8, BOOL)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8:8 + n])
+    base = 8 + n
+    out = {}
+    for key, info in header.items():
+        if key == "__metadata__":
+            continue
+        kind = info["dtype"]
+        if kind not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {key} has unsupported dtype {kind}")
+        lo, hi = info["data_offsets"]
+        a = np.frombuffer(data, dtype=_SAFETENSORS_DTYPES[kind],
+                          count=(hi - lo) // np.dtype(
+                              _SAFETENSORS_DTYPES[kind]).itemsize,
+                          offset=base + lo).reshape(info["shape"])
+        if kind == "BF16":
+            t = torch.from_numpy((a.astype(np.uint32) << 16).view(np.float32)
+                                 ).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.astype(a.dtype.newbyteorder("="),
+                                          copy=True))
+        out[key] = t
+    return out
+
+
+def save_safetensors(path, arrays: Mapping) -> None:
+    """Write {key: numpy array or CPU tensor} (F32, F16, I64, ...; no BF16)
+    as a `.safetensors` file, the keys sorted as the format's writers sort
+    them, each buffer 8-byte aligned."""
+    names = {np.dtype(v).str.lstrip("<|="): k
+             for k, v in _SAFETENSORS_DTYPES.items() if k != "BF16"}
+    header, blobs, offset = {}, [], 0
+    for key in sorted(arrays):
+        v = arrays[key]
+        a = np.ascontiguousarray(v.numpy() if isinstance(v, torch.Tensor)
+                                 else v)
+        kind = names.get(a.dtype.newbyteorder("<").str.lstrip("<|="))
+        if kind is None:
+            raise ValueError(f"{key}: no safetensors dtype for {a.dtype}")
+        raw = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[key] = {"dtype": kind, "shape": list(a.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
 
 def load_torch_ckpt(path: str) -> dict:
     """Load a torch checkpoint (.pt/.bin, optionally wrapped in
-    `state_dict`) into a flat {key: float32 tensor} dict on the CPU."""
+    `state_dict`) or a `.safetensors` file into a flat {key: float32
+    tensor} dict on the CPU."""
+    if str(path).endswith(".safetensors"):
+        return {k: v.float() for k, v in load_safetensors(path).items()}
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -133,17 +209,10 @@ def eva_vision_from_jax(params: Mapping) -> dict:
     return sd
 
 
-def eva_text_from_jax(params: Mapping) -> dict:
-    """JAX `EvaTextTower` parameters ({"params": {...}} or bare, numpy
-    leaves) -> the port's state dict (the reference's `text.*` names
-    without the prefix): the inverse of `convert_eva_text`."""
-    p = params["params"] if "params" in params else params
-    sd = {
-        "token_embedding.weight": _t(p["token_embedding"]["embedding"]),
-        "positional_embedding": _t(p["positional_embedding"]),
-        **_norm("ln_final", p["ln_final"]),
-        "text_projection": _t(p["text_projection"]),
-    }
+def _resblocks(p: Mapping) -> dict:
+    """The flax TextBlocks `block_i` of a text or CLIP tower -> torch
+    `transformer.resblocks.i.*` keys (nn.MultiheadAttention's packing)."""
+    sd = {}
     for i in range(_blocks(p)):
         blk, r = p[f"block_{i}"], f"transformer.resblocks.{i}"
         sd.update(_norm(f"{r}.ln_1", blk["ln_1"]))
@@ -154,6 +223,89 @@ def eva_text_from_jax(params: Mapping) -> dict:
         sd.update(_linear(f"{r}.attn.out_proj", blk["attn"]["out"]))
         sd.update(_linear(f"{r}.mlp.c_fc", blk["mlp_c_fc"]))
         sd.update(_linear(f"{r}.mlp.c_proj", blk["mlp_c_proj"]))
+    return sd
+
+
+def eva_text_from_jax(params: Mapping) -> dict:
+    """JAX `EvaTextTower` parameters ({"params": {...}} or bare, numpy
+    leaves) -> the port's state dict (the reference's `text.*` names
+    without the prefix): the inverse of `convert_eva_text`."""
+    p = params["params"] if "params" in params else params
+    return {
+        "token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+        "positional_embedding": _t(p["positional_embedding"]),
+        **_norm("ln_final", p["ln_final"]),
+        "text_projection": _t(p["text_projection"]),
+        **_resblocks(p),
+    }
+
+
+def clip_from_jax(text_params: Mapping, vision_params: Mapping = None,
+                  logit_scale: float = None) -> dict:
+    """JAX `ClipTextTower` (and `ClipVisionTower`) parameters ({"params":
+    {...}} or bare, numpy leaves) -> an OpenAI CLIP state dict: the text
+    keys at the top level, the vision keys under `visual.`, and
+    `logit_scale` (its log) when given: the inverse of `convert_clip_text`
+    and `convert_clip_vision`. The patch kernel [p*p*3, width] in (row,
+    col, channel) order goes back to conv1's [width, 3, p, p]."""
+    sd = eva_text_from_jax(text_params)
+    if vision_params is not None:
+        p = vision_params["params"] if "params" in vision_params \
+            else vision_params
+        visual = {
+            "conv1.weight": patch_conv(_t(p["patch_embed"]["kernel"])),
+            "class_embedding": _t(p["class_embedding"]),
+            "positional_embedding": _t(p["positional_embedding"]),
+            **_norm("ln_pre", p["ln_pre"]),
+            **_norm("ln_post", p["ln_post"]),
+            "proj": _t(p["proj"]),
+            **_resblocks(p),
+        }
+        sd.update({f"visual.{k}": v for k, v in visual.items()})
+    if logit_scale is not None:
+        sd["logit_scale"] = torch.tensor(np.log(logit_scale),
+                                         dtype=torch.float32)
+    return sd
+
+
+def clip_resnet_from_jax(params: Mapping, eps: float = 1e-5) -> dict:
+    """JAX `ClipResNetTower` parameters ({"params": {...}} or bare, numpy
+    leaves) -> the port's ClipResNetTower state dict (the reference's
+    names without `visual.`): flax conv kernels [kh, kw, in, out] -> torch
+    [out, in, kh, kw]; each folded affine (scale, bias) -> a BatchNorm with
+    weight = scale, bias = bias, running mean 0 and running variance
+    1 - eps, which gives x * scale + bias again."""
+    p = params["params"] if "params" in params else params
+
+    def conv(tree):
+        return _t(tree["kernel"]).permute(3, 2, 0, 1).contiguous()
+
+    def bn(prefix, tree):
+        n = np.asarray(tree["scale"]).shape[0]
+        return {f"{prefix}.weight": _t(tree["scale"]),
+                f"{prefix}.bias": _t(tree["bias"]),
+                f"{prefix}.running_mean": torch.zeros(n),
+                f"{prefix}.running_var": torch.full((n,), 1.0 - eps)}
+
+    sd = {}
+    for i in (1, 2, 3):
+        sd[f"conv{i}.weight"] = conv(p[f"conv{i}"])
+        sd.update(bn(f"bn{i}", p[f"bn{i}"]))
+    for name, blk in p.items():
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        if m is None:
+            continue
+        r = f"layer{m[1]}.{m[2]}"
+        for i in (1, 2, 3):
+            sd[f"{r}.conv{i}.weight"] = conv(blk[f"conv{i}"])
+            sd.update(bn(f"{r}.bn{i}", blk[f"bn{i}"]))
+        if "down_conv" in blk:
+            sd[f"{r}.downsample.0.weight"] = conv(blk["down_conv"])
+            sd.update(bn(f"{r}.downsample.1", blk["down_bn"]))
+    pool = p["attnpool"]
+    sd["attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd.update(_linear(f"attnpool.{name}", pool[name]))
     return sd
 
 
@@ -346,6 +498,17 @@ def whisper_from_jax(enc_params: Mapping, dec_params: Mapping) -> dict:
     sd.update(_norm("decoder.layer_norm", d["layer_norm"]))
     sd.update(_whisper_layers("decoder", d, cross=True))
     return sd
+
+
+def nli_from_jax(params: Mapping) -> dict:
+    """JAX `NliCrossEncoder` parameters ({"params": {...}} or bare, numpy
+    leaves) -> an HF `BertForSequenceClassification` state dict (`bert.*`,
+    `bert.pooler.dense`, `classifier`): the inverse of `convert_nli`."""
+    p = params["params"] if "params" in params else params
+    return {**{f"bert.{k}": v
+               for k, v in minilm_from_jax(p["encoder"]).items()},
+            **_linear("bert.pooler.dense", p["pooler"]),
+            **_linear("classifier", p["classifier"])}
 
 
 def minilm_from_jax(params: Mapping) -> dict:

@@ -21,7 +21,9 @@ EVA_clip/eva_model.py:177-250 for `text.*`), so the two parts of
   the q/v biases added after the split, exact-erf GELU, and the
   split-heads attention kernel (K6), or the packed one (K7) once the heads
   are padded to 128 (models/eva_pad.py).
-- `EvaTextTower` (with `TextBlock`) is the flax `EvaTextTower`.
+- `EvaTextTower` (with `TextBlock`) is the flax `EvaTextTower`. `TextBlock`
+  and the tower take `act`: "gelu" (exact erf, the EVA tower's) or
+  "quick_gelu" (the OpenAI CLIP towers of models/openai_clip.py).
 - `build_eva_model_and_transforms` is the factory
   `build_eva_model_and_transforms` (reference EVA_clip/eva_clip.py:155-171).
 """
@@ -43,8 +45,8 @@ from hirest_tpu_torch.models.convert import (eva_text_state_dict,
                                              eva_vision_state_dict,
                                              load_into, load_torch_ckpt,
                                              patch_kernel)
-from hirest_tpu_torch.models.layers import (MultiHeadAttention, causal_mask,
-                                            gelu, gelu_bf16_poly,
+from hirest_tpu_torch.models.layers import (ACTIVATIONS, MultiHeadAttention,
+                                            causal_mask, gelu, gelu_bf16_poly,
                                             layer_norm_fast_var, merge_heads,
                                             split_heads)
 from hirest_tpu_torch.ops.attention import (fused_attention,
@@ -274,34 +276,41 @@ class TextMlp(nn.Module):
 
 
 class TextBlock(nn.Module):
-    """Pre-LN residual attention block (eva_model.py:110-159)."""
+    """Pre-LN residual attention block (eva_model.py:110-159); also the
+    OpenAI CLIP block with act="quick_gelu". `cfg` gives width, heads and
+    norm_eps. With bias None (the CLIP vision tower) the attention takes
+    the kernels (MultiHeadAttention)."""
 
-    def __init__(self, cfg: EvaTextConfig, mlp_ratio: float = 4.0):
+    def __init__(self, cfg: EvaTextConfig, mlp_ratio: float = 4.0,
+                 act: str = "gelu"):
         super().__init__()
+        self.act = ACTIVATIONS[act]
         self.ln_1 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
         self.attn = MultiHeadAttention(cfg.width, cfg.heads,
                                        cfg.width // cfg.heads, mode="fused")
         self.ln_2 = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
         self.mlp = TextMlp(cfg.width, int(cfg.width * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
         x = x + self.attn(layer_norm_fast_var(x, self.ln_1), bias)
-        h = gelu(self.mlp.c_fc(layer_norm_fast_var(x, self.ln_2)))
+        h = self.act(self.mlp.c_fc(layer_norm_fast_var(x, self.ln_2)))
         return x + self.mlp.c_proj(h)
 
 
 class EvaTextTower(nn.Module):
-    """CLIP text encoder: token ids [B, T <= 77] -> [B, 1024] f32, in the
-    working dtype of its parameters."""
+    """CLIP text encoder: token ids [B, T <= 77] -> [B, embed_dim] f32, in
+    the working dtype of its parameters."""
 
-    def __init__(self, cfg: EvaTextConfig = EvaTextConfig()):
+    def __init__(self, cfg: EvaTextConfig = EvaTextConfig(),
+                 act: str = "gelu"):
         super().__init__()
         self.cfg = cfg
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
         self.positional_embedding = nn.Parameter(
             torch.zeros(cfg.context_length, cfg.width))
         self.transformer = nn.ModuleDict({"resblocks": nn.ModuleList(
-            TextBlock(cfg) for _ in range(cfg.layers))})
+            TextBlock(cfg, act=act) for _ in range(cfg.layers))})
         self.ln_final = nn.LayerNorm(cfg.width, eps=cfg.norm_eps)
         self.text_projection = nn.Parameter(
             torch.zeros(cfg.width, cfg.embed_dim))

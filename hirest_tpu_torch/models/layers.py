@@ -1,7 +1,8 @@
 """Shared building blocks of the EVA towers and the caption stack.
 
 Counterparts of hirest_tpu/models/layers.py: `gelu` (the EVA towers'
-torch GELU) and `gelu_erfc` (its jax.nn.gelu form), `gelu_bf16_poly`,
+torch GELU) and `gelu_erfc` (its jax.nn.gelu form), `quick_gelu` (OpenAI
+CLIP's) and `ACTIVATIONS`, `gelu_bf16_poly`,
 `causal_mask`, `dot_product_attention`, `split_heads`, `merge_heads` and
 `MultiHeadAttention` (its `fused` and `fused_qv_bias` modes, the EVA text
 and vision attentions, and its `separate` mode without an output
@@ -23,6 +24,14 @@ from torch import nn
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, as torch's default nn.GELU in the EVA towers."""
     return F.gelu(x, approximate="none")
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """OpenAI CLIP's QuickGELU: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 
 def gelu_erfc(x: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,15 @@ PyTorch version (`*_ref`) only for a tensor on the CPU. Their softmaxes
 differ, as the TPU kernels' do: v2 and v3 round the unnormalised exp2
 probabilities to the input dtype and divide after PV; K6, K7 and K8 scale
 the f32 scores, normalise p in f32 and then round it.
+
+Those kernels take bf16. A float32 CUDA tensor (the JAX kernels compute in
+the dtype they are given, and the CLIP towers and the f32 EVA factory hand
+them f32) goes to `csrc/attention_f32.cu`, one f32 body on the CUDA cores
+for every bf16-out form (K1/K9 on views of the pre-biased qkv, n_real as
+the number of keys; K6/K7 with the key mask; K8 with the biases), counted
+apart in each wrapper's `launches_f32`. In f32 the two softmax forms differ
+only in the order of roundings. The int8-out forms (K3, K8 and K9 with
+quant_out) take bf16 only.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from hirest_tpu_torch.ops.quant import dyn_quant_rows
 
 LOG2E = 1.4426950408889634
 QKV3_HEAD_WIDTHS = (88, 128)  # head widths attention_qkv3.cu is built for
-SPLIT_HEAD_WIDTHS = (64, 88, 128)  # and attention_split.cu
+SPLIT_HEAD_WIDTHS = (64, 88, 128)  # and attention_split.cu, attention_f32.cu
 
 
 def _split(qkv_biased: torch.Tensor, num_heads: int):
@@ -105,8 +114,8 @@ def _launch_qkv3(qkv_biased: torch.Tensor, scale: float, num_heads: int,
                          f"{tuple(qkv_biased.shape)}")
     b, s, hd, d = _split(qkv_biased, num_heads)
     if qkv_biased.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bfloat16, got "
-                        f"{qkv_biased.dtype}")
+        raise TypeError(f"the CUDA kernel takes bfloat16 (float32 only with "
+                        f"bf16-out, not quant_out), got {qkv_biased.dtype}")
     if d not in QKV3_HEAD_WIDTHS:
         raise ValueError(f"the CUDA kernel is built for head widths "
                          f"{QKV3_HEAD_WIDTHS}, got {d}")
@@ -149,12 +158,18 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous
     bf16 with head width 88 or 128 (padded heads) and launches the kernel
-    on the current stream;
+    on the current stream, or f32 without quant_out (head width 64, 88 or
+    128), which launches the f32 body;
     anything else raises. `fused_attention_qkv3.launches` counts bf16-out
-    launches (K1), `fused_attention_qkv3.quant_launches` int8-out ones (K3)."""
+    launches (K1), `fused_attention_qkv3.quant_launches` int8-out ones (K3),
+    `.launches_f32` f32 ones."""
     if not _on_cuda(qkv_biased):
         return fused_attention_qkv3_ref(qkv_biased, scale, num_heads,
                                         quant_out=quant_out, n_real=n_real)
+    if qkv_biased.dtype == torch.float32 and not quant_out:
+        out = _launch_qkv_f32(qkv_biased, scale, num_heads, n_real)
+        fused_attention_qkv3.launches_f32 += 1
+        return out
     out = _launch_qkv3(qkv_biased, scale, num_heads, quant_out, n_real)
     if quant_out:
         fused_attention_qkv3.quant_launches += 1
@@ -165,6 +180,7 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
 
 fused_attention_qkv3.launches = 0
 fused_attention_qkv3.quant_launches = 0
+fused_attention_qkv3.launches_f32 = 0
 
 
 # --- K9: v2, the same function head by head on the TPU --------------------
@@ -181,12 +197,17 @@ def fused_attention_qkv2(qkv_biased: torch.Tensor, scale: float,
     batches them; that is TPU scheduling, and attention_qkv3.cu already
     walks (batch row, query tile, head) items, so a CUDA tensor launches
     that kernel. `rows_per_cell` (grid cells per launch on the TPU) is not
-    carried. A CPU tensor takes the plain version.
+    carried. A CPU tensor takes the plain version; an f32 CUDA tensor
+    without quant_out the f32 body.
     `fused_attention_qkv2.launches` counts bf16-out launches,
-    `.quant_launches` int8-out ones."""
+    `.quant_launches` int8-out ones, `.launches_f32` f32 ones."""
     if not _on_cuda(qkv_biased):
         return fused_attention_qkv2_ref(qkv_biased, scale, num_heads,
                                         quant_out=quant_out, n_real=n_real)
+    if qkv_biased.dtype == torch.float32 and not quant_out:
+        out = _launch_qkv_f32(qkv_biased, scale, num_heads, n_real)
+        fused_attention_qkv2.launches_f32 += 1
+        return out
     out = _launch_qkv3(qkv_biased, scale, num_heads, quant_out, n_real)
     if quant_out:
         fused_attention_qkv2.quant_launches += 1
@@ -197,6 +218,7 @@ def fused_attention_qkv2(qkv_biased: torch.Tensor, scale: float,
 
 fused_attention_qkv2.launches = 0
 fused_attention_qkv2.quant_launches = 0
+fused_attention_qkv2.launches_f32 = 0
 
 
 # --- K6 and K7: softmax attention over split or packed heads ---------------
@@ -267,22 +289,25 @@ def split_occupancy(d: int, sq: int, *, bias: bool = False,
             "smem_bytes": smem.value}
 
 
-def _check_split(q, k, v, key_mask):
-    """Check [B, H, S, D] views for attention_split.cu -> ((B, H, Sq, Sk,
-    D), the int32 key mask on q's device or None)."""
+def _check_split(q, k, v, key_mask, dtype=torch.bfloat16):
+    """Check [B, H, S, D] views for attention_split.cu (bf16: 16-byte
+    aligned rows) or attention_f32.cu (f32) -> ((B, H, Sq, Sk, D), the
+    int32 key mask on q's device or None)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not make one attention")
     for t in (q, k, v):
-        if t.device != q.device or t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bfloat16 q, k and v on "
+        if t.device != q.device or t.dtype != dtype:
+            raise TypeError(f"the CUDA kernel takes {dtype} q, k and v on "
                             f"one device, got {t.dtype} on {t.device}")
-        if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError("q, k and v need a unit last stride, the other "
-                             "strides a multiple of 8 and 16-byte alignment")
+        if t.stride(-1) != 1:
+            raise ValueError("q, k and v need a unit last stride")
+        if dtype == torch.bfloat16 and (any(st % 8 for st in t.stride()[:3])
+                                        or t.data_ptr() % 16):
+            raise ValueError("bf16 q, k and v need strides a multiple of 8 "
+                             "and 16-byte alignment")
     if d not in SPLIT_HEAD_WIDTHS:
         raise ValueError(f"the CUDA kernel is built for head widths "
                          f"{SPLIT_HEAD_WIDTHS}, got {d}")
@@ -309,6 +334,64 @@ def _bias_arg(bias, n: int, device):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _f32_lib() -> ctypes.CDLL:
+    lib = build.load("attention_f32")
+    ints = [ctypes.c_int] * 5  # B, H, Sq, Sk, D
+    lib.hirest_attention_f32.argtypes = (
+        [ctypes.c_void_p] * 7 + ints
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
+    lib.hirest_attention_f32.restype = ctypes.c_int
+    return lib
+
+
+def _launch_f32(q, k, v, key_mask, out, scale: float, q_bias=None,
+                v_bias=None) -> None:
+    """Launch attention_f32.cu on f32 [B, H, S, D] views (any batch, head
+    and row strides, unit last stride) into the f32 [B, H, Sq, D] view
+    `out`, with the key mask [B, Sk] and the biases [H*D] (each or None)."""
+    (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask, torch.float32)
+    if out.dtype != torch.float32 or out.stride(-1) != 1:
+        raise ValueError("out must be an f32 view with a unit last stride")
+    qb, vb = (None if t is None else
+              t.reshape(-1).to(device=q.device, dtype=torch.float32)
+              .contiguous() for t in (q_bias, v_bias))
+    for t in (qb, vb):
+        if t is not None and t.numel() != h * d:
+            raise ValueError(f"expected a bias of {h * d} values, got "
+                             f"{t.numel()}")
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    lib = _f32_lib()
+    with torch.cuda.device(q.device):
+        err = lib.hirest_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(qb),
+            _ptr(vb), out.data_ptr(), b, h, sq, sk, d, strides, scale,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "attention_f32 launch")
+
+
+def _launch_qkv_f32(qkv_biased: torch.Tensor, scale: float, num_heads: int,
+                    n_real: int) -> torch.Tensor:
+    """K1/K9's function on f32 [B, S, 3*H*d] pre-biased qkv through the f32
+    body: the q, k and v thirds as head views, the keys cut to the first
+    n_real (when n_real > 0; the reference's -1e30 scores of the others
+    give them exactly 0 weight) -> [B, S, H*d] f32."""
+    if qkv_biased.dim() != 3:
+        raise ValueError(f"expected [B, S, 3*H*d], got "
+                         f"{tuple(qkv_biased.shape)}")
+    b, s, hd, _ = _split(qkv_biased, num_heads)
+    if n_real < 0:
+        raise ValueError(f"n_real must be >= 0, got {n_real}")
+    n_keys = min(n_real, s) if n_real else s
+    q, k, v = (split_heads(t, num_heads) for t in qkv_biased.chunk(3, -1))
+    out = torch.empty((b, s, hd), dtype=torch.float32,
+                      device=qkv_biased.device)
+    _launch_f32(q, k[:, :, :n_keys], v[:, :, :n_keys], None,
+                split_heads(out, num_heads), scale)
+    return out
 
 
 def _launch_split(q, k, v, key_mask, out, scale: float, q_bias=None,
@@ -360,9 +443,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     (K and V streamed through shared memory, so any Sk): bf16 views with a
-    unit last stride, head width 64, 88 or 128; anything else raises. The
-    output lies in [B, Sq, H, D] memory, so merging the heads back is a
-    view. `fused_attention.launches` counts launches."""
+    unit last stride, head width 64, 88 or 128, or f32 views, which take
+    the f32 body; anything else raises. The output lies in [B, Sq, H, D]
+    memory, so merging the heads back is a view.
+    `fused_attention.launches` counts bf16 launches, `.launches_f32` f32
+    ones."""
     if not _on_cuda(q):
         return fused_attention_ref(q, k, v, scale, key_mask)
     if q.dim() != 4:
@@ -370,6 +455,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, sq, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    if q.dtype == torch.float32:
+        _launch_f32(q, k, v, key_mask, out, scale)
+        fused_attention.launches_f32 += 1
+        return out
     _launch_split(q, k, v, key_mask, out, scale)
     fused_attention.launches += 1
     return out
@@ -382,7 +471,8 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Sk, H*D] -> [B, Sq, H*D] (K7), the function of `fused_attention`
     with the heads left in place. A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel under `fused_attention`'s conditions.
-    `fused_attention_packed.launches` counts launches."""
+    `fused_attention_packed.launches` counts bf16 launches, `.launches_f32`
+    f32 ones."""
     if not _on_cuda(q):
         return fused_attention_packed_ref(q, k, v, scale, num_heads,
                                           key_mask)
@@ -391,13 +481,19 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     q, k, v, o = (split_heads(t, num_heads) for t in (q, k, v, out))
+    if q.dtype == torch.float32:
+        _launch_f32(q, k, v, key_mask, o, scale)
+        fused_attention_packed.launches_f32 += 1
+        return out
     _launch_split(q, k, v, key_mask, o, scale)
     fused_attention_packed.launches += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.launches_f32 = 0
 fused_attention_packed.launches = 0
+fused_attention_packed.launches_f32 = 0
 
 
 # --- K8: v1, fused qkv with the q/v biases added in the kernel ------------
@@ -434,17 +530,26 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
     bf16 with head width 64, 88 or 128, any S, and launches
     attention_split.cu on the q, k and v thirds as views, the biases added
     in bf16 as the kernel loads q and as each V tile lands in shared
-    memory; anything else raises.
+    memory; or f32 without quant_out, which launches the f32 body on the
+    same views with the biases added in f32; anything else raises.
     `fused_attention_qkv.launches` counts bf16-out launches,
-    `.quant_launches` int8-out ones."""
+    `.quant_launches` int8-out ones, `.launches_f32` f32 ones."""
     if not _on_cuda(qkv):
         return fused_attention_qkv_ref(qkv, q_bias, v_bias, scale, num_heads,
                                        quant_out=quant_out)
     if qkv.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got {tuple(qkv.shape)}")
     b, s, hd, d = _split(qkv, num_heads)
+    if qkv.dtype == torch.float32 and not quant_out:
+        out = torch.empty((b, s, hd), dtype=qkv.dtype, device=qkv.device)
+        q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
+        _launch_f32(q, k, v, None, split_heads(out, num_heads), scale,
+                    q_bias, v_bias)
+        fused_attention_qkv.launches_f32 += 1
+        return out
     if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 qkv, got "
+        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 qkv "
+                        f"(float32 only with bf16-out, not quant_out), got "
                         f"{qkv.dtype}")
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
     qb, vb = (_bias_arg(t, hd, qkv.device) for t in (q_bias, v_bias))
@@ -460,3 +565,4 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
 
 fused_attention_qkv.launches = 0
 fused_attention_qkv.quant_launches = 0
+fused_attention_qkv.launches_f32 = 0

@@ -6,8 +6,9 @@ near 1. The tower-wide tensors are drawn first and the blocks after them in
 order, so a config with fewer layers gets the same weights as the first
 blocks of a deeper one (a depth-cut run checks the full model's weights).
 Key names are the EVA reference's, without the `visual.` or `text.` prefix,
-the joint checkpoint's for `random_moment_state_dict`, and HF's for
-Whisper and MiniLM.
+the joint checkpoint's for `random_moment_state_dict`, HF's for Whisper,
+MiniLM and the NLI cross-encoder, and OpenAI CLIP's for
+`random_clip_state_dict`.
 """
 
 from __future__ import annotations
@@ -152,3 +153,42 @@ def random_minilm_state_dict(cfg=None, seed: int = 0) -> dict:
     cfg = cfg or MiniLmConfig()
     return _draw(_module_shapes(lambda: MiniLmEncoder(cfg)), seed,
                  ("LayerNorm.weight",))
+
+
+def random_clip_state_dict(text_cfg=None, vision_cfg=None,
+                           seed: int = 0) -> dict:
+    """OpenAI-CLIP-named ViT state dict of float32 numpy arrays (ViT-B/32's
+    shape by default): the text keys at the top level, the vision keys
+    under `visual.`, LayerNorm weights near 1, and `logit_scale` at
+    log(1 / 0.07), CLIP's initial temperature."""
+    from hirest_tpu_torch.models.openai_clip import (CLIP_B32_TEXT,
+                                                     ClipVisionConfig,
+                                                     ClipVisionTower)
+
+    text_cfg = text_cfg or CLIP_B32_TEXT
+    vision_cfg = vision_cfg or ClipVisionConfig()
+    shapes = dict(eva_text_shapes(text_cfg))
+    shapes.update({f"visual.{k}": s for k, s in _module_shapes(
+        lambda: ClipVisionTower(vision_cfg)).items()})
+    sd = _draw(shapes, seed, ("ln_1.weight", "ln_2.weight", "ln_final.weight",
+                              "ln_pre.weight", "ln_post.weight"))
+    sd["logit_scale"] = np.array(np.log(1 / 0.07), dtype=np.float32)
+    return sd
+
+
+def random_nli_state_dict(cfg=None, num_labels: int = 3,
+                          seed: int = 0) -> dict:
+    """HF `BertForSequenceClassification`-named NLI state dict of float32
+    numpy arrays (`bert.*`, `bert.pooler.dense`, `classifier`; MiniLM-L6's
+    shape by default); LayerNorm weights near 1."""
+    from hirest_tpu_torch.models.minilm import MiniLmConfig, MiniLmEncoder
+
+    cfg = cfg or MiniLmConfig()
+    h = cfg.hidden_size
+    shapes = {f"bert.{k}": s for k, s in
+              _module_shapes(lambda: MiniLmEncoder(cfg)).items()}
+    shapes.update({"bert.pooler.dense.weight": (h, h),
+                   "bert.pooler.dense.bias": (h,),
+                   "classifier.weight": (num_labels, h),
+                   "classifier.bias": (num_labels,)})
+    return _draw(shapes, seed, ("LayerNorm.weight",))

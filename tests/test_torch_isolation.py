@@ -1,12 +1,15 @@
 """The port stands alone: every hirest_tpu_torch module imports and tiny
 forwards (the scanned tower in each kernel flag configuration, unrolled,
 text, one `analyze` request through the serving engine, a Whisper
-transcription under the decoding rules, MiniLM) run with jax and flax
-blocked, without loading any hirest_tpu module; its entry points (the
-encoder, the factory, the unrolled int8 tower, the serving engine and its
-server, the run CLI, the Whisper transcriber, the MiniLM embedder, the ASR
-and custom-video CLIs) refuse to fall back to the CPU on their own; and
-chip_smoke.py refuses to report success where there is no GPU."""
+transcription under the decoding rules, MiniLM, the CLIP text and vision
+towers, the ResNet tower, the NLI cross-encoder, the eval metrics) run with
+jax and flax blocked, without loading any hirest_tpu module; its entry
+points (the encoder, the factory, the unrolled int8 tower, the serving
+engine and its server, the run CLI, the Whisper transcriber, the MiniLM
+embedder, the ASR and custom-video CLIs, the CLIP towers, the scorers and
+the evaluation and retrieval CLIs) refuse to fall back to the CPU on their
+own; and chip_smoke.py refuses to report success where there is no
+GPU."""
 
 import json
 import os
@@ -109,6 +112,32 @@ mcfg = MiniLmConfig(vocab_size=50, hidden_size=32, num_hidden_layers=1,
                     num_attention_heads=4, intermediate_size=64)
 outs.append(load_minilm(random_minilm_state_dict(mcfg), mcfg, "cpu")(
     torch.ones((2, 5), dtype=torch.long), torch.ones((2, 5))))
+from hirest_tpu_torch.models.clip_resnet import (ClipResNetConfig,
+                                                 ClipResNetTower)
+from hirest_tpu_torch.models.nli import load_nli
+from hirest_tpu_torch.models.openai_clip import (ClipVisionConfig,
+                                                 load_clip_towers)
+from hirest_tpu_torch.utils.init import (random_clip_state_dict,
+                                         random_nli_state_dict)
+from hirest_tpu_torch.eval.metrics import evaluate_video_retrieval
+ccfg = ClipVisionConfig(image_size=64, layers=1, width=64, heads=1,
+                        patch_size=32, embed_dim=32)
+ctext = EvaTextConfig(context_length=8, vocab_size=50, width=64, heads=1,
+                      layers=1, embed_dim=32)
+ctower, vtower = load_clip_towers(random_clip_state_dict(ctext, ccfg),
+                                  device="cpu", text_cfg=ctext,
+                                  vision_cfg=ccfg)
+outs += [ctower(torch.tensor([[3, 49, 0, 0, 0, 0, 0, 0]] * 2)),
+         vtower(torch.zeros(2, 64, 64, 3)),
+         ClipResNetTower(ClipResNetConfig(layers=(1, 1, 1, 1), output_dim=32,
+                                          heads=2, image_size=64,
+                                          width=16)).eval()(
+             torch.zeros(2, 64, 64, 3))[:, :32]]
+nli_logits = load_nli(random_nli_state_dict(mcfg), mcfg, 3, "cpu")(
+    torch.ones((2, 5), dtype=torch.long), torch.ones((2, 5)),
+    torch.zeros((2, 5), dtype=torch.long))
+vr = evaluate_video_retrieval({"p": {"v.mp4": {}}}, {"p": {
+    "videos": ["v.mp4", "w.mp4"], "scores": [0.9, 0.1]}})
 shutil.rmtree(tmp)
 loaded = [m for m in sys.modules
           if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
@@ -117,6 +146,7 @@ print(json.dumps({"modules": names,
                   "finite": all(bool(o.isfinite().all()) for o in outs),
                   "analysis": sorted(analysis),
                   "segments": len(asr_out["segments"]),
+                  "nli": list(nli_logits.shape), "vr": vr["all"]["R@1"],
                   "loaded": loaded}))
 """
 
@@ -134,8 +164,9 @@ def test_port_imports_and_runs_without_jax():
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
-    assert got["shapes"] == [[2, 32]] * 10 and got["finite"]
+    assert got["shapes"] == [[2, 32]] * 13 and got["finite"]
     assert got["segments"] >= 1
+    assert got["nli"] == [2, 3] and got["vr"] == 100.0
     for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
                 "hirest_tpu_torch.ops.quant",
                 "hirest_tpu_torch.models.eva_clip",
@@ -181,7 +212,18 @@ def test_port_imports_and_runs_without_jax():
                 "hirest_tpu_torch.models.whisper",
                 "hirest_tpu_torch.models.minilm",
                 "hirest_tpu_torch.infer.custom_video",
-                "hirest_tpu_torch.pipeline_custom_video"):
+                "hirest_tpu_torch.pipeline_custom_video",
+                "hirest_tpu_torch.eval.metrics", "hirest_tpu_torch.eval.coco",
+                "hirest_tpu_torch.eval.meteor",
+                "hirest_tpu_torch.eval.captions",
+                "hirest_tpu_torch.eval.make_gt",
+                "hirest_tpu_torch.eval.bertscore",
+                "hirest_tpu_torch.eval.cli", "hirest_tpu_torch.evaluate",
+                "hirest_tpu_torch.models.openai_clip",
+                "hirest_tpu_torch.models.clip_resnet",
+                "hirest_tpu_torch.models.nli",
+                "hirest_tpu_torch.inference_video_retrieval",
+                "hirest_tpu_torch.extraction.download"):
         assert mod in got["modules"]
     assert got["analysis"] == ["moment_bounds", "prompt", "steps", "video"]
 
@@ -311,3 +353,48 @@ def test_asr_and_custom_video_clis_refuse_cpu_fallback(tmp_path, cli):
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "no CUDA device" not in r.stderr
+
+
+def test_clip_and_scorers_refuse_cpu_fallback(monkeypatch, tmp_path):
+    from hirest_tpu_torch.eval.bertscore import make_bertscore_fn
+    from hirest_tpu_torch.models.nli import make_nli_entailment_fn
+    from hirest_tpu_torch.models.openai_clip import (
+        build_clip_from_state_dict, load_clip_towers)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: load_clip_towers({}),
+                 lambda: build_clip_from_state_dict({}),
+                 lambda: make_bertscore_fn({}, str(tmp_path / "vocab.txt")),
+                 lambda: make_nli_entailment_fn(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+@pytest.mark.parametrize("cli", [
+    ["hirest_tpu_torch.evaluate", "--task", "video_retrieval",
+     "--pred_data", "{t}/missing.json", "--data_root", "{t}"],
+    ["hirest_tpu_torch.evaluate", "--task", "video_retrieval",
+     "--pred_data", "{t}/missing.json", "--data_root", "{t}",
+     "--device", "0"],
+    ["hirest_tpu_torch.inference_video_retrieval", "--data_dir", "{t}",
+     "--video_feature_dir", "{t}"]])
+def test_eval_and_retrieval_clis_refuse_cpu_fallback(tmp_path, cli):
+    """`python -m hirest_tpu_torch.evaluate` (--device cuda by default, or
+    an integer >= 0) and `python -m hirest_tpu_torch.inference_video_
+    retrieval` with no GPU visible raise before any work unless given
+    --device cpu (or -1, the reference's spelling, for the evaluator)."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    args = [a.format(t=tmp_path) for a in cli]
+    r = subprocess.run([sys.executable, "-m", *args], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not (tmp_path / "VR_results").exists()
+    cpu = ["--device", "-1" if "evaluate" in args[0] else "cpu"]
+    if "--device" in args:
+        args = args[:args.index("--device")]
+    r = subprocess.run([sys.executable, "-m", *args, *cpu], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0  # the inputs are missing
+    assert "no CUDA device" not in r.stderr
+    assert "No such file" in r.stderr or "FileNotFoundError" in r.stderr

@@ -283,3 +283,28 @@ def write_byte_vocab(root, n_tokens: int = 50257) -> tuple:
     merges.write_text("#version: 0.2\n" + "\n".join(f"{a} {b}"
                                                      for a, b in pairs))
     return str(vocab), str(merges)
+
+
+# OpenAI CLIP towers at a small size: text 2 x 128 (2 heads of 64, as
+# build_clip_from_state_dict sniffs them), vision 2 x 128 on a 4 x 4 grid
+CLIP_TEXT_TINY = dict(context_length=16, vocab_size=100, width=128, heads=2,
+                      layers=2, embed_dim=32)
+CLIP_VISION_TINY = dict(image_size=64, layers=2, width=128, heads=2,
+                        patch_size=16, embed_dim=32)
+
+
+def clip_state_dict(text_spec=None, vision_spec=None, seed: int = 0) -> dict:
+    """Seeded OpenAI-CLIP-named state dict (float32 numpy): ViT-B/32's
+    shape by default, else the given specs; the qkv projections scaled up
+    as the EVA ones are."""
+    from hirest_tpu_torch.config import EvaTextConfig as PortTextConfig
+    from hirest_tpu_torch.models.openai_clip import ClipVisionConfig
+    from hirest_tpu_torch.utils.init import random_clip_state_dict
+
+    sd = random_clip_state_dict(
+        PortTextConfig(**text_spec) if text_spec else None,
+        ClipVisionConfig(**vision_spec) if vision_spec else None, seed=seed)
+    for k in sd:
+        if k.endswith("attn.in_proj_weight"):
+            sd[k] = sd[k] * np.float32(QKV_GAIN)
+    return sd
