@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py                 # needs one CUDA GPU and nvcc
     python3 chip_smoke.py --kernels-only  # build and kernels phases only
+    python3 chip_smoke.py --parallel-only  # the parallel phase alone
     python3 chip_smoke.py --time-attention  # K1, K3, K6-K9 ms alone
     python3 chip_smoke.py --time-mlp        # K4 and its _int_mm pair alone
     python3 chip_smoke.py --time-rows       # K2, K5, K10 ms alone
+    python3 chip_smoke.py --time-f32        # the f32 forms ms alone
 
 --time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
 tokens, one 192-row query tile a head), K9, K6, K7 and K8 (bf16 and int8
@@ -24,8 +26,11 @@ F.layer_norm and a clone of K10's bytes, and K5 on the fc1 outputs of an
 int8+fq+v3 forward; it first runs row_checks (each case's codes that
 differ from the plain version), then measures where K2's time spreads
 (the clocks, the kernel's own time against the host's, x in L2 or
-not) and prints the row kernels' SASS counts. The flags combine: one
-process runs each asked for.
+not) and prints the row kernels' SASS counts. --time-f32 does the same
+for the f32 forms (the f32 attention body in each wrapper, its int8-out
+forms, K2 on f32 rows, K4 with an f32 residual), a form the checkout
+lacks printed as such, with the f32 body's registers. The flags combine:
+one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -65,7 +70,12 @@ Phases; any failure exits non-zero before the result line is printed:
             K7 packed at d = 128, K1/K9's layout with n_real = 257 of 264
             (d = 88 and 128), K8's with nonzero biases, B = 2 and 128, one
             batch row's keys all masked, 33 queries over 600 keys; and
-            bf16 K6 at ViT-B/32's [B, 12, 50, 64].
+            bf16 K6 at ViT-B/32's [B, 12, 50, 64]. The f32 int8 factory's
+            kernels at K3's and K2's bars: K3, K9 int8 and K8 int8 on f32
+            activations (the f32 body with the int8 epilogue) at
+            [B, 257, 3 * 16 * 88] and d = 128, K3/K9 also over 264 tokens
+            with n_real = 257, K8 biased; K2 on f32 rows; K4 with an f32
+            residual within 1e-6 of its contribution plus one f32 ulp.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -106,7 +116,13 @@ Phases; any failure exits non-zero before the result line is printed:
             torch.float32) scanned (2 K1 f32) and unrolled (2 K6 f32),
             padded unrolled (K7 f32) and padded scanned (K1 f32 at
             d = 128), the scanned forward's v1 (K8 f32) and v2 (K9 f32),
-            each with its launch counts, and the text tower.
+            each with its launch counts, and the text tower. Then the f32
+            int8 paths, 2 layers, against the CPU's f32 int8 path with
+            the same flags at cosine >= 0.99 and its f32 float path at
+            >= 0.98: build_eva_model_and_transforms(int8=True, dtype=
+            torch.float32) (2 K2, 1 K3, 1 K4 f32 a layer) and the scanned
+            forward's int8 + fused_quant + fused_mlp with v1 (K8 int8 f32)
+            and v2 (K9 int8 f32).
 7. timing   frames/s at B=128 for every encoder, factory and ladder
             forward, text prompts/s, and each kernel's ms per call beside
             its plain version, one library call computing the same function
@@ -215,6 +231,25 @@ Phases; any failure exits non-zero before the result line is printed:
             videos/s a run, CLIPScore ms a step and one step's idle share,
             BERTScore and NLI pairs/s. (The EVA-g vision tower's f32
             card-vs-CPU check is phase 6's 2-layer cut.)
+13. parallel data and tensor parallelism (parallel/, Trainer under
+            mesh_shape) at JointModelConfig()'s width, f32, TF32 off, on
+            phase 11's synthetic split (a deterministic text feature
+            instead of the text tower): 3 training steps a task with
+            dropout live (lr 1e-4, no warmup, clipping at 1.0), then the
+            test split's predictions, on the card in one process and on
+            two ranks on the one card over gloo (CUDA tensors; a file
+            init_method), as data:2 and as model:2: each step's loss and
+            gradient norm within 1e-6 relative, the parameters within
+            1e-5 of each tensor's largest magnitude (bar those zero in
+            exact arithmetic), bounds and segmentations equal, captions
+            equal or a tie (same_selections); then `python -m
+            torch.distributed.run --standalone --nproc_per_node=1 -m
+            hirest_tpu_torch.run --train --mesh_shape data:1` over NCCL,
+            its checkpoints and test JSONs; where the machine has two
+            cards, the two-rank check over NCCL, one card a rank, and on
+            four cards data:2,model:2 over NCCL.
+            Readings: steps/s and all-reduce ms a step (gloo stages CUDA
+            tensors through the host: no NCCL time).
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -322,8 +357,11 @@ def counters() -> dict:
     return {"K1": (fused_attention_qkv3, "launches"),
             "K1f32": (fused_attention_qkv3, "launches_f32"),
             "K2": (ln_quant, "launches"),
+            "K2f32": (ln_quant, "launches_f32"),
             "K3": (fused_attention_qkv3, "quant_launches"),
+            "K3f32": (fused_attention_qkv3, "quant_launches_f32"),
             "K4": (fused_mlp_int8, "launches"),
+            "K4f32": (fused_mlp_int8, "launches_f32"),
             "K5": (act_quant, "launches"),
             "K6": (fused_attention, "launches"),
             "K6f32": (fused_attention, "launches_f32"),
@@ -332,9 +370,11 @@ def counters() -> dict:
             "K8": (fused_attention_qkv, "launches"),
             "K8f32": (fused_attention_qkv, "launches_f32"),
             "K8q": (fused_attention_qkv, "quant_launches"),
+            "K8qf32": (fused_attention_qkv, "quant_launches_f32"),
             "K9": (fused_attention_qkv2, "launches"),
             "K9f32": (fused_attention_qkv2, "launches_f32"),
             "K9q": (fused_attention_qkv2, "quant_launches"),
+            "K9qf32": (fused_attention_qkv2, "quant_launches_f32"),
             "K10": (ln_bf16, "launches")}
 
 
@@ -579,6 +619,86 @@ def f32_checks() -> dict:
             f"K6 fused_attention [{batch},12,50,64]",
             fused_attention(q, k, v, 0.125),
             fused_attention_ref(q, k, v, 0.125)))
+    return worst
+
+
+def f32_int8_checks() -> dict:
+    """The f32 int8 factory's kernels against their plain versions: the
+    int8-out attention forms on f32 activations (attention_f32.cu with the
+    int8 epilogue) at K3's bars (codes within one, equal on 99 %, scales
+    within 2^-7), K3 and K9 int8 at EVA-g's [B, 257, 3 * 16 * 88] and the
+    padded head width d = 128, both also over 264 tokens with n_real = 257,
+    K8 int8 with nonzero biases at both widths, B = 2 and 128; K2 on f32
+    rows at K2's bars; K4 with an f32 residual, its output within 1e-6 of
+    the MLP's largest contribution plus one f32 ulp (the second kernel
+    rounds where the plain version rounds). Returns the worst errors."""
+    from hirest_tpu_torch.ops.attention import (fused_attention_qkv,
+                                                fused_attention_qkv2,
+                                                fused_attention_qkv2_ref,
+                                                fused_attention_qkv3,
+                                                fused_attention_qkv3_ref,
+                                                fused_attention_qkv_ref)
+    from hirest_tpu_torch.ops.quant import (fused_mlp_int8,
+                                            fused_mlp_int8_ref, ln_quant,
+                                            ln_quant_ref)
+
+    worst = dict.fromkeys(("K3f32", "K9qf32", "K8qf32", "K2f32", "K4f32"),
+                          0.0)
+    for batch in (2, BATCH):
+        for d in (88, 128):
+            for tokens, n_real in ((TOKENS, 0), (264, TOKENS)):
+                qkv = f32_inputs(batch, 270 + batch + d + tokens, tokens,
+                                 16 * d)
+                shape = f"[{batch},{tokens},{3 * 16 * d}] n_real={n_real}"
+                for key, fn, ref in (
+                        ("K3f32", fused_attention_qkv3,
+                         fused_attention_qkv3_ref),
+                        ("K9qf32", fused_attention_qkv2,
+                         fused_attention_qkv2_ref)):
+                    worst[key] = max(worst[key], check_codes(
+                        f"{key} f32 {fn.__name__} quant_out {shape}",
+                        fn(qkv, d ** -0.5, 16, quant_out=True,
+                           n_real=n_real),
+                        ref(qkv, d ** -0.5, 16, quant_out=True,
+                            n_real=n_real), 0.99, 2 ** -7))
+            qkv = f32_inputs(batch, 280 + batch + d, TOKENS, 16 * d)
+            g = gen(281 + d)
+            qb, vb = (torch.randn(16 * d, generator=g, device="cuda") * 0.5
+                      for _ in range(2))
+            worst["K8qf32"] = max(worst["K8qf32"], check_codes(
+                f"K8qf32 f32 fused_attention_qkv quant_out "
+                f"[{batch},{TOKENS},{3 * 16 * d}] biased",
+                fused_attention_qkv(qkv, qb, vb, d ** -0.5, 16,
+                                    quant_out=True),
+                fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, 16,
+                                        quant_out=True), 0.99, 2 ** -7))
+        rows = batch * TOKENS
+        x, w, b = ln_inputs(rows, seed=290 + batch)
+        x = x.float()
+        worst["K2f32"] = max(worst["K2f32"], check_codes(
+            f"K2f32 ln_quant f32 [{rows},1408]", ln_quant(x, w, b, EPS),
+            ln_quant_ref(x, w, b, EPS), 0.999, 1e-6))
+        args = list(mlp_inputs(rows, seed=295 + batch))
+        args[-1] = args[-1].float() + 1e-3 * torch.randn(
+            args[-1].shape, generator=gen(296), device="cuda")
+        for act in ("gelu_poly", "gelu"):
+            got = fused_mlp_int8(*args, act=act)
+            want = fused_mlp_int8_ref(*args, act=act)
+            torch.cuda.synchronize()
+            contrib = (want - args[-1]).abs().max().item()
+            ulp = torch.ldexp(torch.ones_like(want),
+                              torch.frexp(want)[1] - 24)
+            excess = (got - want).abs() - 1e-6 * contrib - ulp
+            err = (got - want).abs().max().item()
+            print(f"[kernels] K4f32 fused_mlp_int8 f32 residual "
+                  f"[{rows},1408]x6144 act={act}: "
+                  f"{int((got != want).sum().item())} of {got.numel()} "
+                  f"outputs differ, max_abs_err={err} max|want-x|={contrib}")
+            require(got.dtype == torch.float32 and bool(got.isfinite().all())
+                    and excess.max().item() <= 0,
+                    f"fused_mlp_int8 f32 [{rows}] {act} off its plain "
+                    f"version")
+            worst["K4f32"] = max(worst["K4f32"], err)
     return worst
 
 
@@ -966,6 +1086,7 @@ def phase_kernels(cfg) -> dict:
     f32 = f32_checks()
     worst["K6"] = max(worst["K6"], f32.pop("K6"))
     worst.update(f32)
+    worst.update(f32_int8_checks())
     worst.update(row_checks()[0])
     return worst
 
@@ -1340,6 +1461,17 @@ F32_DEPTH = {
     "scanned v1": (dict(scanned={}), dict(K8f32=1)),
     "scanned v2": (dict(scanned=dict(attn_v2=True)), dict(K9f32=1)),
 }
+# f32 int8 2-layer configurations, each against the CPU's f32 int8 path with
+# the same flags (cosine >= COS_MIN) and its f32 float path (>=
+# COS_INT8_VS_FLOAT): the factory's (fused_quant, fused_mlp, v3: K2, K3,
+# K4), and the scanned forward's int8 + fused_quant + fused_mlp with v1 and
+# v2, which carry K8 and K9 int8 without K5
+F32_INT8_DEPTH = {
+    "factory int8": (dict(attn_v3=True), dict(K2f32=2, K3f32=1, K4f32=1)),
+    "scanned int8 fq+fm v1": ({}, dict(K2f32=2, K8qf32=1, K4f32=1)),
+    "scanned int8 fq+fm v2": (dict(attn_v2=True),
+                              dict(K2f32=2, K9qf32=1, K4f32=1)),
+}
 
 
 def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
@@ -1395,6 +1527,40 @@ def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
     print(f"[f32] 2 layers, text tower: f32 card vs f32 CPU plain: "
           f"max_abs_err={err} of max|ref|={top}")
     require(err <= F32_TOL * top, f"f32 2-layer text tower beyond {F32_TOL}")
+    vision_sd = eva_vision_state_dict(weights)
+    for tag, (flags, per_layer) in F32_INT8_DEPTH.items():
+        def encode(device, tag=tag, flags=flags):
+            if tag == "factory int8":
+                return build_eva_model_and_transforms(
+                    pretrained=weights, device=device, dtype=torch.float32,
+                    int8=True, scan=True, **cuts)[0].encode_image
+            return build_scanned_vision_apply(
+                vision_sd, cut, dtype=torch.float32, device=device,
+                int8=True, fused_quant=True, fused_mlp=True, **flags)
+
+        want = encode("cpu")(frames).numpy()
+        card_encode = encode("cuda")
+        zero_counts()
+        got = card_encode(frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(**{k: v * cut.layers for k, v in per_layer.items()})
+        require(counts == expected, f"f32 {tag} launches {counts}, expected "
+                                    f"{expected}")
+        got = got.cpu().numpy()
+        cos, cos_float = cosine(got, want), cosine(got, ref["image"][True])
+        print(f"[f32] 2 layers, {tag}: f32 int8 card vs f32 int8 CPU plain: "
+              f"cosine min={cos.min():.6f} (>= {COS_MIN}), max_abs_err="
+              f"{np.abs(got - want).max()} of max|ref|={np.abs(want).max()}; "
+              f"vs f32 float CPU: cosine min={cos_float.min():.6f} (>= "
+              f"{COS_INT8_VS_FLOAT}); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        require(bool(np.isfinite(got).all()) and cos.min() >= COS_MIN
+                and cos_float.min() >= COS_INT8_VS_FLOAT,
+                f"f32 2-layer {tag} below its cosine bars")
+        for k, v in counts.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
     return launches
 
 
@@ -1812,6 +1978,44 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, scale=p128), 5),
         **bound(4 * pq.numel() * 4, flops128, F32_FLOP_PER_S)}
+    # the f32 int8 factory's forms, each beside its bf16 counterpart (K3,
+    # K9 int8, K8 int8, K2, K4 above) on the same values in f32
+    for key, fn, ref, kw in (
+            ("K3f32", fused_attention_qkv3, fused_attention_qkv3_ref, {}),
+            ("K9qf32", fused_attention_qkv2, fused_attention_qkv2_ref, {}),
+            ("K8qf32", fused_attention_qkv, fused_attention_qkv_ref,
+             dict(bias=True))):
+        def call(f, bias=False):
+            if bias:
+                return lambda: f(qkv, qb32, vb32, scale, heads,
+                                 quant_out=True)
+            return lambda: f(qkv, scale, heads, quant_out=True)
+
+        res[key] = {
+            "ms": cuda_ms(call(fn, **kw), 5),
+            "plain_ms": cuda_ms(call(ref, **kw), 3),
+            "library_ms": None,
+            **bound((qkv.numel() + (2 * w if kw else 0)) * 4 + m * w + m * 4,
+                    attn_flops, F32_FLOP_PER_S)}
+    x32 = x.float()
+    res["K2f32"] = {
+        "ms": cuda_ms(lambda: ln_quant(x32, g, bb, EPS), 20),
+        "plain_ms": cuda_ms(lambda: ln_quant_ref(x32, g, bb, EPS), 5),
+        "library_ms": None,
+        **bound(m * w * 4 + m * w + m * 4 + 2 * w * 4,
+                (ROW_SLOTS["K2"] - 1) * m * w, ISSUE_SLOTS_PER_S)}
+    args32 = (*args[:-1], x_res.float())
+    res["K4f32"] = {
+        "ms": cuda_ms(lambda: fused_mlp_int8(*args32), 5),
+        "plain_ms": cuda_ms(lambda: fused_mlp_int8_ref(*args32), 3),
+        "library_ms": res["K4"]["library_ms"],
+        **bound(m * w + m * 4 + 2 * m * w * 4 + 2 * hid * w
+                + 4 * (2 * hid + 2 * w), 2 * 2 * m * w * hid, INT8_OP_PER_S)}
+    for key, base in (("K3f32", "K3"), ("K9qf32", "K9q"), ("K8qf32", "K8q"),
+                      ("K2f32", "K2"), ("K4f32", "K4")):
+        print(f"[timing] {card}: {key} (f32 activations) {res[key]['ms']:.4f}"
+              f" ms beside {base} (bf16) {res[base]['ms']:.4f} ms, "
+              f"{res[key]['ms'] / res[base]['ms']:.2f}x")
     for name, r in {**res, **stages, **padded, **extra,
                     **f32_extra}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2225,7 +2429,8 @@ def held(tag: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def same_selections(tag: str, got: tuple, want: tuple, err: float) -> None:
+def same_selections(tag: str, got: tuple, want: tuple, err: float,
+                    phase: str = "serving") -> None:
     """Two runs of one beam (captions, trace) make the same choice at every
     step, unless the step's inputs were equal and want's least gap among
     the k + 1 best candidates of the instance lies within what the two
@@ -2249,7 +2454,7 @@ def same_selections(tag: str, got: tuple, want: tuple, err: float) -> None:
                 continue
             d = float(np.abs(g["scores"][i] - w["scores"][i]).max())
             slack = 2 * d + 8 * err + 2 * ulp
-            print(f"[serving] {tag} instance {i}: choice differs at step "
+            print(f"[{phase}] {tag} instance {i}: choice differs at step "
                   f"{t}, least gap {w['gap'][i]:.3e}, slack {slack:.3e}")
             require(w["gap"][i] <= slack,
                     f"{tag}: instance {i} chose otherwise at step {t}")
@@ -2257,7 +2462,7 @@ def same_selections(tag: str, got: tuple, want: tuple, err: float) -> None:
     for i, (g, w) in enumerate(zip(got_caps, want_caps)):
         require(i in excused or g == w, f"{tag}: caption {i} differs")
     gaps = np.concatenate([w["gap"] for w in want_tr])
-    print(f"[serving] {tag}: {sum(g == w for g, w in zip(got_caps, want_caps))}"
+    print(f"[{phase}] {tag}: {sum(g == w for g, w in zip(got_caps, want_caps))}"
           f" of {len(want_caps)} captions equal; the same choice at every "
           f"step of {len(want_caps) - len(excused)} instances; least gaps "
           f"{np.sort(gaps)[:3]}, median {np.median(gaps):.3e}")
@@ -3407,6 +3612,298 @@ def phase_training(card: str) -> None:
     print(f"[training] phase done in {time.perf_counter() - start:.1f} s")
 
 
+PARALLEL_SPECS = ("data:2", "model:2")
+PARALLEL_STEPS = 3  # training steps a task, dropout live
+PARALLEL_LOSS_TOL = 1e-6  # losses and gradient norms against one process
+PARALLEL_PARAM_TOL = 1e-5  # parameters, of each tensor's largest magnitude
+PARALLEL_TIMEOUT = 300  # seconds the ranks of one check may take
+PARALLEL_TIMED = 5  # warm moment retrieval steps timed, twice
+
+
+def parallel_text_fn(ids):
+    """A deterministic text feature of the token ids (the CPU tests'): the
+    ranks need no text tower of their own."""
+    w = np.random.default_rng(7).normal(size=(77, 1024)).astype(np.float32)
+    return (np.asarray(ids, np.float32) / 49407.0) @ w
+
+
+def parallel_run(root: Path, device: str, spec) -> dict:
+    """One rank's run (or, with spec None, the one process's) on the
+    training phase's split at JointModelConfig()'s width, f32: PARALLEL_STEPS
+    steps a task with dropout live (each step's loss and gradient norm),
+    the full parameters after them; then PARALLEL_TIMED more steps on one
+    moment retrieval batch for steps/s (the host clock, a synchronize at
+    the end), and as many again for the all-reduce time a step (the host
+    clock around each all_reduce, the device synchronized on both sides);
+    and the test split's predictions with each caption batch's beam
+    traced."""
+    import itertools
+
+    import torch.distributed as dist
+
+    from hirest_tpu_torch.data.multitask import MultitaskSchedule
+    from hirest_tpu_torch.infer import beam
+
+    dirs = {k: root / k for k in ("splits", "feats", "pretrained", "ckpt")}
+    t = training_trainer(dirs, device, parallel_text_fn, mesh_shape=spec,
+                         lr=1e-4, warmup_steps=0, clip_grad_norm=1.0)
+    t.setup_optimizer(len(MultitaskSchedule(t.loaders["train"],
+                                            shuffle=True)))
+
+    def step(task, batch):
+        arrs = t._prepare(t._shard(batch), task)
+        loss, grads = t.loss_and_grads(task, arrs)
+        norm = t.grad_norm(grads)
+        t.apply_gradients(grads)
+        t.step += 1
+        return task, float(loss), float(norm)
+
+    steps = [step(task, batch) for task in TRAIN_TASKS
+             for batch in itertools.islice(t.loaders["train"][task],
+                                           PARALLEL_STEPS)]
+    params = {k: v.cpu() for k, v in t._resharded(t.model.state_dict(),
+                                                  True).items()}
+    batch = next(iter(t.loaders["train"]["moment_retrieval"]))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(PARALLEL_TIMED):
+        step("moment_retrieval", batch)
+    torch.cuda.synchronize()
+    rate = PARALLEL_TIMED / (time.perf_counter() - start)
+
+    all_reduce, spent = dist.all_reduce, [0.0, 0]
+
+    def timed(tensor, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    dist.all_reduce = timed
+    try:
+        for _ in range(PARALLEL_TIMED):
+            step("moment_retrieval", batch)
+    finally:
+        dist.all_reduce = all_reduce
+
+    trace, captions = [], []
+    probe, select = traced_select(trace)
+    predict = t._predict_step_captioning
+
+    def recording(arrs):
+        first = len(trace)
+        out = predict(arrs)
+        captions.append({"rows": t._rows, "captions": out,
+                         "trace": (first, len(trace))})
+        return out
+
+    t._predict_step_captioning, beam._select = recording, probe
+    try:
+        preds = {task: t.evaluate(t.loaders["test"][task], task)
+                 for task in TRAIN_TASKS}
+    finally:
+        del t._predict_step_captioning
+        beam._select = select
+    for c in captions:
+        c["trace"] = trace[c["trace"][0]:c["trace"][1]]
+    return {"steps": steps, "params": params, "rate": rate,
+            "all_reduce_ms": 1e3 * spent[0] / PARALLEL_TIMED,
+            "all_reduce_calls": spent[1] / PARALLEL_TIMED,
+            "predictions": preds, "captions": captions}
+
+
+def parallel_worker(args: dict) -> None:
+    """A rank of phase_parallel's check: joins the group and runs each
+    spec in turn, its results to args["out"]."""
+    from hirest_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed(args["backend"], device=args["device"],
+                              init_method=args["init"], rank=args["rank"],
+                              world_size=args["world"])
+    results = {spec: parallel_run(Path(args["root"]), str(device), spec)
+               for spec in args["specs"]}
+    torch.save(results, args["out"])
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(root: Path, tag: str, backend: str, devices: list,
+                specs: tuple) -> list:
+    """Run parallel_worker on one process a device in `devices` (ranks in
+    order), joined by a file init_method -> each rank's results. Kills
+    every rank and fails when one fails or outlasts PARALLEL_TIMEOUT."""
+    procs = []
+    for rank, device in enumerate(devices):
+        args = dict(root=str(root), backend=backend, device=device,
+                    init=f"file://{root / f'{tag}.init'}", rank=rank,
+                    world=len(devices), specs=list(specs),
+                    out=str(root / f"{tag}.{rank}.pt"))
+        log = open(root / f"{tag}.{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"),
+             "--parallel-worker", json.dumps(args)], cwd=REPO, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, _) in enumerate(procs):
+        text = (root / f"{tag}.{rank}.log").read_text()
+        require(proc.returncode == 0,
+                f"parallel {tag} rank {rank} exited {proc.returncode}:\n"
+                f"{text[-3000:]}")
+    return [torch.load(root / f"{tag}.{rank}.pt", weights_only=False)
+            for rank in range(len(devices))]
+
+
+def parallel_compare(tag: str, spec: str, ranks: list, one: dict) -> None:
+    """Each rank against the one process: every step's loss and gradient
+    norm within PARALLEL_LOSS_TOL relative, the parameters within
+    PARALLEL_PARAM_TOL of each tensor's largest magnitude (bar those zero
+    in exact arithmetic), the moment retrieval and segmentation JSONs
+    equal, each rank's captions the one process's rows' or a tie
+    (same_selections on the two traces, err 1e-6 of the scores)."""
+    from hirest_tpu_torch.config import JointModelConfig
+
+    layers = JointModelConfig().visual.num_hidden_layers
+    for rank, res in enumerate(ranks):
+        got = res[spec]
+        worst_loss = worst_norm = worst_param = 0.0
+        require([s[0] for s in got["steps"]] == [s[0] for s in one["steps"]],
+                 f"{tag} {spec}: another schedule")
+        for (_, loss, norm), (_, ref_loss, ref_norm) in zip(got["steps"],
+                                                            one["steps"]):
+            worst_loss = max(worst_loss, abs(loss - ref_loss) / ref_loss)
+            worst_norm = max(worst_norm, abs(norm - ref_norm) / ref_norm)
+        for k, want in one["params"].items():
+            if any(zero_in_exact_arithmetic(task, k, layers)
+                   for task in TRAIN_TASKS):
+                continue
+            err = (got["params"][k] - want).abs().max().item()
+            worst_param = max(worst_param, err / want.abs().max().item())
+        print(f"[parallel] {tag} {spec} rank {rank}: {len(got['steps'])} "
+              f"steps with dropout live; worst relative loss {worst_loss:.3e}"
+              f", grad norm {worst_norm:.3e} (<= {PARALLEL_LOSS_TOL}); "
+              f"worst parameter error {worst_param:.3e} of its tensor's "
+              f"largest (<= {PARALLEL_PARAM_TOL})")
+        require(worst_loss <= PARALLEL_LOSS_TOL
+                and worst_norm <= PARALLEL_LOSS_TOL
+                and worst_param <= PARALLEL_PARAM_TOL,
+                f"{tag} {spec} rank {rank} off the one-process run")
+        for task in ("moment_retrieval", "moment_segmentation"):
+            require(json.dumps(got["predictions"][task])
+                    == json.dumps(one["predictions"][task]),
+                    f"{tag} {spec} rank {rank}: {task} predictions differ")
+        require(len(got["captions"]) == len(one["captions"]),
+                f"{tag} {spec}: caption batch counts differ")
+        for i, (g, w) in enumerate(zip(got["captions"], one["captions"])):
+            lo, n_real = g["rows"] or (0, len(w["captions"]))
+            n = max(0, min(lo + len(g["captions"]), n_real) - lo)
+
+            def rows(trace, a, b):
+                return [{**{k: v[a:b] for k, v in s.items() if k != "top"},
+                         "top": s["top"]} for s in trace]
+
+            top = max(s["top"] for s in w["trace"])
+            same_selections(
+                f"{tag} {spec} rank {rank} batch {i}",
+                (g["captions"][:n], rows(g["trace"], 0, n)),
+                (w["captions"][lo:lo + n], rows(w["trace"], lo, lo + n)),
+                1e-6 * top, "parallel")
+
+
+def phase_parallel(card: str) -> None:
+    """Data and tensor parallelism (parallel/, Trainer under mesh_shape) at
+    JointModelConfig()'s width, f32, on the training phase's synthetic
+    split: two ranks on the one card over gloo (CUDA tensors), as data:2
+    and as model:2, against the one-process card run; `python -m
+    torch.distributed.run --standalone --nproc_per_node=1 -m
+    hirest_tpu_torch.run --train --mesh_shape data:1` over NCCL; and, where
+    the machine has them, the same check over NCCL, one card a rank: on
+    two cards as data:2 and model:2, on four as data:2,model:2. Readings:
+    steps/s and all-reduce ms a step."""
+    import tempfile
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dirs = write_training_split(root)
+        zero_counts()
+        one = parallel_run(root, "cuda", None)
+        require(read_counts() == expect(),
+                "the training path launched a kernel")
+        print(f"[parallel] {card}: one process on the card: "
+              f"{len(one['steps'])} checked steps; {one['rate']:.2f} steps/s "
+              f"over {PARALLEL_TIMED} warm moment retrieval steps (B=32)")
+        ranks = spawn_ranks(root, "gloo", "gloo", ["cuda:0", "cuda:0"],
+                            PARALLEL_SPECS)
+        for spec in PARALLEL_SPECS:
+            parallel_compare("gloo, one card", spec, ranks, one)
+            r = ranks[0][spec]
+            print(f"[parallel] {card}: {spec} over gloo, two ranks on one "
+                  f"card: {r['rate']:.2f} steps/s (warm moment retrieval), "
+                  f"all-reduce "
+                  f"{r['all_reduce_ms']:.2f} ms a step in "
+                  f"{r['all_reduce_calls']:.0f} calls (gloo stages CUDA "
+                  f"tensors through the host: not an NCCL time)")
+
+        t0 = time.perf_counter()
+        ckpt = root / "torchrun"
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=1", "-m", "hirest_tpu_torch.run", "--train",
+             "--mesh_shape", "data:1", "--data_dir", str(dirs["splits"]),
+             "--video_feature_dir", str(dirs["feats"]),
+             "--pretrained_dir", str(dirs["pretrained"]),
+             "--ckpt_dir", str(ckpt), "--task_moment_retrieval",
+             "--task_moment_segmentation", "--task_step_captioning",
+             "--epochs", "1", "--train_batch_size", "32",
+             "--eval_batch_size", "32", "--device", "cuda"],
+            cwd=REPO, capture_output=True, text=True,
+            timeout=PARALLEL_TIMEOUT)
+        require(proc.returncode == 0, f"torchrun run --train --mesh_shape "
+                f"data:1 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        written = sorted(p.name for p in ckpt.iterdir())
+        print(f"[parallel] torchrun --nproc_per_node=1 run --train "
+              f"--mesh_shape data:1 over NCCL: 1 epoch in "
+              f"{time.perf_counter() - t0:.1f} s, wrote {written}")
+        require({"BEST.pt", "LAST.pt"} <= set(written)
+                and all(f"test_{task}_BEST.json" in written
+                        for task in TRAIN_TASKS), "torchrun run's files")
+        check_test_predictions(ckpt, json.loads(
+            (dirs["splits"] / "all_data_test.json").read_text()))
+
+        cards = torch.cuda.device_count()
+        for n, specs in ((2, PARALLEL_SPECS), (4, ("data:2,model:2",))):
+            if cards < n:
+                print(f"[parallel] {cards} card(s): the {n}-rank NCCL check "
+                      f"({', '.join(specs)}) needs {n} cards (not run here)")
+                continue
+            ranks = spawn_ranks(root, f"nccl{n}", "nccl",
+                                [f"cuda:{i}" for i in range(n)], specs)
+            for spec in specs:
+                parallel_compare(f"nccl, {n} cards", spec, ranks, one)
+                r = ranks[0][spec]
+                print(f"[parallel] {card}: {spec} over NCCL, one card a "
+                      f"rank: {r['rate']:.2f} steps/s (warm moment "
+                      f"retrieval), all-reduce "
+                      f"{r['all_reduce_ms']:.2f} ms a step in "
+                      f"{r['all_reduce_calls']:.0f} calls")
+    print(f"[parallel] phase done in {time.perf_counter() - start:.1f} s")
+
+
 EVAL_PROMPTS = ("make oatmeal pancake mix", "fold a fitted sheet",
                 "boil an egg", "tie a tie", "plant a tree", "wash a car",
                 "bake bread", "sharpen a knife")
@@ -3862,6 +4359,22 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "K8f32": ("fused_attention_qkv (float32)",
               "hirest_tpu_torch/ops/csrc/attention_f32.cu",
               "hirest_tpu/ops/attention.py:551"),
+    # the f32 int8 factory's: the int8-out forms on the f32 body, K2 on f32
+    # rows, K4 with an f32 residual
+    "K3f32": ("fused_attention_qkv3(quant_out=True) (float32)",
+              "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+              "hirest_tpu/ops/attention.py:502"),
+    "K9qf32": ("fused_attention_qkv2(quant_out=True) (float32)",
+               "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+               "hirest_tpu/ops/attention.py:378"),
+    "K8qf32": ("fused_attention_qkv(quant_out=True) (float32)",
+               "hirest_tpu_torch/ops/csrc/attention_f32.cu",
+               "hirest_tpu/ops/attention.py:585"),
+    "K2f32": ("ln_quant (float32)", "hirest_tpu_torch/ops/csrc/ln_quant.cu",
+              "hirest_tpu/ops/quant.py:145"),
+    "K4f32": ("fused_mlp_int8 (float32 residual)",
+              "hirest_tpu_torch/ops/csrc/fused_mlp_int8.cu",
+              "hirest_tpu/ops/quant.py:296"),
 }
 
 
@@ -3966,6 +4479,65 @@ def time_attention(cfg, card: str) -> None:
                   f"{err7})")
     finally:
         attention._split_lib = shipped
+
+
+def time_f32(cfg, card: str) -> None:
+    """The f32 forms ms per call at B=128 and nothing else, through the
+    wrappers (see time_attention): attention_f32.cu's body as K6 at
+    ViT-B/32's [128, 12, 50, 64] and EVA-g's, K7 at d = 128, K1 (n_real)
+    and K8 (biased), its int8-out forms K3, K9 and K8 int8, K2 on f32 rows
+    and K4 with an f32 residual; a form the checkout refuses (an earlier
+    one, without f32 int8 forms) prints as such. Also the f32 body's
+    registers and spills from its build."""
+    from hirest_tpu_torch.ops import build
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv2,
+                                                fused_attention_qkv3)
+    from hirest_tpu_torch.ops.quant import fused_mlp_int8, ln_quant
+
+    logs = build.build(("attention_f32", "ln_quant", "fused_mlp_int8"))
+    ptxas_summary(logs.get("attention_f32", ""), ("attention_f32_kernel",))
+    scale, heads, w = cfg.head_width ** -0.5, cfg.num_heads, cfg.width
+    vit = split_views(f32_inputs(BATCH, 260, 50, 12 * 64), 12)
+    qkv = f32_inputs(BATCH, 261, TOKENS, w)
+    qkv264 = f32_inputs(BATCH, 262, 264, w)
+    q, k, v = split_views(qkv)
+    pq, pk, pv = f32_inputs(BATCH, 263, TOKENS, PADDED_HD).chunk(3, -1)
+    g = gen(264)
+    qb, vb = (torch.randn(w, generator=g, device="cuda") * 0.5
+              for _ in range(2))
+    x, lw, lb = ln_inputs(BATCH * TOKENS, seed=265)
+    x = x.float()
+    mlp = list(mlp_inputs(BATCH * TOKENS, seed=266))
+    mlp[-1] = mlp[-1].float()
+    forms = {
+        "K6f32 ViT-B/32": lambda: fused_attention(*vit, 0.125),
+        "K6f32 EVA-g": lambda: fused_attention(q, k, v, scale),
+        "K7f32": lambda: fused_attention_packed(pq, pk, pv, 128 ** -0.5,
+                                                heads),
+        "K1f32 n_real": lambda: fused_attention_qkv3(qkv264, scale, heads,
+                                                     n_real=TOKENS),
+        "K8f32": lambda: fused_attention_qkv(qkv, qb, vb, scale, heads),
+        "K3f32": lambda: fused_attention_qkv3(qkv, scale, heads,
+                                              quant_out=True),
+        "K9qf32": lambda: fused_attention_qkv2(qkv, scale, heads,
+                                               quant_out=True),
+        "K8qf32": lambda: fused_attention_qkv(qkv, qb, vb, scale, heads,
+                                              quant_out=True),
+        "K2f32": lambda: ln_quant(x, lw, lb, EPS),
+        "K4f32": lambda: fused_mlp_int8(*mlp)}
+    ms = {}
+    for name, fn in forms.items():
+        try:
+            fn()
+        except TypeError:
+            ms[name] = "not in this tree"
+            continue
+        ms[name] = f"{cuda_ms(fn, 20):.4f} ms"
+    print(f"[time-f32] {card}: {REPO}: " + ", ".join(
+        f"{name} {t}" for name, t in ms.items()))
 
 
 def time_mlp(card: str) -> None:
@@ -4252,6 +4824,9 @@ def ptxas_summary(log: str, kernels) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(json.loads(sys.argv[2]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only",
               file=sys.stderr)
@@ -4267,7 +4842,8 @@ def main() -> int:
 
     timers = {"--time-attention": lambda: time_attention(cfg, card),
               "--time-mlp": lambda: time_mlp(card),
-              "--time-rows": lambda: time_rows(cfg, card)}
+              "--time-rows": lambda: time_rows(cfg, card),
+              "--time-f32": lambda: time_f32(cfg, card)}
     asked = [flag for flag in timers if flag in sys.argv[1:]]
     for flag in asked:
         timers[flag]()
@@ -4290,6 +4866,10 @@ def main() -> int:
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
 
+    if "--parallel-only" in sys.argv[1:]:
+        phase_parallel(card)
+        print(f"chip_smoke: parallel phase passed on {card}")
+        return 0
     errs = phase_kernels(cfg)
     if "--kernels-only" in sys.argv[1:]:
         print(f"chip_smoke: build and kernels phases passed on {card}")
@@ -4311,6 +4891,7 @@ def main() -> int:
     phase_asr(main_res, card)
     phase_training(card)
     eval_launches = phase_eval(weights, card)
+    phase_parallel(card)
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}
     launches["K6"] += int8_tower["launches"]

@@ -31,8 +31,11 @@ def _stage_batcher(trainer, anns: dict, task: str):
         for e in ex:
             e.update(caption_targets(trainer.tokenizer, e["target_text_raw"],
                                      cfg.max_words))
+    # under a mesh, batches padded to the batch size as the trainer's own
+    # (each rank takes its rows of them)
     return TaskBatcher(ex, batch_size=cfg.eval_batch_size, store=trainer.store,
-                       buckets=trainer.buckets)
+                       buckets=trainer.buckets,
+                       pad_batch=trainer.mesh is not None)
 
 
 def run_end_to_end(trainer, test_path: str | None = None) -> dict:
@@ -57,6 +60,8 @@ def run_end_to_end(trainer, test_path: str | None = None) -> dict:
     os.makedirs(cfg.ckpt_dir, exist_ok=True)
 
     def dump(name, obj):
+        if not trainer.is_main:  # rank 0 writes under a mesh
+            return
         path = os.path.join(cfg.ckpt_dir, name)
         with open(path, "w") as f:
             json.dump(obj, f, indent=4)

@@ -25,6 +25,11 @@ the encoder's embedding LayerNorm and after the decoder's in the
 teacher-forced forward (not in `decode_step`). It is live in `train()`
 mode only, drawn from the `torch.Generator` that the trainer hands each
 `Dropout` module; in `eval()` mode every forward is deterministic.
+
+Under tensor parallelism (parallel/tp.py) the attention takes its local
+head count from its q weight's rows, the KV caches their local width from
+the k weight's, and the tied classifier gathers the vocabulary's logits
+before its bias.
 """
 
 from __future__ import annotations
@@ -45,19 +50,34 @@ class Dropout(nn.Module):
     """flax nn.Dropout: in training, keep each value with probability
     1 - rate and scale it by 1 / (1 - rate), else 0; the identity in
     eval mode. The keep mask comes from `generator` (the default
-    generator when None), on x's device."""
+    generator when None), on x's device.
+
+    `rows` = (first, n): x holds rows first.. of a batch whose first n rows
+    are real (a data-parallel rank's share of a padded batch). The mask is
+    then drawn for the n real rows, as one process drawing for the real
+    batch draws it, and this rank keeps its rows of it (its rows past n,
+    padding, keep everything)."""
 
     def __init__(self, rate: float = 0.1):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep_prob
+        if self.rows is None:
+            draw = torch.rand(x.shape, generator=self.generator,
+                              device=x.device)
+        else:
+            first, n = self.rows
+            draw = torch.rand((n, *x.shape[1:]), generator=self.generator,
+                              device=x.device)[first:first + x.shape[0]]
+            draw = torch.cat([draw, draw.new_zeros(
+                (x.shape[0] - draw.shape[0], *x.shape[1:]))])
+        keep = draw < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -176,8 +196,9 @@ class DecoderLayer(BertFfn):
             "output": BertSelfOutput(hidden_size, hidden_size, eps)})
 
     def _attend(self, q, k, v, bias):
-        h = self.heads
-        scale = (self.hidden_size // h) ** -0.5
+        d = self.hidden_size // self.heads
+        h = q.shape[-1] // d  # the local heads under tensor parallelism
+        scale = d ** -0.5
         return merge_heads(dot_product_attention(
             split_heads(q, h), split_heads(k, h), split_heads(v, h), bias,
             scale))
@@ -261,8 +282,10 @@ class CaptionDecoder(nn.Module):
 
     def _embed(self, ids: torch.Tensor, positions) -> torch.Tensor:
         emb = self.embeddings
-        table = emb["word_embeddings"].weight
-        x = table[ids.long().clamp(0, table.shape[0] - 1)].to(self.dtype)
+        words = emb["word_embeddings"]
+        ids = ids.long().clamp(0, words.num_embeddings - 1)
+        x = (words(ids) if getattr(words, "tensor_parallel", False)
+             else words.weight[ids]).to(self.dtype)
         x = x + emb["position_embeddings"].weight[positions].to(self.dtype)
         return layer_norm_fast_var(x, emb["LayerNorm"])
 
@@ -270,9 +293,12 @@ class CaptionDecoder(nn.Module):
         head = self.classifier["cls"]["predictions"]
         h = gelu_erfc(dense(h, head.transform["dense"]))
         h = layer_norm_fast_var(h, head.transform["LayerNorm"])
-        word_emb = self.embeddings["word_embeddings"].weight
-        logits = h @ word_emb.to(self.dtype).T + head.bias.to(self.dtype)
-        return logits.float()
+        words = self.embeddings["word_embeddings"]
+        if getattr(words, "tensor_parallel", False):
+            logits = words.logits(h)
+        else:
+            logits = h @ words.weight.to(self.dtype).T
+        return (logits + head.bias.to(self.dtype)).float()
 
     def forward(self, input_ids: torch.Tensor, encoder_out: torch.Tensor,
                 answer_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -293,7 +319,8 @@ class CaptionDecoder(nn.Module):
     # -- KV-cached decoding ------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int):
-        shape = (batch, max_len, self.config.hidden_size)
+        width = self.layers[0].slf_attn["att"].key.weight.shape[0]
+        shape = (batch, max_len, width)
         device = self.embeddings["word_embeddings"].weight.device
         return tuple((torch.zeros(shape, dtype=self.dtype, device=device),
                       torch.zeros(shape, dtype=self.dtype, device=device))

@@ -81,7 +81,10 @@ def layer_norm_fast_var(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """flax `nn.Dense(dtype=x.dtype)` on f32 parameters: weight and bias
     cast to x's dtype, the product rounded to it, then the bias added in
-    it (F.linear with a bias would round once, another number in bf16)."""
+    it (F.linear with a bias would round once, another number in bf16).
+    A tensor-parallel layer (parallel/tp.py) computes it itself."""
+    if getattr(lin, "tensor_parallel", False):
+        return lin(x)
     y = F.linear(x, lin.weight.to(x.dtype))
     return y + lin.bias.to(x.dtype)
 
@@ -167,6 +170,8 @@ class MultiHeadAttention(nn.Module):
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.num_heads
         if self.mode == "separate":
+            # the local heads of a tensor-parallel (column-sharded) q/k/v
+            h = self.query.weight.shape[0] // self.head_dim
             q, k, v = (dense(x, self.query), dense(x, self.key),
                        dense(x, self.value))
             return merge_heads(dot_product_attention(

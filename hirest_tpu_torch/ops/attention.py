@@ -34,7 +34,9 @@ for every bf16-out form (K1/K9 on views of the pre-biased qkv, n_real as
 the number of keys; K6/K7 with the key mask; K8 with the biases), counted
 apart in each wrapper's `launches_f32`. In f32 the two softmax forms differ
 only in the order of roundings. The int8-out forms (K3, K8 and K9 with
-quant_out) take bf16 only.
+quant_out) take the same body with the int8 epilogue of the bf16 kernels
+(an f32 workspace, each row's max |y| by atomicMax, then the codes and row
+scales), counted in `quant_launches_f32`.
 """
 
 from __future__ import annotations
@@ -106,6 +108,13 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def _count_f32(wrapper, quant_out: bool) -> None:
+    if quant_out:
+        wrapper.quant_launches_f32 += 1
+    else:
+        wrapper.launches_f32 += 1
+
+
 def _launch_qkv3(qkv_biased: torch.Tensor, scale: float, num_heads: int,
                  quant_out: bool, n_real: int):
     """Launch attention_qkv3.cu on bias-complete [B, S, 3*H*d] qkv."""
@@ -114,8 +123,8 @@ def _launch_qkv3(qkv_biased: torch.Tensor, scale: float, num_heads: int,
                          f"{tuple(qkv_biased.shape)}")
     b, s, hd, d = _split(qkv_biased, num_heads)
     if qkv_biased.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bfloat16 (float32 only with "
-                        f"bf16-out, not quant_out), got {qkv_biased.dtype}")
+        raise TypeError(f"the CUDA kernel takes bfloat16, got "
+                        f"{qkv_biased.dtype}")
     if d not in QKV3_HEAD_WIDTHS:
         raise ValueError(f"the CUDA kernel is built for head widths "
                          f"{QKV3_HEAD_WIDTHS}, got {d}")
@@ -158,17 +167,17 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous
     bf16 with head width 88 or 128 (padded heads) and launches the kernel
-    on the current stream, or f32 without quant_out (head width 64, 88 or
-    128), which launches the f32 body;
-    anything else raises. `fused_attention_qkv3.launches` counts bf16-out
-    launches (K1), `fused_attention_qkv3.quant_launches` int8-out ones (K3),
-    `.launches_f32` f32 ones."""
+    on the current stream, or f32 (head width 64, 88 or 128), which
+    launches the f32 body; anything else raises.
+    `fused_attention_qkv3.launches` counts bf16-out launches (K1),
+    `.quant_launches` int8-out ones (K3), `.launches_f32` and
+    `.quant_launches_f32` their f32 ones."""
     if not _on_cuda(qkv_biased):
         return fused_attention_qkv3_ref(qkv_biased, scale, num_heads,
                                         quant_out=quant_out, n_real=n_real)
-    if qkv_biased.dtype == torch.float32 and not quant_out:
-        out = _launch_qkv_f32(qkv_biased, scale, num_heads, n_real)
-        fused_attention_qkv3.launches_f32 += 1
+    if qkv_biased.dtype == torch.float32:
+        out = _launch_qkv_f32(qkv_biased, scale, num_heads, n_real, quant_out)
+        _count_f32(fused_attention_qkv3, quant_out)
         return out
     out = _launch_qkv3(qkv_biased, scale, num_heads, quant_out, n_real)
     if quant_out:
@@ -181,6 +190,7 @@ def fused_attention_qkv3(qkv_biased: torch.Tensor, scale: float,
 fused_attention_qkv3.launches = 0
 fused_attention_qkv3.quant_launches = 0
 fused_attention_qkv3.launches_f32 = 0
+fused_attention_qkv3.quant_launches_f32 = 0
 
 
 # --- K9: v2, the same function head by head on the TPU --------------------
@@ -197,16 +207,16 @@ def fused_attention_qkv2(qkv_biased: torch.Tensor, scale: float,
     batches them; that is TPU scheduling, and attention_qkv3.cu already
     walks (batch row, query tile, head) items, so a CUDA tensor launches
     that kernel. `rows_per_cell` (grid cells per launch on the TPU) is not
-    carried. A CPU tensor takes the plain version; an f32 CUDA tensor
-    without quant_out the f32 body.
-    `fused_attention_qkv2.launches` counts bf16-out launches,
-    `.quant_launches` int8-out ones, `.launches_f32` f32 ones."""
+    carried. A CPU tensor takes the plain version; an f32 CUDA tensor the
+    f32 body. `fused_attention_qkv2.launches` counts bf16-out launches,
+    `.quant_launches` int8-out ones, `.launches_f32` and
+    `.quant_launches_f32` their f32 ones."""
     if not _on_cuda(qkv_biased):
         return fused_attention_qkv2_ref(qkv_biased, scale, num_heads,
                                         quant_out=quant_out, n_real=n_real)
-    if qkv_biased.dtype == torch.float32 and not quant_out:
-        out = _launch_qkv_f32(qkv_biased, scale, num_heads, n_real)
-        fused_attention_qkv2.launches_f32 += 1
+    if qkv_biased.dtype == torch.float32:
+        out = _launch_qkv_f32(qkv_biased, scale, num_heads, n_real, quant_out)
+        _count_f32(fused_attention_qkv2, quant_out)
         return out
     out = _launch_qkv3(qkv_biased, scale, num_heads, quant_out, n_real)
     if quant_out:
@@ -219,6 +229,7 @@ def fused_attention_qkv2(qkv_biased: torch.Tensor, scale: float,
 fused_attention_qkv2.launches = 0
 fused_attention_qkv2.quant_launches = 0
 fused_attention_qkv2.launches_f32 = 0
+fused_attention_qkv2.quant_launches_f32 = 0
 
 
 # --- K6 and K7: softmax attention over split or packed heads ---------------
@@ -344,16 +355,24 @@ def _f32_lib() -> ctypes.CDLL:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
            ctypes.c_void_p])
     lib.hirest_attention_f32.restype = ctypes.c_int
+    lib.hirest_attention_f32_quant.argtypes = (
+        [ctypes.c_void_p] * 10 + ints
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+           ctypes.c_void_p])
+    lib.hirest_attention_f32_quant.restype = ctypes.c_int
     return lib
 
 
 def _launch_f32(q, k, v, key_mask, out, scale: float, q_bias=None,
-                v_bias=None) -> None:
+                v_bias=None):
     """Launch attention_f32.cu on f32 [B, H, S, D] views (any batch, head
     and row strides, unit last stride) into the f32 [B, H, Sq, D] view
-    `out`, with the key mask [B, Sk] and the biases [H*D] (each or None)."""
+    `out`, with the key mask [B, Sk] and the biases [H*D] (each or None).
+    With out=None, the int8-out form instead -> (int8 codes [B, Sq, H*D],
+    f32 row scales [B, Sq, 1])."""
     (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask, torch.float32)
-    if out.dtype != torch.float32 or out.stride(-1) != 1:
+    if out is not None and (out.dtype != torch.float32
+                            or out.stride(-1) != 1):
         raise ValueError("out must be an f32 view with a unit last stride")
     qb, vb = (None if t is None else
               t.reshape(-1).to(device=q.device, dtype=torch.float32)
@@ -362,23 +381,41 @@ def _launch_f32(q, k, v, key_mask, out, scale: float, q_bias=None,
         if t is not None and t.numel() != h * d:
             raise ValueError(f"expected a bias of {h * d} values, got "
                              f"{t.numel()}")
+    views = (q, k, v) if out is None else (q, k, v, out)
     strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+        *(st for t in views for st in t.stride()[:3]))
     lib = _f32_lib()
-    with torch.cuda.device(q.device):
-        err = lib.hirest_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(qb),
-            _ptr(vb), out.data_ptr(), b, h, sq, sk, d, strides, scale,
-            torch.cuda.current_stream().cuda_stream)
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if out is None:
+            ws = torch.empty((b, sq, h * d), dtype=torch.float32, device=dev)
+            rowmax = torch.empty((b, sq), dtype=torch.int32, device=dev)
+            codes = torch.empty((b, sq, h * d), dtype=torch.int8, device=dev)
+            scales = torch.empty((b, sq, 1), dtype=torch.float32, device=dev)
+            err = lib.hirest_attention_f32_quant(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                _ptr(qb), _ptr(vb), ws.data_ptr(), rowmax.data_ptr(),
+                codes.data_ptr(), scales.data_ptr(), b, h, sq, sk, d, strides,
+                scale, stream)
+            result = codes, scales
+        else:
+            err = lib.hirest_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+                _ptr(qb), _ptr(vb), out.data_ptr(), b, h, sq, sk, d, strides,
+                scale, stream)
+            result = None
     build.check(lib, err, "attention_f32 launch")
+    return result
 
 
 def _launch_qkv_f32(qkv_biased: torch.Tensor, scale: float, num_heads: int,
-                    n_real: int) -> torch.Tensor:
+                    n_real: int, quant_out: bool = False):
     """K1/K9's function on f32 [B, S, 3*H*d] pre-biased qkv through the f32
     body: the q, k and v thirds as head views, the keys cut to the first
     n_real (when n_real > 0; the reference's -1e30 scores of the others
-    give them exactly 0 weight) -> [B, S, H*d] f32."""
+    give them exactly 0 weight) -> [B, S, H*d] f32, or with quant_out
+    (K3/K9 int8) its int8 codes and f32 row scales [B, S, 1]."""
     if qkv_biased.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got "
                          f"{tuple(qkv_biased.shape)}")
@@ -387,10 +424,12 @@ def _launch_qkv_f32(qkv_biased: torch.Tensor, scale: float, num_heads: int,
         raise ValueError(f"n_real must be >= 0, got {n_real}")
     n_keys = min(n_real, s) if n_real else s
     q, k, v = (split_heads(t, num_heads) for t in qkv_biased.chunk(3, -1))
+    k, v = k[:, :, :n_keys], v[:, :, :n_keys]
+    if quant_out:
+        return _launch_f32(q, k, v, None, None, scale)
     out = torch.empty((b, s, hd), dtype=torch.float32,
                       device=qkv_biased.device)
-    _launch_f32(q, k[:, :, :n_keys], v[:, :, :n_keys], None,
-                split_heads(out, num_heads), scale)
+    _launch_f32(q, k, v, None, split_heads(out, num_heads), scale)
     return out
 
 
@@ -530,27 +569,29 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
     bf16 with head width 64, 88 or 128, any S, and launches
     attention_split.cu on the q, k and v thirds as views, the biases added
     in bf16 as the kernel loads q and as each V tile lands in shared
-    memory; or f32 without quant_out, which launches the f32 body on the
-    same views with the biases added in f32; anything else raises.
+    memory; or f32, which launches the f32 body on the same views with the
+    biases added in f32; anything else raises.
     `fused_attention_qkv.launches` counts bf16-out launches,
-    `.quant_launches` int8-out ones, `.launches_f32` f32 ones."""
+    `.quant_launches` int8-out ones, `.launches_f32` and
+    `.quant_launches_f32` their f32 ones."""
     if not _on_cuda(qkv):
         return fused_attention_qkv_ref(qkv, q_bias, v_bias, scale, num_heads,
                                        quant_out=quant_out)
     if qkv.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got {tuple(qkv.shape)}")
     b, s, hd, d = _split(qkv, num_heads)
-    if qkv.dtype == torch.float32 and not quant_out:
-        out = torch.empty((b, s, hd), dtype=qkv.dtype, device=qkv.device)
+    if qkv.dtype == torch.float32:
         q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
-        _launch_f32(q, k, v, None, split_heads(out, num_heads), scale,
-                    q_bias, v_bias)
-        fused_attention_qkv.launches_f32 += 1
-        return out
+        out = None if quant_out else torch.empty(
+            (b, s, hd), dtype=qkv.dtype, device=qkv.device)
+        codes = _launch_f32(q, k, v, None, None if out is None
+                            else split_heads(out, num_heads), scale, q_bias,
+                            v_bias)
+        _count_f32(fused_attention_qkv, quant_out)
+        return codes if quant_out else out
     if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 qkv "
-                        f"(float32 only with bf16-out, not quant_out), got "
-                        f"{qkv.dtype}")
+        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 or "
+                        f"float32 qkv, got {qkv.dtype}")
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
     qb, vb = (_bias_arg(t, hd, qkv.device) for t in (q_bias, v_bias))
     if quant_out:
@@ -566,3 +607,4 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
 fused_attention_qkv.launches = 0
 fused_attention_qkv.quant_launches = 0
 fused_attention_qkv.launches_f32 = 0
+fused_attention_qkv.quant_launches_f32 = 0

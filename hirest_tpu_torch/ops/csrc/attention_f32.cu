@@ -16,6 +16,14 @@
 // divide after PV, K6/K7/K8's normalised p) differ in f32 only in the order
 // of roundings, ~1e-7 relative, so this one body serves all of them.
 //
+// The int8-out forms (K3, K9 and K8 with quant_out) take the same body and
+// the attention kernels' two-step epilogue (rowquant.cuh): o is an f32
+// [B, Sq, H*D] workspace, never rounded, and each block folds its rows'
+// max |o| into rowmax[b * Sq + row] with atomicMax on the float's bits;
+// then quant_rows_kernel writes the codes and the row scales (one scale
+// over all heads of a row: max / 127 floored at 1e-8, round-half-even
+// quotients clipped to +-127).
+//
 // Bound on an H100 SXM: ViT-B/32's [128, 12, 50, 64]: q, k, v read and o
 // written, 4 x 19.7 MB = 78.6 MB, 0.023 ms at 3.35 TB/s, against 0.98
 // GFLOP at 67 TFLOP/s of f32 FFMA (0.015 ms): bound by memory. EVA-g's
@@ -39,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rowquant.cuh"
+
 namespace {
 
 constexpr int kRows = 64;     // query rows a block
@@ -57,6 +67,7 @@ struct Args {
   const float* qbias;  // [H * D] or null
   const float* vbias;  // [H * D] or null
   float* o;
+  unsigned int* rowmax;  // [B * Sq] for the int8 epilogue, or null
   int B, H, Sq, Sk;
   float scale;
   Strides st;
@@ -67,7 +78,10 @@ constexpr int smem_bytes() {
   return (2 * kRows * (D + 1) + kRows * (kKeys + 1)) * (int)sizeof(float);
 }
 
-template <int D>
+// kQuant: the int8 epilogue's first step (each row's max |o| folded into
+// a.rowmax); an instantiation of its own, so that the f32-out form keeps
+// its registers.
+template <int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 attention_f32_kernel(const Args a) {
   constexpr int LD = D + 1;
@@ -203,25 +217,77 @@ attention_f32_kernel(const Args a) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + 4 * rq + r;
-    if (row >= a.Sq) continue;
+    if constexpr (kQuant) {
+      float amax = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = kq + 16 * c;
-      if (D % 16 == 0 || d < D) og[row * a.st.o[2] + d] = acc[r][c] / l[r];
+      for (int c = 0; c < NC; ++c) {
+        const int d = kq + 16 * c;
+        if (row < a.Sq && (D % 16 == 0 || d < D)) {
+          const float y = acc[r][c] / l[r];
+          og[row * a.st.o[2] + d] = y;
+          amax = fmaxf(amax, fabsf(y));
+        }
+      }
+      // the 16 threads of the row group share a half-warp
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      if (kq == 0 && row < a.Sq)
+        atomicMax(a.rowmax + (long long)b * a.Sq + row, __float_as_uint(amax));
+    } else {
+      if (row >= a.Sq) continue;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = kq + 16 * c;
+        if (D % 16 == 0 || d < D) og[row * a.st.o[2] + d] = acc[r][c] / l[r];
+      }
     }
   }
 }
 
-template <int D>
+template <int D, bool kQuant>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      attention_f32_kernel<D, kQuant>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + kRows - 1) / kRows, a.H, a.B);
-  attention_f32_kernel<D><<<grid, kThreads, smem, stream>>>(a);
+  attention_f32_kernel<D, kQuant><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_width(const Args& a, cudaStream_t stream) {
+  return a.rowmax ? launch<D, true>(a, stream) : launch<D, false>(a, stream);
+}
+
+int launch_f32(const void* q, const void* k, const void* v, const void* mask,
+               const void* qbias, const void* vbias, void* o, int B, int H,
+               int Sq, int Sk, int D, const long long* strides, float scale,
+               cudaStream_t st, Args a) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.mask = static_cast<const int*>(mask);
+  a.qbias = static_cast<const float*>(qbias);
+  a.vbias = static_cast<const float*>(vbias);
+  a.o = static_cast<float*>(o);
+  a.B = B;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.scale = scale;
+  long long* all[4] = {a.st.q, a.st.k, a.st.v, a.st.o};
+  for (int i = 0; i < 12; ++i) all[i / 3][i % 3] = strides[i];
+  switch (D) {
+    case 64: return (int)launch_width<64>(a, st);
+    case 88: return (int)launch_width<88>(a, st);
+    case 128: return (int)launch_width<128>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -238,30 +304,38 @@ extern "C" int hirest_attention_f32(const void* q, const void* k,
                                     void* o, int B, int H, int Sq, int Sk,
                                     int D, const long long* strides,
                                     float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  Args a = {};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.mask = static_cast<const int*>(mask);
-  a.qbias = static_cast<const float*>(qbias);
-  a.vbias = static_cast<const float*>(vbias);
-  a.o = static_cast<float*>(o);
-  a.B = B;
-  a.H = H;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.scale = scale;
-  long long* all[4] = {a.st.q, a.st.k, a.st.v, a.st.o};
-  for (int i = 0; i < 12; ++i) all[i / 3][i % 3] = strides[i];
+  return launch_f32(q, k, v, mask, qbias, vbias, o, B, H, Sq, Sk, D, strides,
+                    scale, (cudaStream_t)stream, Args{});
+}
+
+// The int8-out forms: q, k, v, mask and the biases as above, with the
+// (batch, head, row) strides of q, k and v in `strides`; ws [B, Sq, H * D]
+// f32 (16-byte aligned) and rowmax [B * Sq] uint32 are workspaces; codes
+// [B, Sq, H * D] int8 and scales [B * Sq] f32 the result. H * D % 4 == 0.
+extern "C" int hirest_attention_f32_quant(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* qbias, const void* vbias, void* ws, void* rowmax, void* codes,
+    void* scales, int B, int H, int Sq, int Sk, int D,
+    const long long* strides, float scale, void* stream) {
+  const long long hd = (long long)H * D;
+  const long long all[12] = {strides[0], strides[1], strides[2], strides[3],
+                             strides[4], strides[5], strides[6], strides[7],
+                             strides[8], Sq * hd,    D,          hd};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 64: return (int)launch<64>(a, st);
-    case 88: return (int)launch<88>(a, st);
-    case 128: return (int)launch<128>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int rows = B * Sq;
+  if (B <= 0 || Sq <= 0 || hd % 4 || reinterpret_cast<uintptr_t>(ws) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaMemsetAsync(rowmax, 0, sizeof(unsigned int) * rows, st);
+  if (err != cudaSuccess) return (int)err;
+  Args a = {};
+  a.rowmax = static_cast<unsigned int*>(rowmax);
+  err = (cudaError_t)launch_f32(q, k, v, mask, qbias, vbias, ws, B, H, Sq, Sk,
+                                D, all, scale, st, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_quant_rows(static_cast<const float*>(ws),
+                                static_cast<const unsigned int*>(rowmax),
+                                codes, scales, rows, (int)hd, st);
 }
 
 extern "C" const char* hirest_cuda_error_string(int err) {

@@ -376,15 +376,30 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads1, 2)
 
 // --- K4b: fc2 over the codes, folded chunk by chunk ----------------------
 
+// The residual x and the output in bf16 (the int8 trunk) or f32 (the f32
+// int8 factory, whose JAX kernel computes in the dtype it is given).
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads2, 1)
     fused_mlp_int8_out_kernel(const __grid_constant__ CUtensorMap tm_codes,
                               const __grid_constant__ CUtensorMap tm_w2,
                               const float* __restrict__ scales,
                               const float* __restrict__ s2,
                               const float* __restrict__ b2,
-                              const __nv_bfloat16* __restrict__ x,
-                              __nv_bfloat16* __restrict__ out, int M,
-                              int F) {
+                              const T* __restrict__ x,
+                              T* __restrict__ out, int M, int F) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -430,12 +445,8 @@ __global__ void __launch_bounds__(kThreads2, 1)
       const int n = n0 + 8 * i + 2 * (lane % 4);
       const float2 bv = __ldg(reinterpret_cast<const float2*>(b2 + n));
       float2 x0 = make_float2(0.f, 0.f), x1 = x0;
-      if (ok0)
-        x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            x + (size_t)(m0 + r0) * kC + n));
-      if (ok1)
-        x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            x + (size_t)(m0 + r0 + 8) * kC + n));
+      if (ok0) x0 = load2(x + (size_t)(m0 + r0) * kC + n);
+      if (ok1) x1 = load2(x + (size_t)(m0 + r0 + 8) * kC + n);
       run[4 * i] = __fadd_rn(x0.x, bv.x);
       run[4 * i + 1] = __fadd_rn(x0.y, bv.y);
       run[4 * i + 2] = __fadd_rn(x1.x, bv.x);
@@ -496,12 +507,10 @@ __global__ void __launch_bounds__(kThreads2, 1)
     for (int i = 0; i < 22; ++i) {
       const int n = n0 + 8 * i + 2 * (lane % 4);
       if (ok0)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + r0) * kC + n) =
-            __floats2bfloat162_rn(run[4 * i], run[4 * i + 1]);
+        store2(out + (size_t)(m0 + r0) * kC + n, run[4 * i], run[4 * i + 1]);
       if (ok1)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + r0 + 8) * kC +
-                                           n) =
-            __floats2bfloat162_rn(run[4 * i + 2], run[4 * i + 3]);
+        store2(out + (size_t)(m0 + r0 + 8) * kC + n, run[4 * i + 2],
+               run[4 * i + 3]);
     }
   }
 }
@@ -569,6 +578,32 @@ extern "C" int hirest_mlp_int8_hidden(const void* hq, const void* hs,
                                            scales, M, F, st));
 }
 
+namespace {
+
+template <typename T>
+int launch_out(const void* codes, const void* scales, const void* w2,
+               const void* s2, const void* b2, const void* x, void* out, int M,
+               int F, void* stream) {
+  if (M <= 0 || F <= 0 || F % kNC) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_codes, tm_w2;
+  cudaError_t err = int8_map(&tm_codes, codes, M, F, kBM);
+  if (err == cudaSuccess) err = int8_map(&tm_w2, w2, kC, F, kBN2);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fused_mlp_int8_out_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmem2);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(kC / kBN2, (M + kBM - 1) / kBM);
+  fused_mlp_int8_out_kernel<T><<<grid, kThreads2, kSmem2,
+                                 (cudaStream_t)stream>>>(
+      tm_codes, tm_w2, static_cast<const float*>(scales),
+      static_cast<const float*>(s2), static_cast<const float*>(b2),
+      static_cast<const T*>(x), static_cast<T*>(out), M, F);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // K4b. codes [M, F] int8 and scales [M, F / 1024] f32 from K4a, w2
 // [1408, F] int8, s2/b2 [1408] f32, x and out [M, 1408] bf16, all
 // contiguous and 16-byte aligned; F a multiple of 1024. Launches on
@@ -577,23 +612,17 @@ extern "C" int hirest_mlp_int8_out(const void* codes, const void* scales,
                                    const void* w2, const void* s2,
                                    const void* b2, const void* x, void* out,
                                    int M, int F, void* stream) {
-  if (M <= 0 || F <= 0 || F % kNC) return (int)cudaErrorInvalidValue;
-  CUtensorMap tm_codes, tm_w2;
-  cudaError_t err = int8_map(&tm_codes, codes, M, F, kBM);
-  if (err == cudaSuccess) err = int8_map(&tm_w2, w2, kC, F, kBN2);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fused_mlp_int8_out_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmem2);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(kC / kBN2, (M + kBM - 1) / kBM);
-  fused_mlp_int8_out_kernel<<<grid, kThreads2, kSmem2,
-                              (cudaStream_t)stream>>>(
-      tm_codes, tm_w2, static_cast<const float*>(scales),
-      static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-      M, F);
-  return (int)cudaGetLastError();
+  return launch_out<__nv_bfloat16>(codes, scales, w2, s2, b2, x, out, M, F,
+                                   stream);
+}
+
+// As above with x and out [M, 1408] f32.
+extern "C" int hirest_mlp_int8_out_f32(const void* codes, const void* scales,
+                                       const void* w2, const void* s2,
+                                       const void* b2, const void* x,
+                                       void* out, int M, int F,
+                                       void* stream) {
+  return launch_out<float>(codes, scales, w2, s2, b2, x, out, M, F, stream);
 }
 
 // Dynamic shared memory a block asks for: K4a (kernel 0) or K4b (1).

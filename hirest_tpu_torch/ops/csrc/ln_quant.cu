@@ -168,6 +168,76 @@ __global__ void __launch_bounds__(kRowThreads, 2)
   }
 }
 
+// K2 on f32 rows (the f32 int8 factory hands ln_quant f32, as the JAX
+// kernel computes in the dtype it is given): the same arithmetic in the same
+// order as ln_kernel, one warp a row, eight rows a block, the row read
+// straight from global memory by 16-byte loads. A first version: right, not
+// fast. C % 4 == 0, C <= 2048, x 16-byte aligned.
+__global__ void __launch_bounds__(kRowThreads)
+    ln_quant_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g,
+                        const float* __restrict__ b, int8_t* __restrict__ q,
+                        float* __restrict__ s, int M, int C, float eps) {
+  const int lane = threadIdx.x % 32;
+  const long long row =
+      (long long)blockIdx.x * kGroups + threadIdx.x / 32;
+  if (row >= M) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + row * C);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  const int nv = C / 4;
+  float v[kMaxVecs][4];
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxVecs; ++k) {
+    if (lane + k * kG < nv) {
+      const float4 w = xr[lane + k * kG];
+      v[k][0] = w.x;
+      v[k][1] = w.y;
+      v[k][2] = w.z;
+      v[k][3] = w.w;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum = __fadd_rn(sum, v[k][e]);
+    }
+  }
+  const float mu = __fdiv_rn(warp_sum(sum), (float)C);
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxVecs; ++k) {
+    if (lane + k * kG < nv) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[k][e] = __fsub_rn(v[k][e], mu);
+        ss = __fadd_rn(ss, __fmul_rn(v[k][e], v[k][e]));
+      }
+    }
+  }
+  const float r = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(ss), (float)C), eps));
+  float amax = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxVecs; ++k) {
+    const int vi = lane + k * kG;
+    if (vi < nv) {
+      const float4 gv = g4[vi], bv = b4[vi];
+      const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[k][e] = __fadd_rn(__fmul_rn(__fmul_rn(v[k][e], r), gg[e]), bb[e]);
+        amax = fmaxf(amax, fabsf(v[k][e]));
+      }
+    }
+  }
+  const float sc = row_scale(warp_max(amax)), rc = row_recip(sc);
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + row * C);
+#pragma unroll
+  for (int k = 0; k < kMaxVecs; ++k) {
+    const int vi = lane + k * kG;
+    if (vi < nv) qr[vi] = code4_recip(v[k], sc, rc);
+  }
+  if (lane == 0) s[row] = sc;
+}
+
 constexpr uint32_t smem_bytes(int C) {
   return ring_bytes<kGroups>(C) + 2 * C * 4;
 }
@@ -222,6 +292,23 @@ extern "C" int hirest_ln_bf16(const void* x, const void* g, const void* b,
                               void* y, int M, int C, float eps, void* stream) {
   return (int)launch_ln<false>(x, g, b, nullptr, nullptr, y, M, C, eps,
                                (cudaStream_t)stream);
+}
+
+// K2 on f32 x [M, C] (16-byte aligned), g/b [C] f32, q [M, C] int8, s [M]
+// f32, all contiguous; C % 4 == 0 and C <= 2048. Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int hirest_ln_quant_f32(const void* x, const void* g,
+                                   const void* b, void* q, void* s, int M,
+                                   int C, float eps, void* stream) {
+  if (M <= 0 || C <= 0 || C % 4 || C > kMaxWidth ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  ln_quant_f32_kernel<<<(M + kGroups - 1) / kGroups, kRowThreads, 0,
+                        (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(b), static_cast<int8_t*>(q),
+      static_cast<float*>(s), M, C, eps);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* hirest_cuda_error_string(int err) {

@@ -177,9 +177,14 @@ def ln_quant(x, weight, bias, eps: float):
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
     16-byte aligned bf16 with C a multiple of 8 up to 2048, and launches
-    the kernel; anything else raises. `ln_quant.launches` counts launches."""
+    the kernel, or f32 with C a multiple of 4 up to 2048, which launches
+    its f32 form (the f32 int8 factory's; a warp a row, the same
+    arithmetic); anything else raises. `ln_quant.launches` counts bf16
+    launches, `.launches_f32` f32 ones."""
     if x.device.type == "cpu":
         return ln_quant_ref(x, weight, bias, eps)
+    if x.dtype == torch.float32:
+        return _ln_quant_f32(x, weight, bias, eps)
     rows = _bf16_rows(x, "ln_quant")
     m, c = rows.shape
     g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
@@ -192,6 +197,28 @@ def ln_quant(x, weight, bias, eps: float):
                  torch.cuda.current_stream().cuda_stream)
     build.check(build.load("ln_quant"), err, "ln_quant launch")
     ln_quant.launches += 1
+    return q, s
+
+
+def _ln_quant_f32(x, weight, bias, eps: float):
+    _require_cuda(x)
+    if (x.dim() < 2 or not x.is_contiguous() or x.data_ptr() % 16
+            or x.shape[-1] % 4 or x.shape[-1] > LN_MAX_WIDTH):
+        raise TypeError(f"ln_quant's f32 kernel takes contiguous, 16-byte "
+                        f"aligned f32 [..., C], C % 4 == 0 and C <= "
+                        f"{LN_MAX_WIDTH}, got {tuple(x.shape)}")
+    c = x.shape[-1]
+    m = x.numel() // c
+    g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    fn = _ln_fn("hirest_ln_quant_f32", 2)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
+                 s.data_ptr(), m, c, eps,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("ln_quant"), err, "ln_quant f32 launch")
+    ln_quant.launches_f32 += 1
     return q, s
 
 
@@ -218,6 +245,7 @@ def ln_bf16(x, weight, bias, eps: float):
 
 
 ln_quant.launches = 0
+ln_quant.launches_f32 = 0
 ln_bf16.launches = 0
 
 
@@ -391,8 +419,9 @@ def _mlp_hidden_launch(h_q, h_s, w1_q, w1_s, b1, act: str):
 
 
 def _mlp_out_launch(codes, scales, w2_q, w2_s, b2, x_res):
-    """K4's second kernel on CUDA tensors -> out [M, C] bf16, as
-    mlp_int8_out_ref; checks its operands."""
+    """K4's second kernel on CUDA tensors -> out [M, C] in x_res's dtype
+    (bf16, or f32: the f32 int8 factory's), as mlp_int8_out_ref; checks
+    its operands."""
     _require_cuda(codes)
     m, f = codes.shape
     c = KERNEL_WIDTH
@@ -401,11 +430,13 @@ def _mlp_out_launch(codes, scales, w2_q, w2_s, b2, x_res):
                     codes=(codes, (m, f), torch.int8),
                     scales=(scales, (m, f // N_CHUNK), torch.float32),
                     w2_q=(w2_q, (c, f), torch.int8),
-                    x_res=(x_res, (m, c), torch.bfloat16))
+                    x_res=(x_res, (m, c), _residual_dtype(x_res)))
     s2, bb2 = _f32_vector(w2_s, c, dev), _f32_vector(b2, c, dev)
     out = torch.empty_like(x_res)
+    entry = ("hirest_mlp_int8_out_f32" if x_res.dtype == torch.float32
+             else "hirest_mlp_int8_out")
     with torch.cuda.device(dev):
-        err = _mlp_fn("hirest_mlp_int8_out", 7, 2)(
+        err = _mlp_fn(entry, 7, 2)(
             codes.data_ptr(), scales.data_ptr(), w2_q.data_ptr(),
             s2.data_ptr(), bb2.data_ptr(), x_res.data_ptr(), out.data_ptr(),
             m, f, torch.cuda.current_stream().cuda_stream)
@@ -421,10 +452,11 @@ def fused_mlp_int8(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
     A CPU tensor takes the plain version. A CUDA call launches K4's two
     kernels, which are built for the EVA-g trunk: C = 1408, F a multiple
     of the 1024-unit chunk, contiguous 16-byte aligned int8 codes, f32
-    scales and biases, bf16 x_res; anything else raises. The first writes
-    the hidden units' int8 codes and per-chunk scales, the second folds
-    fc2 over them. `fused_mlp_int8.launches` counts calls, each of which
-    launches both."""
+    scales and biases, bf16 or f32 x_res (the second kernel reads and
+    writes it in its dtype); anything else raises. The first writes the
+    hidden units' int8 codes and per-chunk scales, the second folds fc2
+    over them. `fused_mlp_int8.launches` counts calls with bf16 x_res,
+    `.launches_f32` with f32 x_res, each of which launches both."""
     if h_q.device.type == "cpu":
         return fused_mlp_int8_ref(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2,
                                   x_res, act=act)
@@ -432,14 +464,23 @@ def fused_mlp_int8(h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x_res, *,
     m, c = h_q.shape
     _check_operands("fused_mlp_int8", h_q.device,
                     w2_q=(w2_q, (c, w1_q.shape[0]), torch.int8),
-                    x_res=(x_res, (m, c), torch.bfloat16))
+                    x_res=(x_res, (m, c), _residual_dtype(x_res)))
     codes, scales = _mlp_hidden_launch(h_q, h_s, w1_q, w1_s, b1, act)
     out = _mlp_out_launch(codes, scales, w2_q, w2_s, b2, x_res)
-    fused_mlp_int8.launches += 1
+    if x_res.dtype == torch.float32:
+        fused_mlp_int8.launches_f32 += 1
+    else:
+        fused_mlp_int8.launches += 1
     return out
 
 
+def _residual_dtype(x_res) -> torch.dtype:
+    """The dtype K4 takes x_res in: its own where it is f32, else bf16."""
+    return torch.float32 if x_res.dtype == torch.float32 else torch.bfloat16
+
+
 fused_mlp_int8.launches = 0
+fused_mlp_int8.launches_f32 = 0
 
 
 def mlp_int8_smem_bytes() -> dict:

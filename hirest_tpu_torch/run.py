@@ -10,6 +10,15 @@ the CPU). `--train` trains and scores the test split with BEST;
 each task's test predictions go to `{ckpt_dir}/test_{task}_BEST.json`.
 `--load` takes a checkpoint of the port (`.pt`, with its optimizer state)
 or a reference-format `.pth`.
+
+`--mesh_shape data:N[,model:M]` trains and predicts over N x M ranks, one
+device each (parallel/mesh.py), launched by torchrun:
+
+    torchrun --standalone --nproc_per_node=N -m hirest_tpu_torch.run \
+        --train --mesh_shape data:N ... [--device cpu]
+
+Each rank runs on cuda:{LOCAL_RANK} over NCCL, or with `--device cpu` on
+the CPU over gloo; rank 0 writes the JSONs and checkpoints.
 """
 
 from __future__ import annotations
@@ -26,10 +35,18 @@ from hirest_tpu_torch.config import HirestConfig
 
 def main(argv=None) -> None:
     config = HirestConfig.from_args(argv)
+    main_rank = True
+    if config.mesh_shape:
+        from hirest_tpu_torch.parallel.mesh import init_distributed
+
+        config.device = str(init_distributed(
+            device=None if config.device == "cuda" else config.device))
+        main_rank = int(os.environ.get("RANK", 0)) == 0
     random.seed(config.seed)
     np.random.seed(config.seed)
     torch.manual_seed(config.seed)
-    print(config.to_json())
+    if main_rank:
+        print(config.to_json())
 
     tokenizer = None
     vocab_path = os.path.join(config.pretrained_dir, "vocab.txt")
@@ -61,6 +78,8 @@ def main(argv=None) -> None:
         for task in config.tasks:
             res = trainer.evaluate(trainer.loaders["test"][task], task,
                                    has_target=False)
+            if not main_rank:
+                continue
             out = os.path.join(config.ckpt_dir, f"test_{task}_BEST.json")
             with open(out, "w") as f:
                 json.dump(res, f, indent=4)

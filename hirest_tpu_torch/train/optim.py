@@ -73,11 +73,18 @@ def linear_warmup_schedule(base_lr: float, warmup_steps: int,
     return schedule
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> dict:
+def global_norm(grads: Tensors) -> torch.Tensor:
+    """The square root of the sum of every tensor's sum of squares."""
+    return torch.sqrt(sum((g * g).sum() for g in grads.values()))
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        norm_fn: Callable = global_norm) -> dict:
     """optax.clip_by_global_norm: g unchanged when ||g|| < max_norm, else
-    (g / ||g||) * max_norm, ||g|| the square root of the sum of every
-    tensor's sum of squares. Decided on the device: no host sync."""
-    g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+    (g / ||g||) * max_norm, ||g|| = norm_fn(grads) (`global_norm`; a
+    tensor-parallel trainer passes one that counts each shard once).
+    Decided on the device: no host sync."""
+    g_norm = norm_fn(grads)
     keep = g_norm < max_norm
     return {k: torch.where(keep, g, (g / g_norm) * max_norm)
             for k, g in grads.items()}
@@ -112,14 +119,14 @@ def adamw(schedule: Callable, weight_decay: float = 1e-4, b1: float = 0.9,
     return GradientTransformation(init, update)
 
 
-def chain_clip(max_norm: float,
-               inner: GradientTransformation) -> GradientTransformation:
+def chain_clip(max_norm: float, inner: GradientTransformation,
+               norm_fn: Callable = global_norm) -> GradientTransformation:
     """optax.chain(clip_by_global_norm(max_norm), inner): clipping keeps
     no state."""
 
     def update(grads, state, params):
-        return inner.update(clip_by_global_norm(grads, max_norm), state,
-                            params)
+        return inner.update(clip_by_global_norm(grads, max_norm, norm_fn),
+                            state, params)
 
     return GradientTransformation(inner.init, update)
 
@@ -155,12 +162,13 @@ def multi_steps(inner: GradientTransformation,
 
 def make_optimizer(lr: float, warmup_steps: float, total_steps: int,
                    clip_grad_norm: float = -1.0, weight_decay: float = 0.01,
-                   accum_steps: int = 1) -> GradientTransformation:
+                   accum_steps: int = 1,
+                   norm_fn: Callable = global_norm) -> GradientTransformation:
     """The trainer's optimizer. `warmup_steps` < 1 is a ratio of the total
     steps (args.py:35 via trainer_base.py:43-48). weight_decay 0.01 is
     what the reference effectively trains with (torch AdamW's default;
     its --weight_decay flag never reaches the optimizer), and an explicit
-    value is honored."""
+    value is honored. norm_fn: the clipping's gradient norm."""
     if warmup_steps < 1:
         warmup = int(total_steps * warmup_steps)
     else:
@@ -168,7 +176,7 @@ def make_optimizer(lr: float, warmup_steps: float, total_steps: int,
     tx = adamw(linear_warmup_schedule(lr, warmup, total_steps),
                weight_decay=weight_decay)
     if clip_grad_norm and clip_grad_norm > 0:
-        tx = chain_clip(clip_grad_norm, tx)
+        tx = chain_clip(clip_grad_norm, tx, norm_fn)
     if accum_steps > 1:
         tx = multi_steps(tx, accum_steps)
     return tx

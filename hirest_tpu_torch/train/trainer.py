@@ -28,8 +28,22 @@ Checkpoints are `torch.save` of {"model": state dict, "opt_state",
 state into a fresh trainer sets the optimizer up first, so Adam's moments,
 its count and the accumulator are restored, not restarted. JAX `.msgpack`
 checkpoints need flax and are not read; reference `.pth` files load with
-`load_torch_checkpoint`. `mesh_shape` (data parallelism over a mesh) is not
-ported and raises.
+`load_torch_checkpoint`.
+
+`mesh_shape` ("data:N[,model:M]", parallel/mesh.py) trains over the ranks of
+the process group, a rank a device, and computes what one process computes,
+as the JAX mesh changes placement and not results. Every rank builds the
+same loaders (batches padded to the batch size, batch_mask marking the real
+rows) and takes its rows of each batch over 'data'; the decoder and encoder
+layers are sharded over 'model' (parallel/tp.py). The losses' denominators
+are summed over the data group, so the ranks' losses and gradients sum to
+the whole batch's: the gradients (and the loss) cross the data group in
+one flat all_reduce a step, before the optimizer, whose clipping norm
+counts each shard once. Dropout draws the one-process mask and each rank
+keeps its rows (models/caption.py::Dropout). Predictions are made on each
+rank's rows and gathered in batch order, validation losses are global;
+rank 0 alone writes the JSONs and checkpoints, which hold the full
+(gathered) parameters and optimizer state.
 """
 
 from __future__ import annotations
@@ -54,13 +68,15 @@ from hirest_tpu_torch.infer.segmentation import (iterative_segmentation,
 from hirest_tpu_torch.models.caption import Dropout
 from hirest_tpu_torch.models.joint import MomentModel
 from hirest_tpu_torch.native import trim_to_moment
+from hirest_tpu_torch.parallel.collectives import (allgather_objects,
+                                                   merge_prediction_lists)
 from hirest_tpu_torch.tokenizers import clip_tokenize
 from hirest_tpu_torch.train import losses as L
 from hirest_tpu_torch.train.formatting import (format_moment_retrieval,
                                                format_moment_segmentation,
                                                format_step_captioning)
-from hirest_tpu_torch.train.optim import (apply_updates, grads_of,
-                                          make_optimizer)
+from hirest_tpu_torch.train.optim import (apply_updates, global_norm,
+                                          grads_of, make_optimizer)
 from hirest_tpu_torch.utils.device import resolve_device
 from hirest_tpu_torch.utils.meters import LossMeter
 from hirest_tpu_torch.utils.profiling import MetricsLogger, PhaseTimer, trace
@@ -83,12 +99,23 @@ class Trainer:
         verbose: bool = True,
         model_config=None,
     ):
-        if config.mesh_shape:
-            raise NotImplementedError(
-                f"mesh_shape={config.mesh_shape!r}: the port trains on one "
-                "device; data parallelism over a mesh is ROADMAP's M10, not "
-                "ported yet")
         self.config = config
+        self.mesh = None
+        if config.mesh_shape:
+            from hirest_tpu_torch.parallel.mesh import make_mesh, parse_spec
+
+            n_data = parse_spec(config.mesh_shape).get("data", 1)
+            for name, bs in (("train_batch_size", config.train_batch_size),
+                             ("eval_batch_size", config.eval_batch_size)):
+                if bs % n_data:
+                    raise ValueError(
+                        f"{name}={bs} must be divisible by the mesh 'data' "
+                        f"axis ({n_data}) so every device gets equal rows")
+            self.mesh = make_mesh(config.mesh_shape)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        verbose = verbose and self.is_main
+        if verbose and self.mesh is not None:
+            print(f"mesh: {self.mesh.shape}")
         self.verbose = verbose
         self.device = resolve_device(config.device)
         self.model_cfg = model_config or config.joint_model_config()
@@ -103,11 +130,21 @@ class Trainer:
             config.asr_feature_dir)
         self.buckets = tuple(config.frame_buckets)
         self.model = (model or self._init_params()).to(self.device).eval()
+        self.shardings: dict = {}  # parameter name -> dim sharded over 'model'
+        self._rows = None  # this rank's (first row, real rows) of a batch
+        if self.mesh is not None:
+            from hirest_tpu_torch.parallel.mesh import (apply_param_shardings,
+                                                        replicate)
+
+            replicate(self.mesh, self.model)
+            self.shardings = {k: d for k, d in apply_param_shardings(
+                self.model, self.mesh).items() if d is not None}
         self.dropout = True  # dropout live in training steps
         self.dropout_gen = torch.Generator(device=self.device)
-        for mod in self.model.modules():
-            if isinstance(mod, Dropout):
-                mod.generator = self.dropout_gen
+        self._dropouts = [m for m in self.model.modules()
+                          if isinstance(m, Dropout)]
+        for mod in self._dropouts:
+            mod.generator = self.dropout_gen
         self.tx = None
         self.opt_state = None
         self.step = 0
@@ -182,10 +219,73 @@ class Trainer:
                             cfg.max_words))
                 bs = (cfg.train_batch_size if split == "train"
                       else cfg.eval_batch_size)
+                # under a mesh a rank stands for a JAX device, not a JAX
+                # process: every rank iterates the whole split, its batches
+                # padded to the batch size, and takes its rows (_shard)
                 loaders[split][task] = TaskBatcher(
                     ex, batch_size=bs, store=self.store, buckets=self.buckets,
-                    shuffle=(split == "train"), seed=cfg.seed)
+                    shuffle=(split == "train"), seed=cfg.seed,
+                    pad_batch=self.mesh is not None)
         return loaders
+
+    # -- the mesh ------------------------------------------------------------
+
+    def _group(self, axis: str):
+        return None if self.mesh is None else self.mesh.group(axis)
+
+    def _sum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x summed over this rank's group along axis (x where none)."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x
+
+    def _data_total(self):
+        if self._group("data") is None:
+            return None
+        return lambda x: self._sum(x, "data")
+
+    def _shard(self, batch: dict) -> dict:
+        """This rank's rows over 'data' of a host batch padded to the batch
+        size: its rows of every per-row array, its real rows of every
+        per-row list, and its rows' prompts (padding repeats the first)
+        under "row_prompts". Notes the rows for dropout. The identity
+        without a mesh."""
+        self._rows = None
+        if self.mesh is None:
+            return batch
+        n_real, n_rows = len(batch["prompts"]), len(batch["batch_mask"])
+        rows = n_rows // self.mesh.size("data")
+        lo = self.mesh.index("data") * rows
+        hi = lo + rows
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray) and v.ndim and len(v) == n_rows:
+                out[k] = v[lo:hi]
+            elif isinstance(v, list) and len(v) == n_real:
+                out[k] = v[lo:min(hi, n_real)]
+            else:
+                out[k] = v
+        prompts = list(batch["prompts"])
+        out["row_prompts"] = (prompts + prompts[:1] * (n_rows - n_real))[
+            lo:hi]
+        self._rows = (lo, n_real)
+        return out
+
+    def grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the whole model's gradient: each tensor
+        sharded over 'model' counted once across the group, each replicated
+        one once."""
+        if self._group("model") is None:
+            return global_norm(grads)
+        zero = next(iter(grads.values())).new_zeros(())
+        rep = sum(((g * g).sum() for k, g in grads.items()
+                   if k not in self.shardings), zero)
+        sharded = sum(((g * g).sum() for k, g in grads.items()
+                       if k in self.shardings), zero)
+        return torch.sqrt(rep + self._sum(sharded, "model"))
 
     # -- batch prep -------------------------------------------------------
 
@@ -195,8 +295,8 @@ class Trainer:
         the array batch rows where the batch was padded (batch_mask)."""
         n_real = len(batch["prompts"])
         n_rows = len(batch["batch_mask"]) if "batch_mask" in batch else n_real
-        prompts = (list(batch["prompts"])
-                   + [batch["prompts"][0]] * (n_rows - n_real))
+        prompts = batch.get("row_prompts") or (
+            list(batch["prompts"]) + [batch["prompts"][0]] * (n_rows - n_real))
         text_feat = self.text_encoder_fn(clip_tokenize(prompts))
 
         def dev(a):
@@ -229,6 +329,7 @@ class Trainer:
 
     def _loss_for_task(self, task: str, arrs: dict) -> torch.Tensor:
         m = self.model
+        total = self._data_total()
         if task == "moment_retrieval":
             out = m.moment_retrieval(arrs["vis_feats"], arrs["text_feat"],
                                      arrs["video_mask"], arrs["moment_mask"],
@@ -237,7 +338,7 @@ class Trainer:
                 out["start_logits"], out["end_logits"],
                 arrs["moment_retrieval_start_target"],
                 arrs["moment_retrieval_end_target"], arrs["moment_mask"],
-                arrs.get("batch_mask"))
+                arrs.get("batch_mask"), total)
         if task == "moment_segmentation":
             logits = m.moment_segmentation(
                 arrs["vis_feats"], arrs["text_feat"], arrs["video_mask"],
@@ -245,22 +346,27 @@ class Trainer:
                 arrs["prev_boundary_mask"])
             return L.moment_segmentation_loss(
                 logits, arrs["moment_segmentation_target"],
-                arrs["moment_mask"], arrs.get("batch_mask"))
+                arrs["moment_mask"], arrs.get("batch_mask"), total)
         if task == "step_captioning":
             vis = m.caption_encode(arrs["vis_feats"], arrs["text_feat"],
                                    arrs.get("asr_feats"))
             logits = m.caption_logits(vis, arrs["input_caption_ids"],
                                       arrs["decoder_mask"])
             return L.step_captioning_loss(logits, arrs["output_caption_ids"],
-                                          arrs.get("batch_mask"))
+                                          arrs.get("batch_mask"), total)
         raise ValueError(task)
 
     def loss_and_grads(self, task: str, arrs: dict) -> tuple:
         """One batch's loss with dropout live (unless `dropout` is False),
         its masks drawn from (config.seed, step), and the gradient of every
         parameter (zeros where the loss does not reach it). Returns (the
-        loss, detached, on the device; {name: gradient})."""
+        loss, detached, on the device; {name: gradient}). Under a mesh both
+        are the whole batch's: this rank's share summed over the data group
+        in one flat all_reduce (a sharded parameter's gradient is this
+        rank's shard of it)."""
         self.dropout_gen.manual_seed(self.config.seed * 2 ** 32 + self.step)
+        for mod in self._dropouts:
+            mod.rows = self._rows
         self.model.zero_grad(set_to_none=True)
         self.model.train(self.dropout)
         try:
@@ -268,7 +374,17 @@ class Trainer:
             loss.backward()
         finally:
             self.model.eval()
-        return loss.detach(), grads_of(dict(self.model.named_parameters()))
+        loss = loss.detach()
+        grads = grads_of(dict(self.model.named_parameters()))
+        if self._group("data") is None:
+            return loss, grads
+        flat = self._sum(torch.cat([g.reshape(-1) for g in grads.values()]
+                                   + [loss.reshape(1)]), "data")
+        out, at = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return flat[at], out
 
     def apply_gradients(self, grads: dict) -> None:
         """One optimizer update of the parameters from `grads`."""
@@ -287,7 +403,7 @@ class Trainer:
 
     @torch.inference_mode()
     def _eval_loss(self, task: str, arrs: dict) -> float:
-        return float(self._loss_for_task(task, arrs))
+        return float(self._sum(self._loss_for_task(task, arrs), "data"))
 
     def setup_optimizer(self, steps_per_epoch: int):
         cfg = self.config
@@ -295,7 +411,8 @@ class Trainer:
                  * cfg.epochs)
         self.tx = make_optimizer(cfg.lr, cfg.warmup_steps, max(total, 1),
                                  cfg.clip_grad_norm, cfg.weight_decay,
-                                 cfg.gradient_accumulation_steps)
+                                 cfg.gradient_accumulation_steps,
+                                 norm_fn=self.grad_norm)
         # keep an optimizer state restored by load(): re-initializing here
         # would restart Adam's moments, the accumulator and the schedule's
         # count on resume (the reference's flaw, trainer_base.py:109-126)
@@ -304,6 +421,8 @@ class Trainer:
                 dict(self.model.named_parameters()))
 
     def _dump(self, name: str, obj) -> None:
+        if not self.is_main:
+            return
         os.makedirs(self.config.ckpt_dir, exist_ok=True)
         with open(os.path.join(self.config.ckpt_dir, name), "w") as f:
             json.dump(obj, f, indent=4)
@@ -328,7 +447,7 @@ class Trainer:
         best_valid, best_epoch = float("inf"), 0
         meter = LossMeter()
         timer = PhaseTimer()
-        metrics = MetricsLogger(cfg.metrics_log)
+        metrics = MetricsLogger(cfg.metrics_log if self.is_main else None)
         traced = False
         pending: list = []  # device scalars, fetched every FETCH_EVERY steps
 
@@ -347,9 +466,10 @@ class Trainer:
                     break
                 task = batch["tasks"][0]
                 with timer.phase("prepare"):
-                    arrs = self._prepare(batch, task)
+                    arrs = self._prepare(self._shard(batch), task)
                 with timer.phase("train_step"), \
-                        trace(None if traced else cfg.trace_dir):
+                        trace(None if traced or not self.is_main
+                              else cfg.trace_dir):
                     traced = True
                     pending.append(self.train_step(task, arrs))
                 if self.step % FETCH_EVERY == 0:
@@ -409,16 +529,18 @@ class Trainer:
                 has_target: bool = False) -> dict:
         """Predictions over one task's batches in the evaluate.py schema,
         with the mean loss over the batches that carry targets when
-        has_target."""
+        has_target. Under a mesh each rank predicts its rows of each batch,
+        and the lists are gathered in batch order."""
         cfg = self.config
-        predictions, targets, fnames, prompts, durations, losses = (
-            [], [], [], [], [], [])
+        losses, per_batch = [], []
         batches = batcher
         if cfg.num_workers > 0:
             from hirest_tpu_torch.data.prefetch import prefetch
 
             batches = prefetch(iter(batcher), depth=max(2, cfg.num_workers))
         for batch in batches:
+            predictions, targets = [], []
+            batch = self._shard(batch)
             arrs = self._prepare(batch, task)
             if has_target and TARGET_KEYS[task] in batch:
                 losses.append(self._eval_loss(task, arrs))
@@ -442,10 +564,21 @@ class Trainer:
             else:
                 raise ValueError(task)
             predictions.extend(list(preds)[:n_real])
-            fnames.extend(batch["video_fnames"])
-            prompts.extend(batch["prompts"])
-            durations.extend(batch["video_duration"])
+            per_batch.append({"predictions": predictions,
+                              "targets": targets,
+                              "fnames": list(batch["video_fnames"]),
+                              "prompts": list(batch["prompts"]),
+                              "durations": list(batch["video_duration"])})
 
+        group = self._group("data")
+        if group is not None:  # each batch's ranks in rank order
+            ranks = allgather_objects(per_batch, group)
+            per_batch = [shard[i] for i in range(len(per_batch))
+                         for shard in ranks]
+        merged = merge_prediction_lists(per_batch)
+        predictions, targets, fnames, prompts, durations = (
+            merged.get(k, []) for k in ("predictions", "targets", "fnames",
+                                        "prompts", "durations"))
         loss = float(np.mean(losses)) if losses else None
         if task == "moment_retrieval":
             return format_moment_retrieval(
@@ -537,14 +670,46 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------
 
+    def _resharded(self, tree, gather: bool):
+        """A copy of a state dict or optimizer state (nested dicts keyed by
+        parameter name) with each tensor of a parameter sharded over
+        'model' gathered whole (gather) or cut to this rank's shard."""
+        if isinstance(tree, dict):
+            return {k: (self._reshard(k, v, gather)
+                        if isinstance(v, torch.Tensor) else
+                        self._resharded(v, gather)) for k, v in tree.items()}
+        return tree
+
+    def _reshard(self, name: str, t: torch.Tensor, gather: bool):
+        dim = self.shardings.get(name)
+        if dim is None:
+            return t
+        size, index = self.mesh.size("model"), self.mesh.index("model")
+        if not gather:
+            n = t.shape[dim] // size
+            return t.narrow(dim, index * n, n).contiguous()
+        shape = list(t.shape)
+        shape[dim] *= size
+        full = t.new_zeros(shape)
+        full.narrow(dim, index * t.shape[dim], t.shape[dim]).copy_(t)
+        return self._sum(full, "model")
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.devices.size > 1:
+            torch.distributed.barrier()
+
     def save(self, name: str) -> None:
-        os.makedirs(self.config.ckpt_dir, exist_ok=True)
+        """`{ckpt_dir}/{name}.pt` with the full parameters and optimizer
+        state (gathered over 'model'), written by rank 0."""
         path = os.path.join(self.config.ckpt_dir, f"{name}.pt")
-        state = {"model": self.model.state_dict(), "step": self.step,
-                 "epoch": self.epoch}
+        state = {"model": self._resharded(self.model.state_dict(), True),
+                 "step": self.step, "epoch": self.epoch}
         if self.opt_state is not None:
-            state["opt_state"] = self.opt_state
-        torch.save(state, path)
+            state["opt_state"] = self._resharded(self.opt_state, True)
+        if self.is_main:
+            os.makedirs(self.config.ckpt_dir, exist_ok=True)
+            torch.save(state, path)
+        self._barrier()
         if self.verbose:
             print("Model saved at", path)
 
@@ -559,12 +724,13 @@ class Trainer:
             # state below is restored rather than dropped
             self.setup_optimizer(len(MultitaskSchedule(
                 self.loaders["train"], shuffle=True)))
-        self.model.load_state_dict(state["model"])
+        self.model.load_state_dict(self._resharded(state["model"], False))
         self.step = int(state["step"])
         self.start_epoch = int(state.get("epoch", 0))
         if self.opt_state is not None and "opt_state" in state:
-            _check_same_structure(self.opt_state, state["opt_state"])
-            self.opt_state = state["opt_state"]
+            opt_state = self._resharded(state["opt_state"], False)
+            _check_same_structure(self.opt_state, opt_state)
+            self.opt_state = opt_state
         if self.verbose:
             print("Model loaded from", path)
 
@@ -574,8 +740,15 @@ class Trainer:
         from hirest_tpu_torch.models.convert import (load_moment_state_dict,
                                                      load_torch_ckpt)
 
-        self.model = load_moment_state_dict(
-            self.model, load_torch_ckpt(ckpt_path)).to(self.device)
+        if self.shardings:  # load whole, then keep this rank's shards
+            full = load_moment_state_dict(
+                MomentModel(self.model_cfg, dtype=self.dtype),
+                load_torch_ckpt(ckpt_path))
+            self.model.load_state_dict(
+                self._resharded(full.state_dict(), False))
+        else:
+            self.model = load_moment_state_dict(
+                self.model, load_torch_ckpt(ckpt_path)).to(self.device)
         if self.verbose:
             print("Model loaded from", ckpt_path)
 

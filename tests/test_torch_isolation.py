@@ -2,12 +2,13 @@
 forwards (the scanned tower in each kernel flag configuration, unrolled,
 text, one `analyze` request through the serving engine, a Whisper
 transcription under the decoding rules, MiniLM, the CLIP text and vision
-towers, the ResNet tower, the NLI cross-encoder, the eval metrics) run with
-jax and flax blocked, without loading any hirest_tpu module; its entry
-points (the encoder, the factory, the unrolled int8 tower, the serving
-engine and its server, the run CLI, the Whisper transcriber, the MiniLM
-embedder, the ASR and custom-video CLIs, the CLIP towers, the scorers and
-the evaluation and retrieval CLIs) refuse to fall back to the CPU on their
+towers, the ResNet tower, the NLI cross-encoder, the eval metrics, a
+one-rank mesh with its batch sharding and object gather) run with jax and
+flax blocked, without loading any hirest_tpu module; its entry points (the
+encoder, the factory, the unrolled int8 tower, the serving engine and its
+server, the run CLI, the Whisper transcriber, the MiniLM embedder, the ASR
+and custom-video CLIs, the CLIP towers, the scorers, the evaluation and
+retrieval CLIs and a mesh's ranks) refuse to fall back to the CPU on their
 own; and chip_smoke.py refuses to report success where there is no
 GPU."""
 
@@ -139,6 +140,11 @@ nli_logits = load_nli(random_nli_state_dict(mcfg), mcfg, 3, "cpu")(
 vr = evaluate_video_retrieval({"p": {"v.mp4": {}}}, {"p": {
     "videos": ["v.mp4", "w.mp4"], "scores": [0.9, 0.1]}})
 shutil.rmtree(tmp)
+from hirest_tpu_torch.parallel import make_mesh, shard_batch
+from hirest_tpu_torch.parallel.collectives import allgather_objects
+mesh = make_mesh("data:1")
+sharded = shard_batch({"x": np.zeros((4, 2)), "names": ["a"]}, mesh)
+parallel = [list(sharded["x"].shape), allgather_objects({"k": (1,)})]
 loaded = [m for m in sys.modules
           if m == "hirest_tpu" or m.startswith("hirest_tpu.")]
 print(json.dumps({"modules": names,
@@ -147,7 +153,7 @@ print(json.dumps({"modules": names,
                   "analysis": sorted(analysis),
                   "segments": len(asr_out["segments"]),
                   "nli": list(nli_logits.shape), "vr": vr["all"]["R@1"],
-                  "loaded": loaded}))
+                  "parallel": parallel, "loaded": loaded}))
 """
 
 
@@ -167,6 +173,7 @@ def test_port_imports_and_runs_without_jax():
     assert got["shapes"] == [[2, 32]] * 13 and got["finite"]
     assert got["segments"] >= 1
     assert got["nli"] == [2, 3] and got["vr"] == 100.0
+    assert got["parallel"] == [[4, 2], [{"k": [1]}]]
     for mod in ("hirest_tpu_torch.ops.attention", "hirest_tpu_torch.ops.build",
                 "hirest_tpu_torch.ops.quant",
                 "hirest_tpu_torch.models.eva_clip",
@@ -223,9 +230,26 @@ def test_port_imports_and_runs_without_jax():
                 "hirest_tpu_torch.models.clip_resnet",
                 "hirest_tpu_torch.models.nli",
                 "hirest_tpu_torch.inference_video_retrieval",
-                "hirest_tpu_torch.extraction.download"):
+                "hirest_tpu_torch.extraction.download",
+                "hirest_tpu_torch.parallel",
+                "hirest_tpu_torch.parallel.mesh",
+                "hirest_tpu_torch.parallel.collectives",
+                "hirest_tpu_torch.parallel.tp"):
         assert mod in got["modules"]
     assert got["analysis"] == ["moment_bounds", "prompt", "steps", "video"]
+
+
+def test_mesh_ranks_refuse_cpu_fallback(monkeypatch):
+    """init_distributed binds a rank to its GPU or raises; only an explicit
+    "cpu" runs on the CPU (one rank here: no group is made)."""
+    from hirest_tpu_torch.parallel.mesh import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_distributed(device=device, rank=0, world_size=1)
+    assert init_distributed(device="cpu", rank=0,
+                            world_size=1) == torch.device("cpu")
 
 
 def test_resolve_device_without_cuda(monkeypatch):

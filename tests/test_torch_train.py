@@ -556,11 +556,14 @@ def test_train_refuses_without_tokenizer_or_val(tmp_path):
         t.train()
 
 
-def test_mesh_shape_is_refused(tmp_path):
-    _, cfg = hirest_configs(mesh_shape="data:2", pretrained_dir=str(
-        tmp_path / "none"))
-    with pytest.raises(NotImplementedError, match="M10"):
-        Trainer(cfg, text_encoder_fn=_text_fn, verbose=False)
+def test_mesh_shape_needs_divisible_batches(tmp_path):
+    """JAX's check, made before the ranks are needed: a batch size that the
+    mesh's 'data' axis does not divide is a ValueError."""
+    for sizes in (dict(train_batch_size=3), dict(eval_batch_size=5)):
+        _, cfg = hirest_configs(mesh_shape="data:2,model:1", pretrained_dir=str(
+            tmp_path / "none"), **sizes)
+        with pytest.raises(ValueError, match="divisible by the mesh 'data'"):
+            Trainer(cfg, text_encoder_fn=_text_fn, verbose=False)
 
 
 def test_run_end_to_end_matches_jax(tmp_path):
