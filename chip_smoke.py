@@ -28,9 +28,9 @@ differ from the plain version), then measures where K2's time spreads
 (the clocks, the kernel's own time against the host's, x in L2 or
 not) and prints the row kernels' SASS counts. --time-f32 does the same
 for the f32 forms (the f32 attention body in each wrapper, its int8-out
-forms, K2 on f32 rows, K4 with an f32 residual), a form the checkout
-lacks printed as such, with the f32 body's registers. The flags combine:
-one process runs each asked for.
+forms, K2, K5 and K10 on f32 rows, K4 with an f32 residual), a form the
+checkout lacks printed as such, with the f32 body's and the f32 row
+forms' registers. The flags combine: one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -64,7 +64,10 @@ Phases; any failure exits non-zero before the result line is printed:
             multiple of the persistent grid's rows) with a row of zeros,
             K5 on rows whose quotients land on k + 1/2, and the row
             kernels' quotients y / s against PyTorch's IEEE division on every
-            element. The f32 body (attention_f32.cu) through every
+            element; K5's and K10's f32 forms on f32 rows at the same shapes,
+            edges, zero rows and k + 1/2 rows (K5 at K5's bars, K10 within
+            1e-5 of each row's largest value) and at other widths. The f32
+            body (attention_f32.cu) through every
             wrapper, within 1e-5 of the largest output with TF32 off: K6
             at ViT-B/32's [B, 12, 50, 64] and EVA-g's [B, 16, 257, 88],
             K7 packed at d = 128, K1/K9's layout with n_real = 257 of 264
@@ -122,7 +125,17 @@ Phases; any failure exits non-zero before the result line is printed:
             >= 0.98: build_eva_model_and_transforms(int8=True, dtype=
             torch.float32) (2 K2, 1 K3, 1 K4 f32 a layer) and the scanned
             forward's int8 + fused_quant + fused_mlp with v1 (K8 int8 f32)
-            and v2 (K9 int8 f32).
+            and v2 (K9 int8 f32). Then five ladder configurations in f32,
+            2 layers, against the CPU's f32 path with the same flags:
+            bf16+v3+lnk (K1 f32, 2 K10 f32 a layer) within 1e-5; int8 dyn
+            (K8 f32), int8+fq (2 K2, K5, K8 int8 f32), int8+fq+v2 (K9 int8)
+            and int8+fq+v3 (K3) at cosine >= 0.99, and >= 0.98 against the
+            f32 float path; launch counts exact. After the ladder's cuts,
+            bf16+v3+lnk and int8+fq+v3 in f32 at full width and depth on
+            one staged f32 tower each: a warm-up and two timed forwards of
+            B = 128, launch counts exact, frames/s, one profiled forward's
+            device time by group of kernels (K5 f32 and K10 f32 their own),
+            int8 at cosine >= 0.98 to float; each f32 phase's seconds.
 7. timing   frames/s at B=128 for every encoder, factory and ladder
             forward, text prompts/s, and each kernel's ms per call beside
             its plain version, one library call computing the same function
@@ -363,6 +376,7 @@ def counters() -> dict:
             "K4": (fused_mlp_int8, "launches"),
             "K4f32": (fused_mlp_int8, "launches_f32"),
             "K5": (act_quant, "launches"),
+            "K5f32": (act_quant, "launches_f32"),
             "K6": (fused_attention, "launches"),
             "K6f32": (fused_attention, "launches_f32"),
             "K7": (fused_attention_packed, "launches"),
@@ -375,7 +389,8 @@ def counters() -> dict:
             "K9f32": (fused_attention_qkv2, "launches_f32"),
             "K9q": (fused_attention_qkv2, "quant_launches"),
             "K9qf32": (fused_attention_qkv2, "quant_launches_f32"),
-            "K10": (ln_bf16, "launches")}
+            "K10": (ln_bf16, "launches"),
+            "K10f32": (ln_bf16, "launches_f32")}
 
 
 def expect(**per_forward) -> dict:
@@ -425,13 +440,13 @@ def masked_inputs(seed: int, sq: int = 48, sk: int = 20,
     return q, k, v, mask
 
 
-def ln_inputs(m: int, seed: int, c: int = 1408):
-    """A residual stream with a per-row spread and offset, LayerNorm params
-    near (1, 0)."""
+def ln_inputs(m: int, seed: int, c: int = 1408, dtype=torch.bfloat16):
+    """A residual stream with a per-row spread and offset in dtype,
+    LayerNorm params near (1, 0)."""
     g = gen(seed)
     x = (torch.randn((m, c), generator=g, device="cuda")
          * torch.rand((m, 1), generator=g, device="cuda").mul_(2.5).add_(0.5)
-         + torch.randn((m, 1), generator=g, device="cuda")).bfloat16()
+         + torch.randn((m, 1), generator=g, device="cuda")).to(dtype)
     w = 1 + 0.02 * torch.randn(c, generator=g, device="cuda")
     b = 0.02 * torch.randn(c, generator=g, device="cuda")
     return x, w, b
@@ -487,13 +502,13 @@ def biases(hd: int, seed: int):
             for _ in range(2)]
 
 
-def fc1_inputs(m: int, seed: int, c: int = 6144):
-    """What the int8 MLP hands act_quant: an fc1 output with a per-row
-    spread (or, at c = 1408, an attention output)."""
+def fc1_inputs(m: int, seed: int, c: int = 6144, dtype=torch.bfloat16):
+    """What the int8 MLP hands act_quant: an fc1 output in dtype with a
+    per-row spread (or, at c = 1408, an attention output)."""
     g = gen(seed)
     return (torch.randn((m, c), generator=g, device="cuda")
             * torch.rand((m, 1), generator=g, device="cuda").mul_(2.5)
-            .add_(0.5)).bfloat16()
+            .add_(0.5)).to(dtype)
 
 
 def check_close(tag: str, got, want) -> float:
@@ -861,10 +876,103 @@ def row_checks(tag: str = "kernels") -> tuple:
         check_codes(f"K5 act_quant [{TOKENS},{c}] act={act}",
                     act_quant(x, act=act), act_quant_ref(x, act=act), 0.999,
                     1e-6, tally, "other widths")
+    worst.update(f32_row_checks(tally))
     print(f"[{tag}] differing from the plain version over these cases: "
           + ", ".join(f"{k} {n}" for k, n in tally.items())
-          + " (K10: outputs beyond one bf16 ulp)")
+          + " (K10: outputs beyond one bf16 ulp; K10f32: none may exceed "
+          "its bar)")
     return worst, tally
+
+
+def check_f32_rows(tag: str, got, want) -> float:
+    """K10's f32 form against its plain version: within F32_TOL of each
+    row's largest |value| (the kernel sums a row in another order, and its
+    rsqrtf is not correctly rounded). Returns the largest error."""
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = F32_TOL * want.abs().amax(-1, keepdim=True)
+    err = diff.max().item()
+    print(f"[kernels] {tag}: max_abs_err={err}, worst share of its row's "
+          f"bar {(diff / tol.clamp_min(1e-30)).max().item():.4f} (<= 1)")
+    require(got.dtype == torch.float32 and bool(got.isfinite().all())
+            and bool((diff <= tol).all()), f"{tag} off its plain version")
+    return err
+
+
+def f32_row_checks(tally: dict) -> dict:
+    """K5's and K10's f32 forms against their plain versions on f32 rows:
+    K5 at [M, 6144] with each activation and [M, 1408] without one, K10 at
+    [M, 1408] (M = 128 * 257), each also at M in ROW_EDGE_M with a row of
+    zeros in the 257-row inputs (K5: scale 1e-8 and codes 0; K10: b), K5 on
+    the k + 1/2 quotient rows (equal to the plain version and to half-even
+    rounding), and the general instantiations at other widths. K5 at K5's
+    bars (codes within one, equal on 99.9 %, scales within 1e-6), K10
+    within F32_TOL of each row's largest |value|. Skipped, with a line, in
+    a checkout whose wrappers have no f32 row forms. Returns the main
+    shapes' largest errors."""
+    from hirest_tpu_torch.ops.quant import (act_quant, act_quant_ref,
+                                            ln_bf16, ln_bf16_ref)
+
+    if not hasattr(ln_bf16, "launches_f32"):
+        print("[kernels] K5 and K10 f32 forms: not in this tree")
+        return {}
+    t0 = time.perf_counter()
+    m = BATCH * TOKENS
+    worst = {"K5f32": 0.0, "K10f32": 0.0}
+    tiny = torch.tensor(1e-8, dtype=torch.float32).item()
+    for c, acts in ((6144, ("gelu_poly", "gelu", "none")), (1408, ("none",))):
+        for rows in (m, *ROW_EDGE_M):
+            x = fc1_inputs(rows, seed=170 + c if rows == m else 540 + rows,
+                           c=c, dtype=torch.float32)
+            if rows == TOKENS:
+                x[7] = 0
+            for act in acts:
+                got = act_quant(x, act=act)
+                err = check_codes(
+                    f"K5f32 act_quant f32 [{rows},{c}] act={act}", got,
+                    act_quant_ref(x, act=act), 0.999, 1e-6, tally, "K5f32")
+                if rows == TOKENS:
+                    require(not got[0][7].any().item()
+                            and got[1][7].item() == tiny,
+                            f"K5f32 {act} zero row")
+                if rows == m:
+                    worst["K5f32"] = max(worst["K5f32"], err)
+    x = tie_rows().float()
+    got, want = act_quant(x), act_quant_ref(x)
+    check_codes("K5f32 act_quant f32 [5,1408] act=none, halves", got, want,
+                0.999, 1e-6, tally, "K5f32")
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[0][:2, 1:],
+                            torch.round(x[:2, 1:]).to(torch.int8))
+            and got[1][2].item() == tiny, "K5f32 halves off half-even")
+    for rows in (m, *ROW_EDGE_M):
+        x, w, b = ln_inputs(rows, seed=190 if rows == m else 640 + rows,
+                            dtype=torch.float32)
+        if rows == TOKENS:
+            x[5] = 0
+        got = ln_bf16(x, w, b, EPS)
+        err = check_f32_rows(f"K10f32 ln_bf16 f32 [{rows},1408]", got,
+                             ln_bf16_ref(x, w, b, EPS))
+        if rows == TOKENS:
+            require(bool((got[5] - b).abs().max() <= F32_TOL
+                         * b.abs().max()), "K10f32 zero row off b")
+        if rows == m:
+            worst["K10f32"] = err
+    # the general instantiations: a warp a row (1412: a lane's last vector
+    # only on some lanes), a warpgroup (4100), the widest rows
+    for c, act in ((1412, "none"), (2048, "gelu_poly"), (4100, "gelu"),
+                   (8192, "gelu_poly")):
+        x = fc1_inputs(TOKENS, seed=740 + c, c=c, dtype=torch.float32)
+        check_codes(f"K5f32 act_quant f32 [{TOKENS},{c}] act={act}",
+                    act_quant(x, act=act), act_quant_ref(x, act=act), 0.999,
+                    1e-6, tally, "other widths f32")
+    for c in (1024, 1412, 2048):
+        x, w, b = ln_inputs(TOKENS, seed=760 + c, c=c, dtype=torch.float32)
+        check_f32_rows(f"K10f32 ln_bf16 f32 [{TOKENS},{c}]",
+                       ln_bf16(x, w, b, EPS), ln_bf16_ref(x, w, b, EPS))
+    print(f"[kernels] K5 and K10 f32 forms checked in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return worst
 
 
 def phase_kernels(cfg) -> dict:
@@ -1564,6 +1672,143 @@ def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
     return launches
 
 
+# the ladder configurations in f32 (flags from LADDER) -> their f32
+# launches a layer: the fused LayerNorm's K10, K5 in the fused-quant MLP,
+# and int8 dyn's K8
+F32_LADDER = {
+    "bf16+v3+lnk": dict(K1f32=1, K10f32=2),
+    "int8": dict(K8f32=1),
+    "int8+fq": dict(K2f32=2, K5f32=1, K8qf32=1),
+    "int8+fq+v2": dict(K2f32=2, K5f32=1, K9qf32=1),
+    "int8+fq+v3": dict(K2f32=2, K3f32=1, K5f32=1),
+}
+F32_LADDER_FULL = ("bf16+v3+lnk", "int8+fq+v3")  # run at full depth too
+F32_LADDER_FORWARDS = 2  # timed forwards of B=128, after one warm-up
+
+
+def phase_f32_ladder_depth(cfg, weights: dict, frames, ref: dict) -> dict:
+    """F32_LADDER's configurations in f32 cut to 2 layers, on the card
+    against the CPU's f32 path with the same flags: the float one within
+    F32_TOL of the largest value, the int8 ones at cosine >= COS_MIN and,
+    against the CPU's f32 float path (phase_factory_depth's scanned
+    output), >= COS_INT8_VS_FLOAT. Launch counts zeroed before each
+    forward and read after, exact. Returns the f32 launches."""
+    from dataclasses import replace
+
+    from hirest_tpu_torch.models.convert import eva_vision_state_dict
+    from hirest_tpu_torch.models.eva_scan import build_scanned_vision_apply
+
+    t0 = time.perf_counter()
+    cut = replace(cfg, layers=2)
+    sd = eva_vision_state_dict(weights)
+    launches: dict = {}
+    for tag, per_layer in F32_LADDER.items():
+        flags = LADDER[tag][0]
+        want = build_scanned_vision_apply(sd, cut, dtype=torch.float32,
+                                          device="cpu", **flags)(frames)
+        want = want.numpy()
+        encode = build_scanned_vision_apply(sd, cut, dtype=torch.float32,
+                                            device="cuda", **flags)
+        zero_counts()
+        got = encode(frames)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(**{k: v * cut.layers for k, v in per_layer.items()})
+        require(counts == expected, f"f32 ladder {tag} launches {counts}, "
+                                    f"expected {expected}")
+        got = got.cpu().numpy()
+        require(got.shape == want.shape and bool(np.isfinite(got).all()),
+                f"f32 ladder {tag}: output {got.shape}")
+        err, top = np.abs(got - want).max(), np.abs(want).max()
+        fired = {k: v for k, v in counts.items() if v}
+        if flags.get("int8"):
+            cos, cos_float = cosine(got, want), cosine(got, ref["image"][True])
+            print(f"[f32 ladder] 2 layers, {tag}: f32 card vs f32 CPU plain, "
+                  f"same flags: cosine min={cos.min():.6f} (>= {COS_MIN}), "
+                  f"max_abs_err={err} of max|ref|={top}; vs f32 float CPU: "
+                  f"cosine min={cos_float.min():.6f} (>= "
+                  f"{COS_INT8_VS_FLOAT}); launches {fired}")
+            require(cos.min() >= COS_MIN
+                    and cos_float.min() >= COS_INT8_VS_FLOAT,
+                    f"f32 2-layer ladder {tag} below its cosine bars")
+        else:
+            print(f"[f32 ladder] 2 layers, {tag}: f32 card vs f32 CPU plain, "
+                  f"same flags: max_abs_err={err} of max|ref|={top} (<= "
+                  f"{F32_TOL} of it); launches {fired}")
+            require(err <= F32_TOL * top,
+                    f"f32 2-layer ladder {tag} beyond {F32_TOL}")
+        for k, v in fired.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[f32 ladder] 2-layer cuts: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_f32_ladder(cfg, weights: dict, card: str) -> dict:
+    """F32_LADDER_FULL in f32 at full width and depth (40 x 1408, B=128)
+    through build_scanned_vision_apply(dtype=torch.float32, device="cuda")
+    on one staged f32 tower per precision: a warm-up forward and
+    F32_LADDER_FORWARDS timed ones with the counts zeroed before and read
+    after (exact, per forward), the outputs finite, the int8 one at cosine
+    >= COS_INT8_VS_FLOAT to the float one; frames/s, then one profiled
+    forward's device time by group of kernels. Returns the launches."""
+    from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+                                                  stage_scanned_params)
+
+    t0 = time.perf_counter()
+    frames = normalize_frames(np.random.default_rng(5).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8))
+    launches: dict = {}
+    feats = {}
+    for tag in F32_LADDER_FULL:
+        flags = LADDER[tag][0]
+        int8 = bool(flags.get("int8"))
+        t1 = time.perf_counter()
+        staged = stage_scanned_params(weights, cfg, int8=int8,
+                                      dtype=torch.float32, device="cuda")
+        fn = build_scanned_vision_apply(None, cfg, staged=staged,
+                                        dtype=torch.float32, device="cuda",
+                                        **flags)
+        torch.cuda.synchronize()
+        staged_s = time.perf_counter() - t1
+        zero_counts()
+        fn(frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(F32_LADDER_FORWARDS):
+            out = fn(frames)
+        torch.cuda.synchronize()
+        fps = BATCH * F32_LADDER_FORWARDS / (time.perf_counter() - t1)
+        counts = read_counts()
+        want = expect(**{k: v * cfg.layers * (1 + F32_LADDER_FORWARDS)
+                         for k, v in F32_LADDER[tag].items()})
+        print(f"[f32 ladder] {card}: {tag} f32, staged in {staged_s:.1f} s; "
+              f"B={BATCH}: {fps:.2f} frames/s over {F32_LADDER_FORWARDS} "
+              f"forwards; launches over {1 + F32_LADDER_FORWARDS} {counts}")
+        require(counts == want, f"f32 ladder {tag} launches {counts}, "
+                                f"expected {want}")
+        require(out.dtype == torch.float32
+                and tuple(out.shape) == (BATCH, cfg.embed_dim)
+                and bool(out.isfinite().all()),
+                f"f32 ladder {tag}: output {out.dtype} {tuple(out.shape)}")
+        feats[tag] = out.cpu().numpy()
+        for k, n in counts.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+        profile_call(f"one f32 {tag} forward B={BATCH}", lambda: fn(frames),
+                     card, "ladder f32 int8" if int8 else "ladder f32",
+                     tag="f32 ladder")
+        del fn, staged, out
+        torch.cuda.empty_cache()
+    cos = cosine(feats["int8+fq+v3"], feats["bf16+v3+lnk"]).min()
+    print(f"[f32 ladder] int8+fq+v3 vs bf16+v3+lnk in f32 at full depth: "
+          f"min cosine {cos:.6f} (>= {COS_INT8_VS_FLOAT})")
+    require(cos >= COS_INT8_VS_FLOAT, "f32 int8+fq+v3 off the f32 float "
+                                      "forward")
+    print(f"[f32 ladder] full-width f32 forwards: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # the unrolled int8 tower (models/eva_quant.py): quant_attention -> tag
 INT8_TOWER = {True: "unrolled int8", False: "unrolled int8, bf16 qkv/out"}
 
@@ -2004,6 +2249,28 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "library_ms": None,
         **bound(m * w * 4 + m * w + m * 4 + 2 * w * 4,
                 (ROW_SLOTS["K2"] - 1) * m * w, ISSUE_SLOTS_PER_S)}
+    # K5's and K10's f32 forms on the same rows in f32 (inputs of 1 GB and
+    # 185 MB, past the 50 MB L2); K10 beside F.layer_norm in f32
+    h6f, h1f, x10f = h6.float(), h1.float(), x10.float()
+    res["K5f32"] = {
+        "ms": cuda_ms(lambda: act_quant(h6f, act="gelu_poly"), 20),
+        "plain_ms": cuda_ms(lambda: act_quant_ref(h6f, act="gelu_poly"), 5),
+        "library_ms": None,
+        **bound(m * hid * 5 + m * 4,
+                (ROW_SLOTS["K5 gelu_poly"] - 1) * m * hid, ISSUE_SLOTS_PER_S)}
+    extra["K5f32 act=none [M,1408]"] = {
+        "ms": cuda_ms(lambda: act_quant(h1f), 20),
+        "plain_ms": cuda_ms(lambda: act_quant_ref(h1f), 5),
+        "library_ms": None,
+        **bound(m * w * 5 + m * 4, (ROW_SLOTS["K5 none"] - 1) * m * w,
+                ISSUE_SLOTS_PER_S)}
+    res["K10f32"] = {
+        "ms": cuda_ms(lambda: ln_bf16(x10f, g10, b10, EPS), 20),
+        "plain_ms": cuda_ms(lambda: ln_bf16_ref(x10f, g10, b10, EPS), 5),
+        "library_ms": cuda_ms(lambda: F.layer_norm(x10f, (w,), g10, b10,
+                                                   EPS), 20),
+        **bound(m * w * 4 * 2 + 2 * w * 4, (ROW_SLOTS["K10"] - 1.5) * m * w,
+                ISSUE_SLOTS_PER_S)}
     args32 = (*args[:-1], x_res.float())
     res["K4f32"] = {
         "ms": cuda_ms(lambda: fused_mlp_int8(*args32), 5),
@@ -2012,7 +2279,8 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         **bound(m * w + m * 4 + 2 * m * w * 4 + 2 * hid * w
                 + 4 * (2 * hid + 2 * w), 2 * 2 * m * w * hid, INT8_OP_PER_S)}
     for key, base in (("K3f32", "K3"), ("K9qf32", "K9q"), ("K8qf32", "K8q"),
-                      ("K2f32", "K2"), ("K4f32", "K4")):
+                      ("K2f32", "K2"), ("K4f32", "K4"), ("K5f32", "K5"),
+                      ("K10f32", "K10")):
         print(f"[timing] {card}: {key} (f32 activations) {res[key]['ms']:.4f}"
               f" ms beside {base} (bf16) {res[base]['ms']:.4f} ms, "
               f"{res[key]['ms'] / res[base]['ms']:.2f}x")
@@ -2068,6 +2336,24 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("int8 GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("elementwise (int8_mm dequant epilogues, residual, casts)",
+         ("elementwise", "reduce")),
+    ),
+    "ladder f32": (
+        ("K1 f32 attention_f32 (CUDA)", ("attention_f32",)),
+        ("K10 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<false>",
+                                          "ln_f32_kernelILb0E")),
+        ("projections (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma")),
+        ("elementwise (GELU chain, residual)", ("elementwise", "reduce")),
+    ),
+    "ladder f32 int8": (
+        ("K2 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<true>",
+                                         "ln_f32_kernelILb1E")),
+        ("K3 f32 attention_f32 int8 epilogue (CUDA, both steps)",
+         ("attention_f32", "quant_rows")),
+        ("K5 f32 act_quant_f32_kernel (CUDA)", ("act_quant_f32",)),
+        ("int8 GEMMs (torch._int_mm)",
+         ("nvjet", "gemm", "cutlass", "xmma", "imma")),
+        ("elementwise (int8_mm dequant epilogues, residual)",
          ("elementwise", "reduce")),
     ),
     "serving": (
@@ -4375,6 +4661,12 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "K4f32": ("fused_mlp_int8 (float32 residual)",
               "hirest_tpu_torch/ops/csrc/fused_mlp_int8.cu",
               "hirest_tpu/ops/quant.py:296"),
+    # the f32 ladder's: K5 in the f32 fused-quant MLP, K10 as the f32
+    # fused LayerNorm
+    "K5f32": ("act_quant (float32)", "hirest_tpu_torch/ops/csrc/act_quant.cu",
+              "hirest_tpu/ops/quant.py:176"),
+    "K10f32": ("ln_bf16 (float32)", "hirest_tpu_torch/ops/csrc/ln_quant.cu",
+               "hirest_tpu/ops/quant.py:220"),
 }
 
 
@@ -4485,20 +4777,25 @@ def time_f32(cfg, card: str) -> None:
     """The f32 forms ms per call at B=128 and nothing else, through the
     wrappers (see time_attention): attention_f32.cu's body as K6 at
     ViT-B/32's [128, 12, 50, 64] and EVA-g's, K7 at d = 128, K1 (n_real)
-    and K8 (biased), its int8-out forms K3, K9 and K8 int8, K2 on f32 rows
-    and K4 with an f32 residual; a form the checkout refuses (an earlier
-    one, without f32 int8 forms) prints as such. Also the f32 body's
-    registers and spills from its build."""
+    and K8 (biased), its int8-out forms K3, K9 and K8 int8, K2, K5
+    (gelu_bf16_poly at 6144) and K10 on f32 rows and K4 with an f32
+    residual; a form the checkout refuses (an earlier one, without f32
+    int8 or f32 row forms) prints as such. Also the f32 body's and the
+    f32 row forms' registers and spills from their builds."""
     from hirest_tpu_torch.ops import build
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_attention_qkv,
                                                 fused_attention_qkv2,
                                                 fused_attention_qkv3)
-    from hirest_tpu_torch.ops.quant import fused_mlp_int8, ln_quant
+    from hirest_tpu_torch.ops.quant import (act_quant, fused_mlp_int8,
+                                            ln_bf16, ln_quant)
 
-    logs = build.build(("attention_f32", "ln_quant", "fused_mlp_int8"))
+    logs = build.build(("attention_f32", "ln_quant", "fused_mlp_int8",
+                        "act_quant"))
     ptxas_summary(logs.get("attention_f32", ""), ("attention_f32_kernel",))
+    ptxas_summary(logs.get("act_quant", ""), ("act_quant_f32_kernel",))
+    ptxas_summary(logs.get("ln_quant", ""), ("ln_f32_kernel",))
     scale, heads, w = cfg.head_width ** -0.5, cfg.num_heads, cfg.width
     vit = split_views(f32_inputs(BATCH, 260, 50, 12 * 64), 12)
     qkv = f32_inputs(BATCH, 261, TOKENS, w)
@@ -4512,6 +4809,8 @@ def time_f32(cfg, card: str) -> None:
     x = x.float()
     mlp = list(mlp_inputs(BATCH * TOKENS, seed=266))
     mlp[-1] = mlp[-1].float()
+    h6 = fc1_inputs(BATCH * TOKENS, seed=267, c=cfg.mlp_hidden,
+                    dtype=torch.float32)
     forms = {
         "K6f32 ViT-B/32": lambda: fused_attention(*vit, 0.125),
         "K6f32 EVA-g": lambda: fused_attention(q, k, v, scale),
@@ -4527,6 +4826,8 @@ def time_f32(cfg, card: str) -> None:
         "K8qf32": lambda: fused_attention_qkv(qkv, qb, vb, scale, heads,
                                               quant_out=True),
         "K2f32": lambda: ln_quant(x, lw, lb, EPS),
+        "K5f32": lambda: act_quant(h6, act="gelu_poly"),
+        "K10f32": lambda: ln_bf16(x, lw, lb, EPS),
         "K4f32": lambda: fused_mlp_int8(*mlp)}
     ms = {}
     for name, fn in forms.items():
@@ -4861,8 +5162,9 @@ def main() -> int:
                   ("fused_mlp_int8_hidden_kernel",
                    "fused_mlp_int8_out_kernel"))
     ptxas_summary(logs.get("attention_qkv3", ""), ("attention_qkv3_kernel",))
-    ptxas_summary(logs.get("act_quant", ""), ("act_quant_kernel",))
-    ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel",))
+    ptxas_summary(logs.get("act_quant", ""), ("act_quant_kernel",
+                                              "act_quant_f32_kernel"))
+    ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel", "ln_f32_kernel"))
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
 
@@ -4881,7 +5183,9 @@ def main() -> int:
     frames = phase_depth(cfg, pretrained)
     cpu_refs = phase_factory_depth(cfg, text_cfg, weights, frames)
     f32_launches = phase_f32_depth(cfg, text_cfg, weights, frames, cpu_refs)
+    f32_ladder_cut = phase_f32_ladder_depth(cfg, weights, frames, cpu_refs)
     phase_ladder_depth(cfg, frames)
+    f32_ladder = phase_f32_ladder(cfg, weights, card)
     int8_tower = phase_int8_tower(cfg, weights, factory)
     phase_int8_tower_depth(cfg, weights, frames)
     timing = phase_timing(cfg, main_res, factory, ladder, card)
@@ -4895,7 +5199,7 @@ def main() -> int:
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}
     launches["K6"] += int8_tower["launches"]
-    for part in (f32_launches, eval_launches):
+    for part in (f32_launches, f32_ladder_cut, f32_ladder, eval_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
 

@@ -10,6 +10,7 @@
 // K2: s = max(max|y| / 127, 1e-8), q = clamp(round_half_even(y / s), +-127)
 //     (correctly rounded division; y is never rounded to bf16).
 // K10: out = bf16(y), which is eva_scan._ln's arithmetic.
+// Both have f32 forms for f32 x (ln_f32_kernel), K10's writing y in f32.
 //
 // Bound on an H100 SXM (EVA-g, M = 128 * 257 = 32896, C = 1408): K2 reads
 // x (92.6 MB) and writes q (46.3 MB) and s: 139 MB, 0.0415 ms at 3.35 TB/s;
@@ -18,7 +19,8 @@
 // centring, the square and its sum, x r g + b: 7) and K2's quantization
 // (|y|'s max, the quotient, the rounding, the pack: 5.75) or K10's bf16
 // pack (0.5) make 13.75 and 8.5 f32 issue slots a value, 0.019 and 0.012
-// ms on 132 SMs x 128 lanes x 1.98 GHz: both are bound by bytes. The first
+// ms on 132 SMs x 128 lanes x 1.98 GHz: both are bound by bytes. On f32
+// rows K2 moves 231.7 MB (0.0692 ms) and K10 370.6 MB (0.1106 ms). The first
 // version (one warp a row, the row in registers, eight rows a block)
 // issued a row's loads and then stopped loading while its warps reduced
 // and divided.
@@ -168,16 +170,19 @@ __global__ void __launch_bounds__(kRowThreads, 2)
   }
 }
 
-// K2 on f32 rows (the f32 int8 factory hands ln_quant f32, as the JAX
-// kernel computes in the dtype it is given): the same arithmetic in the same
-// order as ln_kernel, one warp a row, eight rows a block, the row read
-// straight from global memory by 16-byte loads. A first version: right, not
-// fast. C % 4 == 0, C <= 2048, x 16-byte aligned.
+// K2 (kQuant) and K10 on f32 rows (the f32 paths hand ln_quant and ln_bf16
+// f32, as the JAX kernels compute in the dtype they are given): the same
+// arithmetic in the same order as ln_kernel, one warp a row, eight rows a
+// block, the row read straight from global memory by 16-byte loads. A first
+// version: right, not fast. C % 4 == 0, C <= 2048, x 16-byte aligned. K2
+// writes codes to q and scales to s; K10 the LayerNorm to y [M, C] f32, x's
+// dtype, by 16-byte stores.
+template <bool kQuant>
 __global__ void __launch_bounds__(kRowThreads)
-    ln_quant_f32_kernel(const float* __restrict__ x,
-                        const float* __restrict__ g,
-                        const float* __restrict__ b, int8_t* __restrict__ q,
-                        float* __restrict__ s, int M, int C, float eps) {
+    ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  const float* __restrict__ b, int8_t* __restrict__ q,
+                  float* __restrict__ s, float* __restrict__ y, int M, int C,
+                  float eps) {
   const int lane = threadIdx.x % 32;
   const long long row =
       (long long)blockIdx.x * kGroups + threadIdx.x / 32;
@@ -224,18 +229,43 @@ __global__ void __launch_bounds__(kRowThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         v[k][e] = __fadd_rn(__fmul_rn(__fmul_rn(v[k][e], r), gg[e]), bb[e]);
-        amax = fmaxf(amax, fabsf(v[k][e]));
+        if constexpr (kQuant) amax = fmaxf(amax, fabsf(v[k][e]));
       }
     }
   }
-  const float sc = row_scale(warp_max(amax)), rc = row_recip(sc);
-  uint32_t* qr = reinterpret_cast<uint32_t*>(q + row * C);
+  if constexpr (kQuant) {
+    const float sc = row_scale(warp_max(amax)), rc = row_recip(sc);
+    uint32_t* qr = reinterpret_cast<uint32_t*>(q + row * C);
 #pragma unroll
-  for (int k = 0; k < kMaxVecs; ++k) {
-    const int vi = lane + k * kG;
-    if (vi < nv) qr[vi] = code4_recip(v[k], sc, rc);
+    for (int k = 0; k < kMaxVecs; ++k) {
+      const int vi = lane + k * kG;
+      if (vi < nv) qr[vi] = code4_recip(v[k], sc, rc);
+    }
+    if (lane == 0) s[row] = sc;
+  } else {
+    float4* yr = reinterpret_cast<float4*>(y + row * C);
+#pragma unroll
+    for (int k = 0; k < kMaxVecs; ++k) {
+      const int vi = lane + k * kG;
+      if (vi < nv) yr[vi] = make_float4(v[k][0], v[k][1], v[k][2], v[k][3]);
+    }
   }
-  if (lane == 0) s[row] = sc;
+}
+
+// ln_f32_kernel's checks and launch.
+template <bool kQuant>
+cudaError_t launch_ln_f32(const void* x, const void* g, const void* b,
+                          void* q, void* s, void* y, int M, int C, float eps,
+                          cudaStream_t stream) {
+  if (M <= 0 || C <= 0 || C % 4 || C > kMaxWidth ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return cudaErrorInvalidValue;
+  ln_f32_kernel<kQuant><<<(M + kGroups - 1) / kGroups, kRowThreads, 0,
+                          stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(b), static_cast<int8_t*>(q),
+      static_cast<float*>(s), static_cast<float*>(y), M, C, eps);
+  return cudaGetLastError();
 }
 
 constexpr uint32_t smem_bytes(int C) {
@@ -300,15 +330,17 @@ extern "C" int hirest_ln_bf16(const void* x, const void* g, const void* b,
 extern "C" int hirest_ln_quant_f32(const void* x, const void* g,
                                    const void* b, void* q, void* s, int M,
                                    int C, float eps, void* stream) {
-  if (M <= 0 || C <= 0 || C % 4 || C > kMaxWidth ||
-      reinterpret_cast<uintptr_t>(x) % 16)
-    return (int)cudaErrorInvalidValue;
-  ln_quant_f32_kernel<<<(M + kGroups - 1) / kGroups, kRowThreads, 0,
-                        (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(b), static_cast<int8_t*>(q),
-      static_cast<float*>(s), M, C, eps);
-  return (int)cudaGetLastError();
+  return (int)launch_ln_f32<true>(x, g, b, q, s, nullptr, M, C, eps,
+                                  (cudaStream_t)stream);
+}
+
+// K10 on f32 x [M, C] (16-byte aligned), g/b [C] f32, y [M, C] f32, all
+// contiguous; C % 4 == 0 and C <= 2048. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int hirest_ln_f32(const void* x, const void* g, const void* b,
+                             void* y, int M, int C, float eps, void* stream) {
+  return (int)launch_ln_f32<false>(x, g, b, nullptr, nullptr, y, M, C, eps,
+                                   (cudaStream_t)stream);
 }
 
 extern "C" const char* hirest_cuda_error_string(int err) {

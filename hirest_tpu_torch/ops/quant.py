@@ -11,7 +11,11 @@ Four kernels live here, each a hand-written CUDA kernel with a plain
 PyTorch version beside it: `ln_quant` (K2) and `ln_bf16` (K10), both in
 csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu) and `fused_mlp_int8`
 (K4, two kernels in csrc/fused_mlp_int8.cu). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. The qkv and out
+version; a CUDA tensor launches the kernel or raises. Each takes bf16 or
+f32 input, as the JAX kernels compute in the dtype they are given: the row
+kernels (K2, K5, K10) have an f32 form of their own for f32 rows, K4 one
+for an f32 residual, and `row_kernel_shape` states which rows the row
+kernels take, without a GPU. The qkv and out
 projections (`int8_mm`) are int8 x int8 -> int32 products that the JAX
 package leaves to XLA; here they go to `torch._int_mm` with the
 dequantization in eager PyTorch. `int8_matmul` and `QuantDense` (the
@@ -26,6 +30,7 @@ int32.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +42,14 @@ N_CHUNK = 1024  # hidden units per requant scale in the fused MLP
 ACTS = {"gelu_poly": 0, "gelu": 1}  # activation name -> kernel selector
 QUANT_ACTS = {**ACTS, "none": 2}  # act_quant also quantizes without one
 KERNEL_WIDTH = 1408  # trunk width the fused-MLP kernel is built for
-LN_MAX_WIDTH = 2048  # widest row the ln_quant kernel takes
-ACT_MAX_WIDTH = 8192  # widest row the act_quant kernel takes
-LN_MULTIPLE = 8  # ln_quant's and ln_bf16's C: 16-byte rows
-ACT_MULTIPLE = 16  # act_quant's C: a thread takes 16 values at a time
+# row kernel -> input dtype -> (what C must be a multiple of, widest C):
+# bf16 rows come in by 16-byte bulk copies (act_quant's threads take 16
+# values at a time), f32 rows by 16-byte loads
+ROW_KERNELS = {
+    "ln_quant": {torch.bfloat16: (8, 2048), torch.float32: (4, 2048)},
+    "ln_bf16": {torch.bfloat16: (8, 2048), torch.float32: (4, 2048)},
+    "act_quant": {torch.bfloat16: (16, 8192), torch.float32: (4, 8192)},
+}
 
 
 def _scale_and_codes(y: torch.Tensor, dim: int = -1):
@@ -154,21 +163,41 @@ def _ln_fn(entry: str, n_outputs: int):
     return fn
 
 
-def _bf16_rows(x, what: str, max_width: int = LN_MAX_WIDTH,
-               multiple: int = LN_MULTIPLE):
-    """x as the contiguous, 16-byte aligned bf16 [M, C] rows the row
-    kernels (K2, K5, K10) take, C a multiple of `multiple` up to
-    max_width: each row comes in by one bulk copy."""
+def row_kernel_shape(what: str, dtype, shape, contiguous: bool = True,
+                     aligned: bool = True) -> tuple:
+    """(M, C): the rows a tensor [..., C] of `dtype` and `shape` makes for
+    the row kernel `what` ("ln_quant", "ln_bf16" or "act_quant"), or raises:
+    TypeError unless the kernel has a form for dtype (ROW_KERNELS) and the
+    tensor is at least 2-d, contiguous and 16-byte aligned; ValueError
+    unless C is a multiple of the form's and at most its widest. Needs no
+    GPU: the CUDA wrappers check their input through it."""
+    forms = ROW_KERNELS[what]
+    if (dtype not in forms or len(shape) < 2 or not contiguous
+            or not aligned):
+        raise TypeError(
+            f"{what}'s kernels take contiguous, 16-byte aligned "
+            f"{' or '.join(str(d) for d in forms)} [..., C], got {dtype} "
+            f"{tuple(shape)}, contiguous={contiguous}, aligned={aligned}")
+    multiple, widest = forms[dtype]
+    c = shape[-1]
+    if c % multiple or c > widest:
+        raise ValueError(f"{what}'s {dtype} kernel takes C % {multiple} == 0 "
+                         f"and C <= {widest}, got {c}")
+    return math.prod(shape[:-1]), c
+
+
+def _rows(x, what: str) -> torch.Tensor:
+    """x [..., C] on CUDA as the [M, C] rows its row kernel takes
+    (row_kernel_shape)."""
     _require_cuda(x)
-    if (x.dim() < 2 or x.dtype != torch.bfloat16 or not x.is_contiguous()
-            or x.data_ptr() % 16):
-        raise TypeError(f"{what}'s kernel takes contiguous, 16-byte aligned "
-                        f"bf16 [..., C], got {x.dtype} {tuple(x.shape)}")
-    c = x.shape[-1]
-    if c % multiple or c > max_width:
-        raise ValueError(f"{what}'s kernel takes C % {multiple} == 0 and C "
-                         f"<= {max_width}, got {c}")
-    return x.view(-1, c)
+    return x.view(*row_kernel_shape(what, x.dtype, x.shape, x.is_contiguous(),
+                                    x.data_ptr() % 16 == 0))
+
+
+def _count(fn, f32: bool) -> None:
+    """One launch more on fn's count of its dtype's form."""
+    attr = "launches_f32" if f32 else "launches"
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def ln_quant(x, weight, bias, eps: float):
@@ -178,75 +207,58 @@ def ln_quant(x, weight, bias, eps: float):
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
     16-byte aligned bf16 with C a multiple of 8 up to 2048, and launches
     the kernel, or f32 with C a multiple of 4 up to 2048, which launches
-    its f32 form (the f32 int8 factory's; a warp a row, the same
-    arithmetic); anything else raises. `ln_quant.launches` counts bf16
-    launches, `.launches_f32` f32 ones."""
+    its f32 form (a warp a row, the same arithmetic); anything else raises.
+    `ln_quant.launches` counts bf16 launches, `.launches_f32` f32 ones."""
     if x.device.type == "cpu":
         return ln_quant_ref(x, weight, bias, eps)
-    if x.dtype == torch.float32:
-        return _ln_quant_f32(x, weight, bias, eps)
-    rows = _bf16_rows(x, "ln_quant")
+    rows = _rows(x, "ln_quant")
     m, c = rows.shape
+    f32 = x.dtype == torch.float32
     g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    fn = _ln_fn("hirest_ln_quant", 2)
+    fn = _ln_fn("hirest_ln_quant_f32" if f32 else "hirest_ln_quant", 2)
     with torch.cuda.device(x.device):
         err = fn(rows.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
                  s.data_ptr(), m, c, eps,
                  torch.cuda.current_stream().cuda_stream)
-    build.check(build.load("ln_quant"), err, "ln_quant launch")
-    ln_quant.launches += 1
-    return q, s
-
-
-def _ln_quant_f32(x, weight, bias, eps: float):
-    _require_cuda(x)
-    if (x.dim() < 2 or not x.is_contiguous() or x.data_ptr() % 16
-            or x.shape[-1] % 4 or x.shape[-1] > LN_MAX_WIDTH):
-        raise TypeError(f"ln_quant's f32 kernel takes contiguous, 16-byte "
-                        f"aligned f32 [..., C], C % 4 == 0 and C <= "
-                        f"{LN_MAX_WIDTH}, got {tuple(x.shape)}")
-    c = x.shape[-1]
-    m = x.numel() // c
-    g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    fn = _ln_fn("hirest_ln_quant_f32", 2)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
-                 s.data_ptr(), m, c, eps,
-                 torch.cuda.current_stream().cuda_stream)
-    build.check(build.load("ln_quant"), err, "ln_quant f32 launch")
-    ln_quant.launches_f32 += 1
+    build.check(build.load("ln_quant"), err,
+                f"ln_quant{' f32' if f32 else ''} launch")
+    _count(ln_quant, f32)
     return q, s
 
 
 def ln_bf16(x, weight, bias, eps: float):
-    """LayerNorm of x [..., C] in f32, written back in x's dtype (the bf16
+    """LayerNorm of x [..., C] in f32, written back in x's dtype (the
     trunk's `fused_ln`); weight and bias [C] are applied in f32.
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
     16-byte aligned bf16 with C a multiple of 8 up to 2048, and launches
-    the kernel; anything else raises. `ln_bf16.launches` counts launches."""
+    the kernel, or f32 with C a multiple of 4 up to 2048, which launches
+    its f32 form (a warp a row, the same arithmetic, f32 out); anything
+    else raises. `ln_bf16.launches` counts bf16 launches, `.launches_f32`
+    f32 ones."""
     if x.device.type == "cpu":
         return ln_bf16_ref(x, weight, bias, eps)
-    rows = _bf16_rows(x, "ln_bf16")
+    rows = _rows(x, "ln_bf16")
     m, c = rows.shape
+    f32 = x.dtype == torch.float32
     g, b = _f32_vector(weight, c, x.device), _f32_vector(bias, c, x.device)
     y = torch.empty_like(x)
-    fn = _ln_fn("hirest_ln_bf16", 1)
+    fn = _ln_fn("hirest_ln_f32" if f32 else "hirest_ln_bf16", 1)
     with torch.cuda.device(x.device):
         err = fn(rows.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
                  m, c, eps, torch.cuda.current_stream().cuda_stream)
-    build.check(build.load("ln_quant"), err, "ln_bf16 launch")
-    ln_bf16.launches += 1
+    build.check(build.load("ln_quant"), err,
+                f"ln_bf16{' f32' if f32 else ''} launch")
+    _count(ln_bf16, f32)
     return y
 
 
 ln_quant.launches = 0
 ln_quant.launches_f32 = 0
 ln_bf16.launches = 0
+ln_bf16.launches_f32 = 0
 
 
 # --- K5: optional activation + per-row int8 quantization -----------------
@@ -259,8 +271,8 @@ def act_quant_ref(x, *, act: str = "none"):
     return _scale_and_codes(_act(act, QUANT_ACTS)(x.float()))
 
 
-def _act_quant_fn():
-    fn = build.load("act_quant").hirest_act_quant
+def _act_quant_fn(entry: str):
+    fn = getattr(build.load("act_quant"), entry)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -274,23 +286,29 @@ def act_quant(x, *, act: str = "none"):
 
     A CPU tensor takes the plain version. A CUDA tensor must be contiguous,
     16-byte aligned bf16 with C a multiple of 16 up to 8192, and launches
-    the kernel; anything else raises. `act_quant.launches` counts launches."""
+    the kernel, or f32 with C a multiple of 4 up to 8192, which launches
+    its f32 form (a warp or warpgroup a row, IEEE divisions); anything else
+    raises. `act_quant.launches` counts bf16 launches, `.launches_f32` f32
+    ones."""
     if x.device.type == "cpu":
         return act_quant_ref(x, act=act)
     _act(act, QUANT_ACTS)
-    m, c = _bf16_rows(x, "act_quant", ACT_MAX_WIDTH, ACT_MULTIPLE).shape
+    m, c = _rows(x, "act_quant").shape
+    f32 = x.dtype == torch.float32
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    fn = _act_quant_fn()
+    fn = _act_quant_fn("hirest_act_quant_f32" if f32 else "hirest_act_quant")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), m, c,
                  QUANT_ACTS[act], torch.cuda.current_stream().cuda_stream)
-    build.check(build.load("act_quant"), err, "act_quant launch")
-    act_quant.launches += 1
+    build.check(build.load("act_quant"), err,
+                f"act_quant{' f32' if f32 else ''} launch")
+    _count(act_quant, f32)
     return q, s
 
 
 act_quant.launches = 0
+act_quant.launches_f32 = 0
 
 
 # --- K4: fc1 -> act -> per-(row, chunk) requant -> fc2 -> + residual ------

@@ -270,11 +270,16 @@ JAX_WRAPPERS = {jax_eva_scan: {"fused_attention": "fused_attention",
                                            "fused_mlp_int8")}}
 
 
-def _record(monkeypatch, module, attr, name, calls):
+ROW_WRAPPERS = ("act_quant", "ln_bf16", "ln_quant")  # the row kernels'
+
+
+def _record(monkeypatch, module, attr, name, calls, rows=None):
     """Count the calls of module.attr under `name` in calls. A call made
     from inside another call of the same wrapper (JAX's quant wrappers
     take a [B, S, C] input by calling themselves on its [B*S, C] view)
-    is not counted again."""
+    is not counted again. Where `rows` is a list, a call of a row kernel's
+    wrapper also appends (key, its input's dtype name, shape, contiguous,
+    16-byte aligned) to it (a JAX array: contiguous and aligned)."""
     fn = getattr(module, attr)
     inside = []
 
@@ -287,6 +292,14 @@ def _record(monkeypatch, module, attr, name, calls):
         elif kwargs.get("quant_out"):
             key += ":quant"
         calls[key] = calls.get(key, 0) + 1
+        if rows is not None and name in ROW_WRAPPERS:
+            x = args[0]
+            if isinstance(x, torch.Tensor):
+                rows.append((key, str(x.dtype).removeprefix("torch."),
+                             tuple(x.shape), x.is_contiguous(),
+                             x.data_ptr() % 16 == 0))
+            else:
+                rows.append((key, str(x.dtype), tuple(x.shape), True, True))
         inside.append(key)
         try:
             return fn(*args, **kwargs)
@@ -296,31 +309,87 @@ def _record(monkeypatch, module, attr, name, calls):
     monkeypatch.setattr(module, attr, recorded)
 
 
+def _dispatch(monkeypatch, case, jax_dtype, port_dtype):
+    """One forward of `case` through each package with every wrapper
+    recorded -> (JAX's calls, the port's, JAX's row-kernel calls, the
+    port's)."""
+    spec, flags, _ = DISPATCH[case]
+    sd, im = eva_state_dict(spec, seed=52), images(spec, 1, seed=52)
+    jax_calls, jax_rows = {}, []
+    for module, names in JAX_WRAPPERS.items():
+        for attr, name in names.items():
+            _record(monkeypatch, module, attr, name, jax_calls, jax_rows)
+    port_rows = []
+    port_calls = _record_port(monkeypatch, port_rows)
+    _jax(sd, spec, im, dtype=jax_dtype, **flags)
+    _port(sd, spec, im, dtype=port_dtype, **flags)
+    return jax_calls, port_calls, jax_rows, port_rows
+
+
+# EVA-g's widths: the trunk's, and its MLP's
+EVA_G_WIDTHS = {"width": 1408, "mlp_hidden": 6144}
+
+
+def _row_kernels_hold(case, jax_rows, port_rows, dtype: str) -> None:
+    """Every row-kernel call hands the port's wrapper the dtype it hands
+    JAX's (dtype, the forward's), and the CUDA wrappers' input check
+    (quant.row_kernel_shape) takes each of the port's calls as it would
+    come at EVA-g's widths: the same dtype, leading dims, contiguity and
+    alignment, C the EVA-g width of the one the small config has."""
+    from hirest_tpu_torch.ops.quant import row_kernel_shape
+
+    cfg = configs(DISPATCH[case][0])[1]
+    eva_g = {getattr(cfg, k): c for k, c in EVA_G_WIDTHS.items()}
+    assert ({(key, dt) for key, dt, *_ in jax_rows}
+            == {(key, dt) for key, dt, *_ in port_rows})
+    assert {dt for _, dt, *_ in port_rows} <= {dtype}
+    for key, dt, shape, contiguous, aligned in port_rows:
+        row_kernel_shape(key.split(":")[0], getattr(torch, dt),
+                         (*shape[:-1], eva_g[shape[-1]]), contiguous, aligned)
+
+
 @pytest.mark.parametrize("case", list(DISPATCH))
 def test_each_block_calls_the_wrappers_jax_calls(monkeypatch, case):
     """The wrappers each block of the port calls against the JAX block's
     (its scan body is traced once, so JAX's count is one block's), and
     both against the table. With the defaults the bf16 forward reaches v1
-    (K8), not v3 (K1)."""
-    spec, flags, per_block = DISPATCH[case]
-    sd, im = eva_state_dict(spec, seed=52), images(spec, 1, seed=52)
-    jax_calls = {}
-    for module, names in JAX_WRAPPERS.items():
-        for attr, name in names.items():
-            _record(monkeypatch, module, attr, name, jax_calls)
-    port_calls = _record_port(monkeypatch)
-    _jax(sd, spec, im, **flags)
-    _port(sd, spec, im, **flags)
+    (K8), not v3 (K1). In f32, the row kernels' wrappers get JAX's input
+    dtype, and their CUDA input check takes every such call at EVA-g's
+    widths (_row_kernels_hold)."""
+    jax_calls, port_calls, jax_rows, port_rows = _dispatch(
+        monkeypatch, case, jnp.float32, torch.float32)
+    spec, _, per_block = DISPATCH[case]
     layers = spec["layers"]
     assert jax_calls == per_block
     assert port_calls == {k: v * layers for k, v in per_block.items()}
+    _row_kernels_hold(case, jax_rows, port_rows, "float32")
 
 
-def _record_port(monkeypatch):
+# the cases whose blocks call a row kernel's wrapper
+ROW_CASES = [case for case, (_, _, per_block) in DISPATCH.items()
+             if any(k.split(":")[0] in ROW_WRAPPERS for k in per_block)]
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_each_block_hands_the_row_kernels_jax_dtypes_in_bf16(monkeypatch,
+                                                             case):
+    """As above, the forward in bf16 in both packages: the same calls, the
+    row kernels' wrappers get JAX's input dtype (bf16), and their CUDA
+    input check takes every such call at EVA-g's widths."""
+    jax_calls, port_calls, jax_rows, port_rows = _dispatch(
+        monkeypatch, case, jnp.bfloat16, torch.bfloat16)
+    spec, _, per_block = DISPATCH[case]
+    assert jax_calls == per_block
+    assert port_calls == {k: v * spec["layers"] for k, v in per_block.items()}
+    assert port_rows
+    _row_kernels_hold(case, jax_rows, port_rows, "bfloat16")
+
+
+def _record_port(monkeypatch, rows=None):
     calls = {}
     for module, names in PORT_WRAPPERS.items():
         for name in names:
-            _record(monkeypatch, module, name, name, calls)
+            _record(monkeypatch, module, name, name, calls, rows)
     return calls
 
 

@@ -340,7 +340,8 @@ def _pair(root, **overrides):
                     wordpiece_tokenizer=JaxWordPiece(vocab), verbose=False,
                     model_config=jax_model_cfg)
     jt.train_model = jt.model
-    model = MomentModel(model_cfg)
+    model = MomentModel(model_cfg, dtype=torch.bfloat16 if kw.get("fp16")
+                        else torch.float32)
     model.load_state_dict(moment_model_from_jax(
         jax.tree_util.tree_map(np.asarray, jt.params)))
     trainer = Trainer(cfg, text_encoder_fn=_text_fn,
@@ -374,11 +375,27 @@ def _zero_in_exact_arithmetic(task: str, name: str, layers: int) -> bool:
         "LayerNorm.bias")
 
 
-@pytest.mark.parametrize("task", TASKS)
-def test_one_gradient_per_task_matches_jax(tmp_path, task):
+# bf16 training (config.fp16) bar: losses within 2e-3 relative. A one-epoch
+# train() with fp16=True against the JAX trainer on this split saw first
+# steps within 3.1e-5 to 4.6e-4 relative and its worst of 22 steps at
+# 2.7e-3 (ROADMAP.md §1, `--fp16` training); one step a task is held here.
+BF16_LOSS_TOL = 2e-3
+
+
+@pytest.mark.parametrize("task,fp16", [pytest.param(t, False, id=t)
+                                       for t in TASKS]
+                         + [pytest.param(t, True, id=f"{t}-fp16")
+                            for t in TASKS])
+def test_one_gradient_per_task_matches_jax(tmp_path, task, fp16):
     """Every gradient within 1e-5 of its tensor's largest magnitude; those
     that are zero in exact arithmetic within 1e-6 of the model's largest
-    gradient on both sides."""
+    gradient on both sides. With fp16 (both trainers compute in bf16 on
+    f32 parameters) one train_step of each trainer on the same weights and
+    batch: the losses within BF16_LOSS_TOL relative (bf16 rounds at other
+    places in the two frameworks), the updated parameters finite."""
+    if fp16:
+        _bf16_train_step_matches_jax(tmp_path, task)
+        return
     jt, trainer = _pair(tmp_path)
     jarrs = jt._prepare(_first_batch(jt, task), task)
     arrs = trainer._prepare(_first_batch(trainer, task), task)
@@ -399,6 +416,24 @@ def test_one_gradient_per_task_matches_jax(tmp_path, task):
         _close(g.numpy(), want[k], 1e-5)
         reached += bool(np.abs(want[k]).max() > 0)
     assert reached > len(want) // 3
+
+
+def _bf16_train_step_matches_jax(tmp_path, task):
+    jt, trainer = _pair(tmp_path, fp16=True)
+    assert trainer.dtype == torch.bfloat16
+    assert trainer.model.dtype == torch.bfloat16
+    assert jt.model.dtype == jnp.bfloat16
+    jarrs = jt._prepare(_first_batch(jt, task), task)
+    arrs = trainer._prepare(_first_batch(trainer, task), task)
+    for t in (jt, trainer):
+        t.setup_optimizer(4)
+    jt.params, jt.opt_state, want = jt._get_train_step(task)(
+        jt.params, jt.opt_state, jarrs, jnp.asarray(0, jnp.uint32))
+    loss = trainer.train_step(task, arrs)
+    assert np.isfinite(float(want))
+    _close(float(loss), float(want), BF16_LOSS_TOL)
+    for k, v in trainer.model.state_dict().items():
+        assert torch.isfinite(v.float()).all(), k
 
 
 def test_train_one_epoch_matches_jax(tmp_path):
