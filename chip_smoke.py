@@ -28,15 +28,18 @@ differ from the plain version), then measures where K2's time spreads
 (the clocks, the kernel's own time against the host's, x in L2 or
 not) and prints the row kernels' SASS counts. --time-f32 does the same
 for the f32 forms (the f32 attention body in each wrapper, its int8-out
-forms, K2, K5 and K10 on f32 rows, K4 with an f32 residual), a form the
-checkout lacks printed as such, with the f32 body's and the f32 row
-forms' registers. The flags combine: one process runs each asked for.
+forms, K2, K5 and K10 on f32 rows, K4 with an f32 residual) beside SDPA
+in f32, a form the checkout lacks printed as such, with the f32 body's and
+the f32 row forms' registers, the body's wgmma serialisations and TF32
+HGMMA count in its SASS, K3 f32's device time split into the body and the
+row pass, and the body's per-tile trace (a -DHIREST_F32_TRACE=1 build).
+The flags combine: one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout (set-up);
-            K4's two kernels', K1/K3's, K5's and K2/K10's instantiations'
-            registers, spills and shared memory.
+            K4's two kernels', K1/K3's, the f32 body's, K5's and K2/K10's
+            instantiations' registers, spills and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
@@ -67,17 +70,20 @@ Phases; any failure exits non-zero before the result line is printed:
             element; K5's and K10's f32 forms on f32 rows at the same shapes,
             edges, zero rows and k + 1/2 rows (K5 at K5's bars, K10 within
             1e-5 of each row's largest value) and at other widths. The f32
-            body (attention_f32.cu) through every
+            body (attention_f32.cu, 3xTF32 on wgmma) through every
             wrapper, within 1e-5 of the largest output with TF32 off: K6
             at ViT-B/32's [B, 12, 50, 64] and EVA-g's [B, 16, 257, 88],
             K7 packed at d = 128, K1/K9's layout with n_real = 257 of 264
             (d = 88 and 128), K8's with nonzero biases, B = 2 and 128, one
-            batch row's keys all masked, 33 queries over 600 keys; and
-            bf16 K6 at ViT-B/32's [B, 12, 50, 64]. The f32 int8 factory's
-            kernels at K3's and K2's bars: K3, K9 int8 and K8 int8 on f32
-            activations (the f32 body with the int8 epilogue) at
-            [B, 257, 3 * 16 * 88] and d = 128, K3/K9 also over 264 tokens
-            with n_real = 257, K8 biased; K2 on f32 rows; K4 with an f32
+            batch row's keys all masked, 33 queries over 600 keys, and its
+            tiles' tails at d = 88 and 128 (65 rows and keys: one row in
+            the second query tile, one key in the last key tile; K1/K9
+            also 72 rows with n_real = 65); and bf16 K6 at ViT-B/32's
+            [B, 12, 50, 64]. The f32 int8 factory's kernels at K3's and
+            K2's bars: K3, K9 int8 and K8 int8 on f32 activations (the f32
+            body with the int8 epilogue) at [B, 257, 3 * 16 * 88] and
+            d = 128, K3/K9 also over 264 tokens with n_real = 257, K8
+            biased, each also at the tails; K2 on f32 rows; K4 with an f32
             residual within 1e-6 of its contribution plus one f32 ulp.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
@@ -291,7 +297,7 @@ VIDEOS = {"vid_a": (200, 199.6), "vid_b": (90, 88.4), "vid_c": (17, 17.0)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak
-F32_FLOP_PER_S = 67e12  # f32 FFMA on the CUDA cores (no TF32)
+TF32_FLOP_PER_S = 494.7e12  # dense TF32 tensor-core peak
 F32_TOL = 1e-5  # the f32 attention body and f32 paths: of the largest |value|
 # f32 issue slots: 132 SMs x 4 schedulers x 32 lanes at the 1.98 GHz boost
 # clock. __fmul_rn / __fadd_rn issue one slot each, never paired as FMAs.
@@ -343,6 +349,13 @@ def bound(moved_bytes: float, ops: float, ops_per_s: float) -> dict:
     ops_ms = ops / ops_per_s * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def tf32x3_bound(moved_bytes: float, flops: float) -> dict:
+    """The f32 attention body's bound: each of its f32 products is three
+    TF32 products on the tensor cores (3xTF32), so 3 x the f32 FLOP at the
+    TF32 rate, or the bytes, whichever takes longer."""
+    return bound(moved_bytes, 3 * flops, TF32_FLOP_PER_S)
 
 
 def cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -550,9 +563,9 @@ def f32_checks() -> dict:
     split heads at ViT-B/32's [B, 12, 50, 64] and EVA-g's
     [B, 16, 257, 88] (B = 2 and 128), packed heads at d = 128, K1/K9's
     layout with n_real = 257 of 264 (d = 88 and 128), K8's with nonzero
-    biases, one batch row's keys all masked, and 33 queries over 600 keys;
-    then bf16 K6 at ViT-B/32's shape. Returns the worst errors (K6: the
-    bf16 ViT-B/32 shape's)."""
+    biases, one batch row's keys all masked, 33 queries over 600 keys,
+    and the tiles' tails (f32_tails); then bf16 K6 at ViT-B/32's shape.
+    Returns the worst errors (K6: the bf16 ViT-B/32 shape's)."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_attention_packed_ref,
@@ -626,6 +639,8 @@ def f32_checks() -> dict:
             f"{valid[0]} and {valid[1]} valid",
             fused_attention_packed(*packed, 128 ** -0.5, 16, mask),
             fused_attention_packed_ref(*packed, 128 ** -0.5, 16, mask)))
+    for d in (88, 128):
+        f32_tails(d, note)
     worst["K6"] = 0.0
     for batch in (2, BATCH):
         q, k, v = split_views(attention_inputs(batch, seed=250 + batch,
@@ -637,16 +652,69 @@ def f32_checks() -> dict:
     return worst
 
 
+# The f32 body's tails: 65 rows put one row in the second query tile of
+# 64 and 65 keys one live key in the last tile of 32; K1/K9 also over 72
+# rows with n_real = 65
+TAIL_TOKENS = 65
+TAIL_PADDED = 72
+
+
+def f32_tails(d: int, note) -> None:
+    """The f32 body at its tiles' edges (TAIL_TOKENS) at head width d,
+    B = 2, through K6, K7, K1/K9 (all keys, and n_real of TAIL_PADDED
+    rows) and K8 (biased), each within F32_TOL; note(key, err) takes the
+    errors."""
+    from hirest_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_attention_packed_ref,
+                                                fused_attention_qkv,
+                                                fused_attention_qkv2,
+                                                fused_attention_qkv2_ref,
+                                                fused_attention_qkv3,
+                                                fused_attention_qkv3_ref,
+                                                fused_attention_qkv_ref,
+                                                fused_attention_ref)
+
+    t, scale = TAIL_TOKENS, d ** -0.5
+    qkv = f32_inputs(2, 300 + d, t, 16 * d)
+    q, k, v = split_views(qkv)
+    note("K6f32", check_f32(f"K6 f32 fused_attention [2,16,{t},{d}]",
+                            fused_attention(q, k, v, scale),
+                            fused_attention_ref(q, k, v, scale)))
+    pq, pk, pv = qkv.chunk(3, -1)
+    note("K7f32", check_f32(
+        f"K7 f32 fused_attention_packed [2,{t},16*{d}]",
+        fused_attention_packed(pq, pk, pv, scale, 16),
+        fused_attention_packed_ref(pq, pk, pv, scale, 16)))
+    for tokens, n_real in ((t, 0), (TAIL_PADDED, t)):
+        x = f32_inputs(2, 301 + d + tokens, tokens, 16 * d)
+        for key, fn, ref in (
+                ("K1f32", fused_attention_qkv3, fused_attention_qkv3_ref),
+                ("K9f32", fused_attention_qkv2, fused_attention_qkv2_ref)):
+            note(key, check_f32(
+                f"{key[:2]} f32 {fn.__name__} [2,{tokens},{3 * 16 * d}] "
+                f"n_real={n_real}", fn(x, scale, 16, n_real=n_real),
+                ref(x, scale, 16, n_real=n_real)))
+    g = gen(302 + d)
+    qb, vb = (torch.randn(16 * d, generator=g, device="cuda") * 0.5
+              for _ in range(2))
+    note("K8f32", check_f32(
+        f"K8 f32 fused_attention_qkv [2,{t},{3 * 16 * d}] biased",
+        fused_attention_qkv(qkv, qb, vb, scale, 16),
+        fused_attention_qkv_ref(qkv, qb, vb, scale, 16)))
+
+
 def f32_int8_checks() -> dict:
     """The f32 int8 factory's kernels against their plain versions: the
     int8-out attention forms on f32 activations (attention_f32.cu with the
     int8 epilogue) at K3's bars (codes within one, equal on 99 %, scales
     within 2^-7), K3 and K9 int8 at EVA-g's [B, 257, 3 * 16 * 88] and the
     padded head width d = 128, both also over 264 tokens with n_real = 257,
-    K8 int8 with nonzero biases at both widths, B = 2 and 128; K2 on f32
-    rows at K2's bars; K4 with an f32 residual, its output within 1e-6 of
-    the MLP's largest contribution plus one f32 ulp (the second kernel
-    rounds where the plain version rounds). Returns the worst errors."""
+    K8 int8 with nonzero biases at both widths, B = 2 and 128, and each at
+    the f32 body's tails (TAIL_TOKENS, B = 2); K2 on f32 rows at K2's
+    bars; K4 with an f32 residual, its output within 1e-6 of the MLP's
+    largest contribution plus one f32 ulp (the second kernel rounds where
+    the plain version rounds). Returns the worst errors."""
     from hirest_tpu_torch.ops.attention import (fused_attention_qkv,
                                                 fused_attention_qkv2,
                                                 fused_attention_qkv2_ref,
@@ -659,34 +727,38 @@ def f32_int8_checks() -> dict:
 
     worst = dict.fromkeys(("K3f32", "K9qf32", "K8qf32", "K2f32", "K4f32"),
                           0.0)
+    for batch, d, tokens, n_real in (
+            [(batch, d, tokens, n_real) for batch in (2, BATCH)
+             for d in (88, 128)
+             for tokens, n_real in ((TOKENS, 0), (264, TOKENS))]
+            + [(2, d, tokens, n_real) for d in (88, 128)
+               for tokens, n_real in ((TAIL_TOKENS, 0),
+                                      (TAIL_PADDED, TAIL_TOKENS))]):
+        qkv = f32_inputs(batch, 270 + batch + d + tokens, tokens, 16 * d)
+        shape = f"[{batch},{tokens},{3 * 16 * d}] n_real={n_real}"
+        for key, fn, ref in (
+                ("K3f32", fused_attention_qkv3, fused_attention_qkv3_ref),
+                ("K9qf32", fused_attention_qkv2, fused_attention_qkv2_ref)):
+            worst[key] = max(worst[key], check_codes(
+                f"{key} f32 {fn.__name__} quant_out {shape}",
+                fn(qkv, d ** -0.5, 16, quant_out=True, n_real=n_real),
+                ref(qkv, d ** -0.5, 16, quant_out=True, n_real=n_real),
+                0.99, 2 ** -7))
+    for batch, d, tokens in ([(batch, d, TOKENS) for batch in (2, BATCH)
+                              for d in (88, 128)]
+                             + [(2, d, TAIL_TOKENS) for d in (88, 128)]):
+        qkv = f32_inputs(batch, 280 + batch + d + tokens - TOKENS, tokens,
+                         16 * d)
+        g = gen(281 + d)
+        qb, vb = (torch.randn(16 * d, generator=g, device="cuda") * 0.5
+                  for _ in range(2))
+        worst["K8qf32"] = max(worst["K8qf32"], check_codes(
+            f"K8qf32 f32 fused_attention_qkv quant_out "
+            f"[{batch},{tokens},{3 * 16 * d}] biased",
+            fused_attention_qkv(qkv, qb, vb, d ** -0.5, 16, quant_out=True),
+            fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, 16,
+                                    quant_out=True), 0.99, 2 ** -7))
     for batch in (2, BATCH):
-        for d in (88, 128):
-            for tokens, n_real in ((TOKENS, 0), (264, TOKENS)):
-                qkv = f32_inputs(batch, 270 + batch + d + tokens, tokens,
-                                 16 * d)
-                shape = f"[{batch},{tokens},{3 * 16 * d}] n_real={n_real}"
-                for key, fn, ref in (
-                        ("K3f32", fused_attention_qkv3,
-                         fused_attention_qkv3_ref),
-                        ("K9qf32", fused_attention_qkv2,
-                         fused_attention_qkv2_ref)):
-                    worst[key] = max(worst[key], check_codes(
-                        f"{key} f32 {fn.__name__} quant_out {shape}",
-                        fn(qkv, d ** -0.5, 16, quant_out=True,
-                           n_real=n_real),
-                        ref(qkv, d ** -0.5, 16, quant_out=True,
-                            n_real=n_real), 0.99, 2 ** -7))
-            qkv = f32_inputs(batch, 280 + batch + d, TOKENS, 16 * d)
-            g = gen(281 + d)
-            qb, vb = (torch.randn(16 * d, generator=g, device="cuda") * 0.5
-                      for _ in range(2))
-            worst["K8qf32"] = max(worst["K8qf32"], check_codes(
-                f"K8qf32 f32 fused_attention_qkv quant_out "
-                f"[{batch},{TOKENS},{3 * 16 * d}] biased",
-                fused_attention_qkv(qkv, qb, vb, d ** -0.5, 16,
-                                    quant_out=True),
-                fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, 16,
-                                        quant_out=True), 0.99, 2 ** -7))
         rows = batch * TOKENS
         x, w, b = ln_inputs(rows, seed=290 + batch)
         x = x.float()
@@ -2169,7 +2241,8 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
     # the f32 body (attention_f32.cu) through each wrapper: K6 at
     # ViT-B/32's split heads [128, 12, 50, 64] (the eval path's), and at
     # EVA-g's; K7 packed at d = 128; K1/K9's and K8's layouts at EVA-g's
-    # width; each beside SDPA in f32 on the same heads (K8's pre-biased)
+    # width; each beside SDPA in f32 on the same heads (K8's pre-biased),
+    # its bound 3xTF32's (tf32x3_bound)
     qkv = f32_inputs(BATCH, 260, 50, 12 * 64)
     q, k, v = split_views(qkv, 12)
     res["K6f32"] = {
@@ -2177,8 +2250,7 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "plain_ms": cuda_ms(lambda: fused_attention_ref(q, k, v, 0.125), 5),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=0.125), 20),
-        **bound(4 * q.numel() * 4, 2 * 2 * BATCH * 12 * 50 * 50 * 64,
-                F32_FLOP_PER_S)}
+        **tf32x3_bound(4 * q.numel() * 4, 2 * 2 * BATCH * 12 * 50 * 50 * 64)}
     qkv = f32_inputs(BATCH, 261, TOKENS, w)
     q, k, v = split_views(qkv)
     f32_extra = {"K6f32 EVA-g [128,16,257,88]": {
@@ -2186,19 +2258,19 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "plain_ms": cuda_ms(lambda: fused_attention_ref(q, k, v, scale), 3),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale), 5),
-        **bound(4 * q.numel() * 4, attn_flops, F32_FLOP_PER_S)}}
+        **tf32x3_bound(4 * q.numel() * 4, attn_flops)}}
     res["K1f32"] = {
         "ms": cuda_ms(lambda: fused_attention_qkv3(qkv, scale, heads), 5),
         "plain_ms": cuda_ms(lambda: fused_attention_qkv3_ref(
             qkv, scale, heads), 3),
         "library_ms": f32_extra["K6f32 EVA-g [128,16,257,88]"]["library_ms"],
-        **bound((qkv.numel() + m * w) * 4, attn_flops, F32_FLOP_PER_S)}
+        **tf32x3_bound((qkv.numel() + m * w) * 4, attn_flops)}
     res["K9f32"] = {
         "ms": cuda_ms(lambda: fused_attention_qkv2(qkv, scale, heads), 5),
         "plain_ms": cuda_ms(lambda: fused_attention_qkv2_ref(
             qkv, scale, heads), 3),
         "library_ms": res["K1f32"]["library_ms"],
-        **bound((qkv.numel() + m * w) * 4, attn_flops, F32_FLOP_PER_S)}
+        **tf32x3_bound((qkv.numel() + m * w) * 4, attn_flops)}
     gb = gen(263)
     qb32, vb32 = (torch.randn(w, generator=gb, device="cuda") * 0.5
                   for _ in range(2))
@@ -2211,8 +2283,7 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
             qkv, qb32, vb32, scale, heads), 3),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qbh, k, vbh, scale=scale), 5),
-        **bound((qkv.numel() + 2 * w + m * w) * 4, attn_flops,
-                F32_FLOP_PER_S)}
+        **tf32x3_bound((qkv.numel() + 2 * w + m * w) * 4, attn_flops)}
     pq, pk, pv = f32_inputs(BATCH, 262, TOKENS, PADDED_HD).chunk(3, -1)
     sq, sk, sv = (split_heads(t, heads) for t in (pq, pk, pv))
     res["K7f32"] = {
@@ -2222,7 +2293,7 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
             pq, pk, pv, p128, heads), 3),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, scale=p128), 5),
-        **bound(4 * pq.numel() * 4, flops128, F32_FLOP_PER_S)}
+        **tf32x3_bound(4 * pq.numel() * 4, flops128)}
     # the f32 int8 factory's forms, each beside its bf16 counterpart (K3,
     # K9 int8, K8 int8, K2, K4 above) on the same values in f32
     for key, fn, ref, kw in (
@@ -2240,8 +2311,8 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
             "ms": cuda_ms(call(fn, **kw), 5),
             "plain_ms": cuda_ms(call(ref, **kw), 3),
             "library_ms": None,
-            **bound((qkv.numel() + (2 * w if kw else 0)) * 4 + m * w + m * 4,
-                    attn_flops, F32_FLOP_PER_S)}
+            **tf32x3_bound((qkv.numel() + (2 * w if kw else 0)) * 4
+                           + m * w + m * 4, attn_flops)}
     x32 = x.float()
     res["K2f32"] = {
         "ms": cuda_ms(lambda: ln_quant(x32, g, bb, EPS), 20),
@@ -2289,7 +2360,8 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of it")
     return res
 
 
@@ -4779,15 +4851,23 @@ def time_f32(cfg, card: str) -> None:
     ViT-B/32's [128, 12, 50, 64] and EVA-g's, K7 at d = 128, K1 (n_real)
     and K8 (biased), its int8-out forms K3, K9 and K8 int8, K2, K5
     (gelu_bf16_poly at 6144) and K10 on f32 rows and K4 with an f32
-    residual; a form the checkout refuses (an earlier one, without f32
-    int8 or f32 row forms) prints as such. Also the f32 body's and the
-    f32 row forms' registers and spills from their builds."""
+    residual, beside SDPA in f32 at the body's three shapes; a form the
+    checkout refuses (an earlier one, without f32 int8 or f32 row forms)
+    prints as such. Also the f32 body's and the f32 row forms' registers,
+    spills and wgmma serialisations from their builds, the body's HGMMA
+    instructions in its SASS, the device's and the host's time a call at
+    ViT-B/32's shape (the body's and SDPA's), the int8-out form K3's
+    device time split into the body and the row pass (quant_rows_kernel)
+    beside K1's body on the same qkv, and the body's trace (trace_f32)."""
     from hirest_tpu_torch.ops import build
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_attention_qkv,
                                                 fused_attention_qkv2,
                                                 fused_attention_qkv3)
+    import torch.nn.functional as F
+
+    from hirest_tpu_torch.models.layers import split_heads
     from hirest_tpu_torch.ops.quant import (act_quant, fused_mlp_int8,
                                             ln_bf16, ln_quant)
 
@@ -4796,6 +4876,7 @@ def time_f32(cfg, card: str) -> None:
     ptxas_summary(logs.get("attention_f32", ""), ("attention_f32_kernel",))
     ptxas_summary(logs.get("act_quant", ""), ("act_quant_f32_kernel",))
     ptxas_summary(logs.get("ln_quant", ""), ("ln_f32_kernel",))
+    hgmma_counts(build.library_path("attention_f32"), "attention_f32_kernel")
     scale, heads, w = cfg.head_width ** -0.5, cfg.num_heads, cfg.width
     vit = split_views(f32_inputs(BATCH, 260, 50, 12 * 64), 12)
     qkv = f32_inputs(BATCH, 261, TOKENS, w)
@@ -4828,7 +4909,14 @@ def time_f32(cfg, card: str) -> None:
         "K2f32": lambda: ln_quant(x, lw, lb, EPS),
         "K5f32": lambda: act_quant(h6, act="gelu_poly"),
         "K10f32": lambda: ln_bf16(x, lw, lb, EPS),
-        "K4f32": lambda: fused_mlp_int8(*mlp)}
+        "K4f32": lambda: fused_mlp_int8(*mlp),
+        "SDPA f32 ViT-B/32": lambda: F.scaled_dot_product_attention(
+            *vit, scale=0.125),
+        "SDPA f32 EVA-g": lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale),
+        "SDPA f32 d=128": lambda: F.scaled_dot_product_attention(
+            *(split_heads(t, heads) for t in (pq, pk, pv)),
+            scale=128 ** -0.5)}
     ms = {}
     for name, fn in forms.items():
         try:
@@ -4839,6 +4927,89 @@ def time_f32(cfg, card: str) -> None:
         ms[name] = f"{cuda_ms(fn, 20):.4f} ms"
     print(f"[time-f32] {card}: {REPO}: " + ", ".join(
         f"{name} {t}" for name, t in ms.items()))
+    # ViT-B/32's shape is short enough for the host's enqueue to set a
+    # 20-call reading's pace: the device's own time a call beside it
+    for name in ("K6f32 ViT-B/32", "SDPA f32 ViT-B/32"):
+        fn = forms[name]
+        print(f"[time-f32] {card}: {name}: device {device_ms(fn, 20)} ms "
+              f"a call, host enqueue {host_ms(fn, 20):.4f} ms a call")
+    k3 = forms["K3f32"]
+    body, rows = (kernel_ms(k3, key, 5) for key in ("attention_f32_kernel",
+                                                    "quant_rows_kernel"))
+    k1 = kernel_ms(lambda: fused_attention_qkv3(qkv, scale, heads),
+                   "attention_f32_kernel", 5)
+    print(f"[time-f32] {card}: K3f32 device time: body {body} ms, row pass "
+          f"{rows} ms; K1f32's body on the same qkv {k1} ms")
+    trace_f32(card)
+
+
+# spans of a key tile in attention_f32.cu's trace (HIREST_F32_TRACE):
+# name -> (from event, to event), in clock64() cycles of block 0's SM
+F32_TRACE_SPANS = {
+    "K split": (3, 4), "V^T stage wait": (5, 6), "V^T split": (6, 7),
+    "consumer waits": (8, 9), "turn wait": (9, 10),
+    "turn (PV, then scores issued)": (10, 11), "scores wait": (11, 12),
+    "softmax": (12, 13), "p split": (13, 14)}
+
+
+def trace_f32(card: str) -> None:
+    """attention_f32.cu built with HIREST_F32_TRACE=1 at EVA-g's
+    [128, 16, 257, 88] and the padded [128, 16, 257, 128]: each span of
+    F32_TRACE_SPANS averaged over block 0's key tiles 5..39 (cycles), and
+    the consumer's tile period."""
+    import ctypes
+
+    from hirest_tpu_torch.ops import attention
+
+    defines = ("-DHIREST_F32_TRACE=1",)
+    try:
+        lib = attention._f32_lib(defines)
+    except TypeError:  # a tree whose _f32_lib takes no variants
+        lib = None
+    if not hasattr(lib, "hirest_attention_f32_trace"):
+        print(f"[time-f32] {card}: no trace in this tree")
+        return
+    lib.hirest_attention_f32_trace.argtypes = [ctypes.c_void_p]
+    shipped = attention._f32_lib
+    attention._f32_lib = lambda d=(): shipped(defines)
+    try:
+        for d in (88, 128):
+            q, k, v = split_views(f32_inputs(BATCH, 268 + d, TOKENS, 16 * d))
+            for _ in range(3):
+                attention.fused_attention(q, k, v, d ** -0.5)
+            torch.cuda.synchronize()
+            buf = np.zeros((64, 19), dtype=np.int64)
+            err = lib.hirest_attention_f32_trace(buf.ctypes.data)
+            require(err == 0, f"attention_f32 trace read: CUDA error {err}")
+            r = buf[5:40].astype(np.float64)
+            spans = {}
+            for name, (e0, e1) in F32_TRACE_SPANS.items():
+                ok = (r[:, e0] > 0) & (r[:, e1] > 0)
+                spans[name] = float(np.mean(r[ok, e1] - r[ok, e0]))
+            ends = r[:, 14][r[:, 14] > 0]
+            # an item's edges: its last PV and output, the next one's Q
+            # wait, Q split and first tile
+            last = np.nonzero(buf[:, 18] > 0)[0]
+            first = np.nonzero(buf[:, 16] > 0)[0]
+            first = first[first > last[0]] if len(last) else first
+            edge = {"last PV": (14, 17), "output": (17, 18)}
+            items = {n: float(np.mean([buf[i, e1] - buf[i, e0]
+                                       for i in last]))
+                     for n, (e0, e1) in edge.items()}
+            items["next Q wait"] = float(np.mean(
+                [buf[i, 16] - buf[i, 15] for i in first]))
+            items["Q split"] = float(np.mean(
+                [buf[i, 8] - buf[i, 16] for i in first]))
+            items["first tile"] = float(np.mean(
+                [buf[i, 14] - buf[i, 8] for i in first]))
+            print(f"[time-f32] {card}: attention_f32 trace d={d}, cycles a "
+                  f"key tile: " + ", ".join(f"{n} {c:.0f}"
+                                            for n, c in spans.items())
+                  + f"; consumer tile period {np.mean(np.diff(ends)):.0f}; "
+                  f"an item's edges: " + ", ".join(
+                      f"{n} {c:.0f}" for n, c in items.items()))
+    finally:
+        attention._f32_lib = shipped
 
 
 def time_mlp(card: str) -> None:
@@ -4898,13 +5069,9 @@ def forward_fc1(cfg) -> tuple:
     return caught, acts.pop()
 
 
-def sass_counts(lib: Path, kernel: str) -> None:
-    """Prints, for each instantiation of `kernel` in the library's SASS
-    (cuobjdump -sass), the values a thread holds a row (from its template
-    arguments: K5's <act, G, units[, width]> units x 16, or width / G built
-    in; ln_kernel's <kQuant, width> width / 32, or 64) and its f32
-    multiplies, adds, FMAs, min/max, conversions to int, reciprocals and
-    loads a value: one GELU evaluation a value shows as ~11 FMULs a value."""
+def sass_functions(lib: Path) -> dict:
+    """Each function's opcodes in the library's SASS (cuobjdump -sass),
+    predicates dropped."""
     import re
     import shutil
 
@@ -4922,6 +5089,36 @@ def sass_counts(lib: Path, kernel: str) -> None:
             body = re.sub(r"^@!?U?P[T0-9]+\s+", "", body)
             if body:
                 funcs[name].append(body.split()[0].rstrip(";"))
+    return funcs
+
+
+def hgmma_counts(lib: Path, kernel: str) -> None:
+    """Prints, for each instantiation of `kernel` in the library's SASS,
+    its tensor-core instructions (HGMMA, and of those the ones on TF32
+    operands) beside its FFMAs: the products run on the tensor cores
+    where the HGMMAs are there."""
+    for fname, ops in sass_functions(lib).items():
+        if kernel not in fname:
+            continue
+        hg = [op for op in ops if op.startswith("HGMMA")]
+        kinds = sorted(set(hg))
+        print(f"[sass] {fname}: {len(hg)} HGMMA, "
+              f"{sum('TF32' in op for op in hg)} on TF32 "
+              f"({', '.join(kinds)}), "
+              f"{sum(op.startswith('FFMA') for op in ops)} FFMA, "
+              f"{len(ops)} instructions")
+
+
+def sass_counts(lib: Path, kernel: str) -> None:
+    """Prints, for each instantiation of `kernel` in the library's SASS
+    (cuobjdump -sass), the values a thread holds a row (from its template
+    arguments: K5's <act, G, units[, width]> units x 16, or width / G built
+    in; ln_kernel's <kQuant, width> width / 32, or 64) and its f32
+    multiplies, adds, FMAs, min/max, conversions to int, reciprocals and
+    loads a value: one GELU evaluation a value shows as ~11 FMULs a value."""
+    import re
+
+    funcs = sass_functions(lib)
     for fname, ops in funcs.items():
         if kernel not in fname:
             continue
@@ -4967,6 +5164,24 @@ def clocks_during(fn) -> tuple:
     sm, mem = zip(*rows)
     return result, (f"SM {min(sm)}-{max(sm)} MHz, memory {min(mem)}-"
                     f"{max(mem)} MHz over {len(rows)} samples")
+
+
+def device_ms(fn, n: int) -> float:
+    """The device time of every kernel fn() launches, per call, over n
+    calls, from torch.profiler; None where it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / n / 1e3 if total else None
 
 
 def kernel_ms(fn, key: str, n: int, before=None):
@@ -5162,6 +5377,7 @@ def main() -> int:
                   ("fused_mlp_int8_hidden_kernel",
                    "fused_mlp_int8_out_kernel"))
     ptxas_summary(logs.get("attention_qkv3", ""), ("attention_qkv3_kernel",))
+    ptxas_summary(logs.get("attention_f32", ""), ("attention_f32_kernel",))
     ptxas_summary(logs.get("act_quant", ""), ("act_quant_kernel",
                                               "act_quant_f32_kernel"))
     ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel", "ln_f32_kernel"))

@@ -29,14 +29,17 @@ the f32 scores, normalise p in f32 and then round it.
 
 Those kernels take bf16. A float32 CUDA tensor (the JAX kernels compute in
 the dtype they are given, and the CLIP towers and the f32 EVA factory hand
-them f32) goes to `csrc/attention_f32.cu`, one f32 body on the CUDA cores
-for every bf16-out form (K1/K9 on views of the pre-biased qkv, n_real as
-the number of keys; K6/K7 with the key mask; K8 with the biases), counted
-apart in each wrapper's `launches_f32`. In f32 the two softmax forms differ
-only in the order of roundings. The int8-out forms (K3, K8 and K9 with
-quant_out) take the same body with the int8 epilogue of the bf16 kernels
-(an f32 workspace, each row's max |y| by atomicMax, then the codes and row
-scales), counted in `quant_launches_f32`.
+them f32) goes to `csrc/attention_f32.cu`, one f32 body for every bf16-out
+form (K1/K9 on views of the pre-biased qkv, n_real as the number of keys;
+K6/K7 with the key mask; K8 with the biases), counted apart in each
+wrapper's `launches_f32`. It takes its products on the tensor cores in
+3xTF32 (each f32 operand split into two tf32 halves, three wgmma products
+into one f32 sum) on tiles loaded by TMA, and its softmax in f32. In f32
+the two softmax forms differ only in the order of roundings. The int8-out
+forms (K3, K8 and K9 with quant_out) take the same body with the int8
+epilogue of the bf16 kernels (an f32 workspace, each row's max |y| by
+atomicMax, then the codes and row scales), counted in
+`quant_launches_f32`.
 """
 
 from __future__ import annotations
@@ -347,8 +350,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _f32_lib() -> ctypes.CDLL:
-    lib = build.load("attention_f32")
+def _f32_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """attention_f32.cu's library; `defines` ("-DHIREST_F32_TRACE=1")
+    selects the traced build chip_smoke.py --time-f32 reads."""
+    lib = build.load("attention_f32", defines)
     ints = [ctypes.c_int] * 5  # B, H, Sq, Sk, D
     lib.hirest_attention_f32.argtypes = (
         [ctypes.c_void_p] * 7 + ints
@@ -363,14 +368,25 @@ def _f32_lib() -> ctypes.CDLL:
     return lib
 
 
+def _tma_view(t: torch.Tensor) -> torch.Tensor:
+    """t where attention_f32.cu's TMA maps take it as it is (16-byte
+    aligned, batch, head and row strides positive multiples of 4
+    elements), else a copy with the contiguous layout's strides."""
+    if t.data_ptr() % 16 or any(st <= 0 or st % 4 for st in t.stride()[:3]):
+        return torch.empty_like(
+            t, memory_format=torch.contiguous_format).copy_(t)
+    return t
+
+
 def _launch_f32(q, k, v, key_mask, out, scale: float, q_bias=None,
                 v_bias=None):
-    """Launch attention_f32.cu on f32 [B, H, S, D] views (any batch, head
-    and row strides, unit last stride) into the f32 [B, H, Sq, D] view
-    `out`, with the key mask [B, Sk] and the biases [H*D] (each or None).
-    With out=None, the int8-out form instead -> (int8 codes [B, Sq, H*D],
-    f32 row scales [B, Sq, 1])."""
+    """Launch attention_f32.cu on f32 [B, H, S, D] views (unit last stride;
+    any batch, head and row strides, taken through `_tma_view`) into the
+    f32 [B, H, Sq, D] view `out`, with the key mask [B, Sk] and the biases
+    [H*D] (each or None). With out=None, the int8-out form instead ->
+    (int8 codes [B, Sq, H*D], f32 row scales [B, Sq, 1])."""
     (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask, torch.float32)
+    q, k, v = (_tma_view(t) for t in (q, k, v))
     if out is not None and (out.dtype != torch.float32
                             or out.stride(-1) != 1):
         raise ValueError("out must be an f32 view with a unit last stride")

@@ -1,9 +1,11 @@
 // Hopper pieces shared by the kernels built on TMA and wgmma
-// (fused_mlp_int8.cu, attention_qkv3.cu) and by the row ring (rowring.cuh):
-// mbarriers, TMA tile loads, 1-d bulk copies, the tensor-map encoder,
-// setmaxnreg, wgmma's fence / commit / wait, shared-memory matrix
-// descriptors, and the bf16 wgmma products of the attention kernel
-// (attention_tiles.cuh takes its smem_u32 too). sm_90a only.
+// (fused_mlp_int8.cu, attention_qkv3.cu, attention_f32.cu) and by the row
+// ring (rowring.cuh): mbarriers, TMA tile loads, 1-d bulk copies, the
+// tensor-map encoder, setmaxnreg, wgmma's fence / commit / wait,
+// shared-memory matrix descriptors, the bf16 wgmma products of the
+// attention kernel, and the tf32 ones of the f32 body with its tf32
+// rounding, proxy fence and named barrier (attention_tiles.cuh takes its
+// smem_u32 too). sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -230,6 +232,129 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
+        HOPPER_F8(d, 32), HOPPER_F8(d, 40), HOPPER_F8(d, 48),
+        HOPPER_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// --- tf32 wgmma (the 3xTF32 products of attention_f32.cu) ---------------
+//
+// D[64 x N] (+)= A[64 x 8] * B[8 x N] on tf32 operands with f32
+// accumulation. tf32 takes both operands K-major (no transpose). A from
+// registers: warp w holds rows 16w..16w+15 in mma.sync's m16n8k8 tf32 A
+// layout (a[0] row g col t, a[1] row g+8 col t, a[2] row g col t+4, a[3]
+// row g+8 col t+4); or A by descriptor. B by descriptor. D as above.
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away), as a .b32
+// whose low 13 bits are zero: also the f32 value it stands for. This is
+// cvt.rna.tf32.f32's result for every finite x (half an ulp added to the
+// magnitude's bits, then cut), in two integer operations: cvt runs on the
+// SM's conversion unit, a few results a clock.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// Orders this thread's earlier generic-proxy accesses to shared memory
+// before later async-proxy ones (wgmma operand reads, TMA writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bar.sync on named barrier `id` (1..15) among `threads` threads, and
+// bar.arrive, which counts this thread's warp without waiting.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// The same with A by descriptor (K-major, as smem_desc describes it).
+__device__ __forceinline__ void wgmma_tf32_n32_ss(float (&d)[16],
+                                                  uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n96(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
+        HOPPER_F8(d, 32), HOPPER_F8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
         HOPPER_F8(d, 32), HOPPER_F8(d, 40), HOPPER_F8(d, 48),
         HOPPER_F8(d, 56)
