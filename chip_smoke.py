@@ -8,6 +8,7 @@
     python3 chip_smoke.py --time-mlp        # K4 and its _int_mm pair alone
     python3 chip_smoke.py --time-rows       # K2, K5, K10 ms alone
     python3 chip_smoke.py --time-f32        # the f32 forms ms alone
+    python3 chip_smoke.py --time-epilogue   # E1, E2 and six forwards alone
 
 --time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
 tokens, one 192-row query tile a head), K9, K6, K7 and K8 (bf16 and int8
@@ -33,13 +34,21 @@ in f32, a form the checkout lacks printed as such, with the f32 body's and
 the f32 row forms' registers, the body's wgmma serialisations and TF32
 HGMMA count in its SASS, K3 f32's device time split into the body and the
 row pass, and the body's per-tile trace (a -DHIREST_F32_TRACE=1 build).
+--time-epilogue times E1 and E2 (ops/epilogue.py, csrc/epilogue.cu) at
+B=128 in bf16 and f32 beside their plain chains, their bounds and F.gelu
+on the same bytes, then six full-width forwards (production bf16 and
+int8, padded scanned, ladder bf16, int8 dyn, bf16+v3+lnk in f32): frames/s
+and one profiled forward's groups each. In a checkout without
+ops/epilogue.py it says so and times the plain chains alone, so parent,
+change, change, parent in one call compares the two trees.
 The flags combine: one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout (set-up);
-            K4's two kernels', K1/K3's, the f32 body's, K5's and K2/K10's
-            instantiations' registers, spills and shared memory.
+            K4's two kernels', K1/K3's, the f32 body's, K5's, K2/K10's
+            and E1's and E2's instantiations' registers, spills and
+            shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
@@ -85,21 +94,32 @@ Phases; any failure exits non-zero before the result line is printed:
             d = 128, K3/K9 also over 264 tokens with n_real = 257, K8
             biased, each also at the tails; K2 on f32 rows; K4 with an f32
             residual within 1e-6 of its contribution plus one f32 ulp.
+            The projection epilogues (csrc/epilogue.cu), bf16 and f32, at
+            [M, 6144], [M, 4224] and [M, 1408] for M = 32896, 1, 257 and
+            5000: E1 with its bias and gelu_bf16_poly, exact GELU or no
+            activation, E1 without a bias (int8 dyn's GELU) and E2, bit
+            for bit against their plain versions, the exact GELU within
+            one bf16 ulp of the largest value (f32: 1e-6 of it), the
+            share of elements that differ printed; and the wrappers
+            refusing f16 and non-contiguous tensors.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
             synthetic videos through the per-video finish of
             extract_video_features. Every launch count is zeroed before each
             precision's run and read after it: per forward, the bf16 path
-            launches K1 40 times and no other kernel; the int8 path launches
-            K2 80 times, K3 and K4 40 times each, and no other.
+            launches K1 40 times and E1 and E2 80 times each (the qkv
+            bias and fc1's bias + GELU; proj's and fc2's bias + residual)
+            and no other kernel; the int8 path launches K2 80 times, K3
+            and K4 40 times each, and no other.
 4. factory  build_eva_model_and_transforms(device="cuda") at full width
             (text 12 x 768, vision 40 x 1408; one draw of seeded random
             weights shared by every build): encode_text on 512 prompts, and
             encode_image at B = 128 unrolled (scan=False: 40 K6 a forward),
             padded unrolled (40 K7), padded scanned (40 K1 at head width
-            128) and padded scanned int8 (80 K2, 40 K3 at 128, 40 K4), each
-            with the counts zeroed before and read after, and no other
+            128, 80 E1, 80 E2) and padded scanned int8 (80 K2, 40 K3 at
+            128, 40 K4), each with the counts zeroed before and read
+            after, and no other
             kernel launched; then the unrolled int8 tower
             (models/eva_quant.py::build_int8_vision_apply, every dense
             layer int8, with and without quant_attention) on the same
@@ -107,10 +127,12 @@ Phases; any failure exits non-zero before the result line is printed:
             >= 0.98 to the float unrolled tower at full depth.
 5. ladder   the kernel flag configurations of build_scanned_vision_apply
             (bench.py's ladder without its TPU layout flags) at full width
-            on one staged bf16 and one staged int8 tower: bf16 (v1, K8),
-            bf16+v2 (K9), bf16+v3+lnk (K1, K10), int8 dyn (K8), int8+fq
-            (K2, K5, K8 int8), int8+fq+v2 (K2, K5, K9 int8) and int8+fq+v3
-            (K2, K3, K5), two forwards each with the counts zeroed before
+            on one staged bf16 and one staged int8 tower: bf16 (v1, K8;
+            E1 once and E2 twice a layer), bf16+v2 (K9), bf16+v3+lnk (K1,
+            K10; E1 and E2 twice a layer each), int8 dyn (K8, E1 once a
+            layer), int8+fq (K2, K5, K8 int8), int8+fq+v2 (K2, K5, K9
+            int8) and int8+fq+v3 (K2, K3, K5), two forwards each with the
+            counts zeroed before
             and read after; each one's 2-layer cut on the card against the
             CPU f32 path with the same flags.
 6. depth    the same weights cut to 2 layers, on the card in bf16 against the
@@ -122,7 +144,8 @@ Phases; any failure exits non-zero before the result line is printed:
             f32 path at >= 0.99 and the float unrolled one at >= 0.98.
             Then the f32 paths, 2 layers, card against CPU within 1e-5 of
             the largest value: build_eva_model_and_transforms(dtype=
-            torch.float32) scanned (2 K1 f32) and unrolled (2 K6 f32),
+            torch.float32) scanned (2 K1 f32; E1 and E2 f32 where the
+            bf16 block runs them) and unrolled (2 K6 f32),
             padded unrolled (K7 f32) and padded scanned (K1 f32 at
             d = 128), the scanned forward's v1 (K8 f32) and v2 (K9 f32),
             each with its launch counts, and the text tower. Then the f32
@@ -205,7 +228,8 @@ Phases; any failure exits non-zero before the result line is printed:
             decode_segment's device time and idle share, MiniLM
             sentences/s); then the custom-video EVA step as run_custom_video
             chains it (make_eva_encoder(uint8_frontend=True), batches of 64
-            uint8 frames): 40 K1 a forward, [45, 1024] unit-norm features.
+            uint8 frames): 40 K1, 80 E1 and 80 E2 a forward, [45, 1024]
+            unit-norm features.
             It names the host decoders (cv2, Pillow, ffmpeg, openai-whisper)
             the machine lacks; it decodes no mp4.
 11. training the training path at JointModelConfig()'s width (768 hidden,
@@ -377,6 +401,7 @@ def counters() -> dict:
                                                 fused_attention_qkv,
                                                 fused_attention_qkv2,
                                                 fused_attention_qkv3)
+    from hirest_tpu_torch.ops.epilogue import bias_act, bias_residual
     from hirest_tpu_torch.ops.quant import (act_quant, fused_mlp_int8,
                                             ln_bf16, ln_quant)
 
@@ -403,7 +428,11 @@ def counters() -> dict:
             "K9q": (fused_attention_qkv2, "quant_launches"),
             "K9qf32": (fused_attention_qkv2, "quant_launches_f32"),
             "K10": (ln_bf16, "launches"),
-            "K10f32": (ln_bf16, "launches_f32")}
+            "K10f32": (ln_bf16, "launches_f32"),
+            "E1": (bias_act, "launches"),
+            "E1f32": (bias_act, "launches_f32"),
+            "E2": (bias_residual, "launches"),
+            "E2f32": (bias_residual, "launches_f32")}
 
 
 def expect(**per_forward) -> dict:
@@ -1047,6 +1076,193 @@ def f32_row_checks(tally: dict) -> dict:
     return worst
 
 
+# --- E1 and E2: the scanned block's projection epilogues ------------------
+
+EPI_WIDTHS = (6144, 4224, 1408)  # fc1 (and padded qkv), qkv, proj / fc2 out
+EPI_EDGE_M = (1, 257, 5000)  # a row, a frame, not a multiple of a grid step
+# E1's forms on the main paths: (act, with a bias); without one, int8 dyn's
+# GELU on int8_mm's output
+E1_FORMS = (("gelu_poly", True), ("gelu", True), ("none", True),
+            ("gelu_poly", False), ("gelu", False))
+# The f32 issue slots a value E1's and E2's functions need, counted from
+# the arithmetic as ROW_SLOTS is: each bf16 operand's widening 1, each sum
+# 1, the bias sum's rounding to bf16 and back 2, gelu_bf16_poly 22 (the
+# exact GELU's four explicit operations, erff not counted), bf16 out 0.5.
+EPI_ACT_SLOTS = {"gelu_poly": 22, "gelu": 4, "none": 0}
+
+
+def epilogue_bound(m: int, c: int, dtype, act=None,
+                   residual: bool = False) -> dict:
+    """E1's (act) or E2's (residual) bound on [m, c] in dtype: y read and
+    written, x read for E2, the bias row read once; or the issue slots."""
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
+    if residual:
+        slots = 3 + 2 + 2 + 0.5 if bf16 else 2
+    else:
+        slots = EPI_ACT_SLOTS[act] + (2 + 1 + 2 + 0.5 if bf16 else 1)
+    return bound(((3 if residual else 2) * m * c + c) * size, slots * m * c,
+                 ISSUE_SLOTS_PER_S)
+
+
+def epilogue_inputs(m: int, c: int, seed: int, dtype):
+    """y [m, c], b [c], x [m, c] in dtype: y normal at 3 (a share past
+    gelu_bf16_poly's clamp at 4.1 sqrt 2), b at 0.5, x at 2, the first 16
+    columns of y zero and b zero on 8 of them (sums of exactly zero)."""
+    g = gen(seed)
+    y = torch.randn((m, c), generator=g, device="cuda") * 3
+    b = torch.randn(c, generator=g, device="cuda") * 0.5
+    x = torch.randn((m, c), generator=g, device="cuda") * 2
+    y[:, :16] = 0.0
+    b[8:16] = 0.0
+    return y.to(dtype), b.to(dtype), x.to(dtype)
+
+
+def epilogue_check(tag: str, got, want, exact: bool) -> tuple:
+    """An epilogue's output against its plain version: bit for bit where
+    exact, else (the exact GELU, erff against PyTorch's) within one bf16
+    ulp of the largest value (f32: 1e-6 of it). Returns (the largest
+    error, the share of elements that differ)."""
+    torch.cuda.synchronize()
+    g32, w32 = got.float(), want.float()
+    require(got.dtype == want.dtype and got.shape == want.shape
+            and bool(torch.isfinite(g32).all()), f"{tag}: output {got.dtype} "
+                                                 f"{tuple(got.shape)}")
+    err = (g32 - w32).abs().max().item()
+    share = (g32 != w32).float().mean().item()
+    if exact:
+        ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        ok = torch.equal(got.view(ints), want.view(ints))
+    else:
+        top = max(w32.abs().max().item(), np.finfo(np.float32).tiny)
+        ok = err <= (2.0 ** (np.floor(np.log2(top)) - 7)
+                     if got.dtype == torch.bfloat16 else 1e-6 * top)
+    require(ok, f"{tag} off its plain version: max_abs_err={err}, "
+                f"{share} of elements differ")
+    return err, share
+
+
+def epilogue_checks() -> dict:
+    """E1 (every form of E1_FORMS) and E2 against their plain versions in
+    bf16 and f32 at EPI_WIDTHS, M = 32896 and EPI_EDGE_M; then the
+    wrappers refusing what the kernels do not take. Returns the largest
+    error of E1, E2 and their f32 forms."""
+    from hirest_tpu_torch.ops.epilogue import (bias_act, bias_act_ref,
+                                               bias_residual,
+                                               bias_residual_ref)
+
+    worst = {}
+    seed = 900
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for c in EPI_WIDTHS:
+            forms = (*(("E1", a, wb) for a, wb in E1_FORMS),
+                     ("E2", None, True))
+            for kind, act, with_bias in forms:
+                errs, shares = [], []
+                for m in (BATCH * TOKENS, *EPI_EDGE_M):
+                    seed += 1
+                    y, b, x = epilogue_inputs(m, c, seed, dtype)
+                    tag = f"{kind} {name} [{m},{c}]"
+                    if kind == "E1":
+                        bb = b if with_bias else None
+                        got = bias_act(y.clone(), bb, act=act)
+                        want = bias_act_ref(y.clone(), bb, act=act)
+                    else:
+                        got = bias_residual(y.clone(), b, x)
+                        want = bias_residual_ref(y.clone(), b, x)
+                    err, share = epilogue_check(tag, got, want,
+                                                exact=act != "gelu")
+                    errs.append(err)
+                    shares.append(share)
+                form = (f"act={act}, {'bias' if with_bias else 'no bias'}"
+                        if kind == "E1" else "bias + residual")
+                bar = ("one bf16 ulp of the largest" if act == "gelu"
+                       else "bit for bit")
+                print(f"[kernels] {kind} {name} {form} [M,{c}], M = "
+                      f"{BATCH * TOKENS}, {', '.join(map(str, EPI_EDGE_M))}:"
+                      f" max_abs_err={max(errs)}, share differing "
+                      f"{', '.join(f'{s:.6f}' for s in shares)} ({bar})")
+                key = kind + ("f32" if name == "f32" else "")
+                worst[key] = max(worst.get(key, 0.0), *errs)
+    y = torch.zeros((4, 1408), device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(1408, device="cuda", dtype=torch.bfloat16)
+    for what, call in (
+            ("f16", lambda: bias_act(y.half(), b.half())),
+            ("a transposed view", lambda: bias_act(y.t(), b[:4])),
+            ("C % 8 != 0", lambda: bias_act(y[:, :1404].contiguous(),
+                                            b[:1404])),
+            ("an f32 bias on bf16", lambda: bias_act(y, b.float())),
+            ("a residual of another shape",
+             lambda: bias_residual(y, b, y[:2]))):
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        require(False, f"E1/E2 took {what}")
+    print("[kernels] E1/E2 wrappers refuse f16, a transposed view, C % 8 "
+          "!= 0 in bf16, a bias of another dtype, a residual of another "
+          "shape")
+    return worst
+
+
+def epilogue_times(m: int, w: int, hid: int, kernels: bool) -> dict:
+    """E1 and E2 at B=128 (M = m) in bf16 and f32 beside their plain chains
+    (the block's code before the kernels: the bias added in place, then
+    gelu_bf16_poly; x + (y + b)), a library call on the same bytes (F.gelu
+    for E1 with a GELU; torch.add with the bias for E1's qkv form, the same
+    function; torch.add(x, y) for E2) and the bound. kernels False (a
+    checkout without ops/epilogue.py): the kernel's "ms" is None."""
+    import torch.nn.functional as F
+
+    from hirest_tpu_torch.models.layers import gelu_bf16_poly
+
+    if kernels:
+        from hirest_tpu_torch.ops.epilogue import bias_act, bias_residual
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "" if dtype == torch.bfloat16 else "f32"
+        for key, c, act in ((f"E1{sfx}", hid, "gelu_poly"),
+                            (f"E1{sfx} qkv none [M,{3 * w}]", 3 * w, "none"),
+                            (f"E2{sfx}", w, None)):
+            y, b, x = epilogue_inputs(m, c, 950 + c, dtype)
+            yp = y.clone()
+            if act is None:
+                def plain():
+                    return x + yp.add_(b)
+
+                def library():
+                    return torch.add(x, y)
+
+                def kernel():
+                    return bias_residual(y, b, x)
+            elif act == "none":
+                def plain():
+                    return yp.add_(b)
+
+                def library():
+                    return torch.add(y, b)
+
+                def kernel():
+                    return bias_act(y, b, act="none")
+            else:
+                def plain():
+                    return gelu_bf16_poly(yp.add_(b))
+
+                def library():
+                    return F.gelu(y)
+
+                def kernel():
+                    return bias_act(y, b, act="gelu_poly")
+            res[key] = {
+                "ms": cuda_ms(kernel, 20) if kernels else None,
+                "plain_ms": cuda_ms(plain, 5),
+                "library_ms": cuda_ms(library, 20),
+                **epilogue_bound(m, c, dtype, act, residual=act is None)}
+            del y, b, x, yp
+    return res
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
@@ -1268,6 +1484,7 @@ def phase_kernels(cfg) -> dict:
     worst.update(f32)
     worst.update(f32_int8_checks())
     worst.update(row_checks()[0])
+    worst.update(epilogue_checks())
     return worst
 
 
@@ -1334,7 +1551,8 @@ def phase_main(cfg, pretrained: Path) -> dict:
               f"{time.perf_counter() - t0:.1f} s")
         feats[tag], counts, fw = run_videos(cfg, encoders[tag], frames, tag)
         n = cfg.layers * fw
-        want = (expect(K2=2 * n, K3=n, K4=n) if int8 else expect(K1=n))
+        want = (expect(K2=2 * n, K3=n, K4=n) if int8
+                else expect(K1=n, E1=2 * n, E2=2 * n))
         require(counts == want, f"{tag} launches {counts}, expected {want}")
         launches.update({k: v for k, v in counts.items() if want[k]})
     cos = min(cosine(feats["int8"][False, v], feats["bf16"][False, v]).min()
@@ -1382,7 +1600,8 @@ def prompt_ids(n: int, seed: int, text_cfg) -> np.ndarray:
 FACTORY = {
     "unrolled": (dict(scan=False), dict(K6=1)),
     "padded_unrolled": (dict(scan=False, padded_heads=True), dict(K7=1)),
-    "padded_scanned": (dict(scan=True, padded_heads=True), dict(K1=1)),
+    "padded_scanned": (dict(scan=True, padded_heads=True),
+                       dict(K1=1, E1=2, E2=2)),
     "padded_scanned_int8": (dict(scan=True, padded_heads=True, int8=True),
                             dict(K2=2, K3=1, K4=1)),
 }
@@ -1445,12 +1664,15 @@ def phase_factory(cfg, text_cfg, weights: dict) -> dict:
 
 
 # ladder configuration -> (flags of build_scanned_vision_apply, launches
-# per forward); bench.py's ladder tags (:817-823) less the TPU layout flags
+# per layer); bench.py's ladder tags (:817-823) less the TPU layout flags.
+# E1 takes the qkv bias where v2/v3 fold it into the projection, and fc1's
+# bias and GELU (int8 dyn: its GELU); E2 proj's and fc2's bias + residual
 LADDER = {
-    "bf16": ({}, dict(K8=1)),
-    "bf16+v2": (dict(attn_v2=True), dict(K9=1)),
-    "bf16+v3+lnk": (dict(attn_v3=True, fused_ln=True), dict(K1=1, K10=2)),
-    "int8": (dict(int8=True), dict(K8=1)),
+    "bf16": ({}, dict(K8=1, E1=1, E2=2)),
+    "bf16+v2": (dict(attn_v2=True), dict(K9=1, E1=2, E2=2)),
+    "bf16+v3+lnk": (dict(attn_v3=True, fused_ln=True),
+                    dict(K1=1, K10=2, E1=2, E2=2)),
+    "int8": (dict(int8=True), dict(K8=1, E1=1)),
     "int8+fq": (dict(int8=True, fused_quant=True), dict(K2=2, K5=1, K8q=1)),
     "int8+fq+v2": (dict(int8=True, fused_quant=True, attn_v2=True),
                    dict(K2=2, K5=1, K9q=1)),
@@ -1632,14 +1854,15 @@ def phase_factory_depth(cfg, text_cfg, weights: dict, frames) -> dict:
 # build_eva_model_and_transforms(dtype=torch.float32), which sends every
 # attention to the f32 body
 F32_DEPTH = {
-    "factory scan=True": (dict(scan=True), dict(K1f32=1)),
+    "factory scan=True": (dict(scan=True), dict(K1f32=1, E1f32=2, E2f32=2)),
     "factory scan=False": (dict(scan=False), dict(K6f32=1)),
     "factory padded unrolled": (dict(scan=False, padded_heads=True),
                                 dict(K7f32=1)),
     "factory padded scanned": (dict(scan=True, padded_heads=True),
-                               dict(K1f32=1)),
-    "scanned v1": (dict(scanned={}), dict(K8f32=1)),
-    "scanned v2": (dict(scanned=dict(attn_v2=True)), dict(K9f32=1)),
+                               dict(K1f32=1, E1f32=2, E2f32=2)),
+    "scanned v1": (dict(scanned={}), dict(K8f32=1, E1f32=1, E2f32=2)),
+    "scanned v2": (dict(scanned=dict(attn_v2=True)),
+                   dict(K9f32=1, E1f32=2, E2f32=2)),
 }
 # f32 int8 2-layer configurations, each against the CPU's f32 int8 path with
 # the same flags (cosine >= COS_MIN) and its f32 float path (>=
@@ -1748,8 +1971,8 @@ def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
 # launches a layer: the fused LayerNorm's K10, K5 in the fused-quant MLP,
 # and int8 dyn's K8
 F32_LADDER = {
-    "bf16+v3+lnk": dict(K1f32=1, K10f32=2),
-    "int8": dict(K8f32=1),
+    "bf16+v3+lnk": dict(K1f32=1, K10f32=2, E1f32=2, E2f32=2),
+    "int8": dict(K8f32=1, E1f32=1),
     "int8+fq": dict(K2f32=2, K5f32=1, K8qf32=1),
     "int8+fq+v2": dict(K2f32=2, K5f32=1, K9qf32=1),
     "int8+fq+v3": dict(K2f32=2, K3f32=1, K5f32=1),
@@ -2349,9 +2572,13 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         "library_ms": res["K4"]["library_ms"],
         **bound(m * w + m * 4 + 2 * m * w * 4 + 2 * hid * w
                 + 4 * (2 * hid + 2 * w), 2 * 2 * m * w * hid, INT8_OP_PER_S)}
+    # E1 on fc1's output (bias, gelu_bf16_poly) and on the qkv projection
+    # (its bias alone), E2 on proj's and fc2's, in bf16 and f32
+    for key, r in epilogue_times(m, w, hid, kernels=True).items():
+        (res if key in ("E1", "E2", "E1f32", "E2f32") else extra)[key] = r
     for key, base in (("K3f32", "K3"), ("K9qf32", "K9q"), ("K8qf32", "K8q"),
                       ("K2f32", "K2"), ("K4f32", "K4"), ("K5f32", "K5"),
-                      ("K10f32", "K10")):
+                      ("K10f32", "K10"), ("E1f32", "E1"), ("E2f32", "E2")):
         print(f"[timing] {card}: {key} (f32 activations) {res[key]['ms']:.4f}"
               f" ms beside {base} (bf16) {res[base]['ms']:.4f} ms, "
               f"{res[key]['ms'] / res[base]['ms']:.2f}x")
@@ -2367,11 +2594,13 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
 
 KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     "bf16": (
+        ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
+        ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
         ("K1 attention_qkv3 (CUDA)", ("attention_qkv3",)),
         ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
         ("layer_norm", ("layer_norm",)),
-        ("elementwise (GELU chain, casts, bias, residual)",
-         ("elementwise", "reduce")),
+        ("elementwise (casts, the qkv bias's cat; without E1/E2 the GELU "
+         "chain, bias, residual)", ("elementwise", "reduce")),
     ),
     "int8": (
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
@@ -2384,21 +2613,26 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          ("elementwise", "reduce")),
     ),
     "ladder bf16": (
+        ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
+        ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
         ("K8 attention_split (CUDA)", ("attention_split",)),
         ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
         ("layer_norm", ("layer_norm",)),
-        ("elementwise (GELU chain, casts, residual)",
-         ("elementwise", "reduce")),
+        ("elementwise (casts; without E1/E2 the GELU chain, bias, "
+         "residual)", ("elementwise", "reduce")),
     ),
     "ladder int8 K8": (
+        ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
+        ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K8 attention_split, with int8 out both steps (CUDA)",
          ("attention_split", "quant_rows")),
         ("K5 act_quant (CUDA)", ("act_quant",)),
         ("int8 GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
-        ("elementwise (dequant epilogues, row quantization, GELU chain, "
-         "residual, casts)", ("elementwise", "reduce")),
+        ("elementwise (dequant epilogues, row quantization, residual, "
+         "casts; without E1 int8 dyn's GELU chain)",
+         ("elementwise", "reduce")),
     ),
     "ladder int8": (
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
@@ -2411,11 +2645,14 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          ("elementwise", "reduce")),
     ),
     "ladder f32": (
+        ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
+        ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
         ("K1 f32 attention_f32 (CUDA)", ("attention_f32",)),
         ("K10 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<false>",
                                           "ln_f32_kernelILb0E")),
         ("projections (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma")),
-        ("elementwise (GELU chain, residual)", ("elementwise", "reduce")),
+        ("elementwise (casts; without E1/E2 the GELU chain, bias, "
+         "residual)", ("elementwise", "reduce")),
     ),
     "ladder f32 int8": (
         ("K2 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<true>",
@@ -3596,7 +3833,8 @@ def phase_asr(main: dict, card: str) -> None:
     print(f"[asr] custom-video EVA step: {len(frames)} uint8 frames, "
           f"{forwards} forward(s) of {CUSTOM_BATCH} in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches {counts}")
-    require(counts == expect(K1=40 * forwards),
+    require(counts == expect(K1=40 * forwards, E1=80 * forwards,
+                             E2=80 * forwards),
             f"custom-video EVA launches {counts}")
     require(feats.shape == (round(ASR_SECONDS), 1024)
             and np.isfinite(feats).all() and np.allclose(
@@ -4739,6 +4977,20 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
               "hirest_tpu/ops/quant.py:176"),
     "K10f32": ("ln_bf16 (float32)", "hirest_tpu_torch/ops/csrc/ln_quant.cu",
                "hirest_tpu/ops/quant.py:220"),
+    # no Pallas kernel: the XLA fusions of the scanned block's projection
+    # epilogues into their dots (also :310's qkv bias, :342's int8 dyn
+    # GELU and :347's proj bias + residual); times at fc1's [M, 6144]
+    # (bias, gelu_bf16_poly) and fc2's [M, 1408], library F.gelu on E1's
+    # bytes and torch.add(x, y) on E2's
+    "E1": ("bias_act", "hirest_tpu_torch/ops/csrc/epilogue.cu",
+           "hirest_tpu/models/eva_scan.py:350"),
+    "E2": ("bias_residual", "hirest_tpu_torch/ops/csrc/epilogue.cu",
+           "hirest_tpu/models/eva_scan.py:351"),
+    "E1f32": ("bias_act (float32)", "hirest_tpu_torch/ops/csrc/epilogue.cu",
+              "hirest_tpu/models/eva_scan.py:350"),
+    "E2f32": ("bias_residual (float32)",
+              "hirest_tpu_torch/ops/csrc/epilogue.cu",
+              "hirest_tpu/models/eva_scan.py:351"),
 }
 
 
@@ -5318,6 +5570,88 @@ def time_rows(cfg, card: str) -> None:
         sass_counts(build.library_path(name), kernel)
 
 
+EPI_FORWARDS = 3  # timed forwards of B=128 a configuration, after a warm-up
+# the forwards --time-epilogue times: staged tower (int8, dtype, padded
+# heads) -> (tag, flags of build_scanned_vision_apply, KERNEL_GROUPS set)
+EPI_TOWERS = (
+    ((False, torch.bfloat16, False), (
+        ("production bf16", dict(attn_v3=True), "bf16"),
+        ("ladder bf16", {}, "ladder bf16"))),
+    ((True, torch.bfloat16, False), (
+        ("production int8", dict(int8=True, attn_v3=True, fused_quant=True,
+                                 fused_mlp=True), "int8"),
+        ("ladder int8 dyn", dict(int8=True), "ladder int8 K8"))),
+    ((False, torch.bfloat16, True), (
+        ("padded scanned", dict(attn_v3=True), "bf16"),)),
+    ((False, torch.float32, False), (
+        ("ladder bf16+v3+lnk in f32", dict(attn_v3=True, fused_ln=True),
+         "ladder f32"),)),
+)
+
+
+def time_epilogue(cfg, card: str) -> None:
+    """E1 and E2 at B=128 beside their plain chains, F.gelu on the same
+    bytes and their bounds (epilogue_times), then each EPI_TOWERS forward
+    at full width and depth on seeded weights: ms a forward and frames/s
+    over EPI_FORWARDS, and one profiled forward's groups. Through what
+    every version of the port has (build_scanned_vision_apply with the
+    production flags is what make_eva_encoder and the factory build), so
+    a checkout without ops/epilogue.py times its plain chains and its
+    forwards, the kernels printed as missing."""
+    from hirest_tpu_torch.models.eva_pad import pad_vision_head_params
+    from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+                                                  stage_scanned_params)
+    from hirest_tpu_torch.ops import build
+    from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
+
+    kernels = "epilogue" in build.SOURCES
+    logs = build.build()  # every source at once, as the forwards need them
+    if kernels:
+        ptxas_summary(logs.get("epilogue", ""), ("bias_act_kernel",
+                                                 "bias_residual_kernel"))
+    else:
+        print(f"[time-epilogue] {REPO}: E1 and E2 (ops/epilogue.py) are not "
+              f"in this checkout: their plain chains alone")
+    m = BATCH * TOKENS
+    for name, r in epilogue_times(m, cfg.width, cfg.mlp_hidden,
+                                  kernels).items():
+        kernel = ("missing" if r["ms"] is None else
+                  f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of bound)")
+        print(f"[time-epilogue] {card}: {REPO}: {name} B={BATCH}: kernel "
+              f"{kernel}, plain chain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    t0 = time.perf_counter()
+    sd = random_eva_vision_state_dict(cfg, seed=0)
+    print(f"[time-epilogue] seeded weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    frames = normalize_frames(np.random.default_rng(5).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8))
+    for (int8, dtype, padded), runs in EPI_TOWERS:
+        psd, pcfg = pad_vision_head_params(sd, cfg) if padded else (sd, cfg)
+        staged = stage_scanned_params(psd, pcfg, int8=int8, dtype=dtype,
+                                      device="cuda")
+        for tag, flags, groups in runs:
+            fn = build_scanned_vision_apply(None, pcfg, staged=staged,
+                                            dtype=dtype, device="cuda",
+                                            **flags)
+            fn(frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(EPI_FORWARDS):
+                out = fn(frames)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            require(bool(out.isfinite().all()), f"{tag}: non-finite output")
+            print(f"[time-epilogue] {card}: {REPO}: {tag}: "
+                  f"{secs / EPI_FORWARDS * 1e3:.2f} ms a forward of {BATCH}, "
+                  f"{BATCH * EPI_FORWARDS / secs:.2f} frames/s")
+            profile_call(f"one {tag} forward B={BATCH}", lambda: fn(frames),
+                         card, groups, tag="time-epilogue")
+        del staged, fn, out
+        torch.cuda.empty_cache()
+
+
 def ptxas_summary(log: str, kernels) -> None:
     """Each named kernel's registers and spills from nvcc's ptxas -v log,
     and why ptxas serialized its wgmma instructions, where it did."""
@@ -5359,7 +5693,8 @@ def main() -> int:
     timers = {"--time-attention": lambda: time_attention(cfg, card),
               "--time-mlp": lambda: time_mlp(card),
               "--time-rows": lambda: time_rows(cfg, card),
-              "--time-f32": lambda: time_f32(cfg, card)}
+              "--time-f32": lambda: time_f32(cfg, card),
+              "--time-epilogue": lambda: time_epilogue(cfg, card)}
     asked = [flag for flag in timers if flag in sys.argv[1:]]
     for flag in asked:
         timers[flag]()
@@ -5381,6 +5716,8 @@ def main() -> int:
     ptxas_summary(logs.get("act_quant", ""), ("act_quant_kernel",
                                               "act_quant_f32_kernel"))
     ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel", "ln_f32_kernel"))
+    ptxas_summary(logs.get("epilogue", ""), ("bias_act_kernel",
+                                             "bias_residual_kernel"))
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
 

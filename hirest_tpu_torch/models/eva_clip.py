@@ -12,9 +12,11 @@ EVA_clip/eva_model.py:177-250 for `text.*`), so the two parts of
   to the working dtype (or through `ln_bf16`, K10, with `fused_ln`), the
   attention that `BlockOptions.attn` selects (`scanned_attention`: K8,
   K9 or K1), and the short erf polynomial for GELU when `fast_gelu`. The
-  options are set once when the forward is built and passed to every
-  block. Its working dtype is the dtype of the parameters; the output is
-  f32.
+  four projections are `F.linear` without a bias; each bias, the GELU and
+  the residual sums follow in the epilogue kernels (ops/epilogue.py: E1
+  after qkv and fc1, E2 after proj and fc2). The options are set once
+  when the forward is built and passed to every block. Its working dtype
+  is the dtype of the parameters; the output is f32.
 - `UnrolledEvaVisionTower` (with `VisionBlock`) is the JAX package's flax
   `EvaVisionTower` with `use_pallas=True` (the factory's `scan=False`), on
   the same state dict: flax's LayerNorm arithmetic (`layer_norm_fast_var`),
@@ -46,13 +48,14 @@ from hirest_tpu_torch.models.convert import (eva_text_state_dict,
                                              load_into, load_torch_ckpt,
                                              patch_kernel)
 from hirest_tpu_torch.models.layers import (ACTIVATIONS, MultiHeadAttention,
-                                            causal_mask, gelu, gelu_bf16_poly,
+                                            causal_mask, gelu,
                                             layer_norm_fast_var, merge_heads,
                                             split_heads)
 from hirest_tpu_torch.ops.attention import (fused_attention,
                                             fused_attention_qkv,
                                             fused_attention_qkv2,
                                             fused_attention_qkv3)
+from hirest_tpu_torch.ops.epilogue import bias_act, bias_residual
 from hirest_tpu_torch.ops.quant import act_quant, ln_bf16
 from hirest_tpu_torch.utils.device import resolve_device
 
@@ -98,7 +101,8 @@ def linear(h: torch.Tensor, weight: torch.Tensor,
     """h @ weight^T + bias as eva_scan writes it (`h @ w + b`): the product
     rounded to h's dtype, then the bias added in that dtype. F.linear with
     a bias would round product and bias once, which in bf16 is another
-    number."""
+    number. The blocks add their biases through the epilogue kernels
+    (ops/epilogue.py), whose plain versions compute this."""
     y = F.linear(h, weight)
     return y if bias is None else y.add_(bias)
 
@@ -146,16 +150,21 @@ class Attention(nn.Module):
         self.v_bias = nn.Parameter(torch.zeros(inner))
         self.proj = nn.Linear(inner, width)
 
-    def forward(self, h: torch.Tensor, attn: str) -> torch.Tensor:
-        bias = None
+    def forward(self, h: torch.Tensor, attn: str,
+                residual: torch.Tensor) -> torch.Tensor:
+        """residual + proj(attention(qkv(h))), each projection's bias and
+        the residual added by the epilogue kernels (E1, E2) after its
+        product."""
+        qkv = F.linear(h, self.qkv.weight)
         if attn in ("v2", "v3"):
             # [q_bias | 0 | v_bias] rides on the projection (eva_scan._bias3)
-            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                              self.v_bias])
-        qkv = linear(h, self.qkv.weight, bias)
-        return linear(scanned_attention(qkv, self.q_bias, self.v_bias,
-                                        self.scale, self.heads, attn),
-                      self.proj.weight, self.proj.bias)
+            qkv = bias_act(qkv, torch.cat([self.q_bias,
+                                           torch.zeros_like(self.q_bias),
+                                           self.v_bias]), act="none")
+        att = scanned_attention(qkv, self.q_bias, self.v_bias, self.scale,
+                                self.heads, attn)
+        return bias_residual(F.linear(att, self.proj.weight), self.proj.bias,
+                             residual)
 
 
 class Mlp(nn.Module):
@@ -176,12 +185,13 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg.width, cfg.mlp_hidden)
 
     def forward(self, x: torch.Tensor, opts: BlockOptions) -> torch.Tensor:
-        act = gelu_bf16_poly if opts.fast_gelu else gelu
         ln = fused_layer_norm if opts.fused_ln else layer_norm
-        x = x + self.attn(ln(x, self.norm1), opts.attn)
-        h = act(linear(ln(x, self.norm2), self.mlp.fc1.weight,
-                       self.mlp.fc1.bias))
-        return x + linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        x = self.attn(ln(x, self.norm1), opts.attn, x)
+        h = bias_act(F.linear(ln(x, self.norm2), self.mlp.fc1.weight),
+                     self.mlp.fc1.bias,
+                     act="gelu_poly" if opts.fast_gelu else "gelu")
+        return bias_residual(F.linear(h, self.mlp.fc2.weight),
+                             self.mlp.fc2.bias, x)
 
 
 class PatchEmbed(nn.Module):

@@ -12,10 +12,12 @@ what is computed, with its defaults: `dtype`, `fast_gelu`, `uint8_input`,
 Each block runs the JAX block's dispatch (eva_scan.py:296-430):
 
 - bf16: the attention v1 (K8) by default, v2 (K9) or v3 (K1); `fused_ln`
-  runs the two block LayerNorms through `ln_bf16` (K10).
+  runs the two block LayerNorms through `ln_bf16` (K10). The biases, the
+  GELU and the residuals follow the products in E1 and E2
+  (ops/epilogue.py), the work XLA fused into the dots.
 - `int8` alone ("int8 dyn"): LayerNorm, then `dyn_quant_rows` and int8
   products at every projection, the attention's bf16 output quantized the
-  same way.
+  same way, fc1's GELU through E1.
 - `int8` + `fused_quant`: `ln_quant` (K2), the attention's int8 epilogue
   (K3, K9 or K8), the int8 fc1, `act_quant` (K5) and the int8 fc2; with
   `fused_mlp` the MLP is one kernel (K4). int8 + fused_quant + attn_v3 +
@@ -54,7 +56,7 @@ from hirest_tpu_torch.models.convert import (eva_vision_state_dict,
 from hirest_tpu_torch.models.eva_clip import (CLIP_MEAN, CLIP_STD, Block,
                                               BlockOptions, EvaVisionTower,
                                               scanned_attention)
-from hirest_tpu_torch.models.layers import gelu, gelu_bf16_poly
+from hirest_tpu_torch.ops.epilogue import bias_act
 from hirest_tpu_torch.ops.quant import (act_quant, dyn_quant_rows,
                                         fused_mlp_int8, int8_mm, ln_quant,
                                         quantize_weight)
@@ -151,9 +153,8 @@ class Int8Block(nn.Module):
         h = int8_mm(h_q, h_s, self.fc1_wq, self.fc1_ws, self.fc1_b, dt)
         if fq:
             h_q, h_s = act_quant(h, act=gact)
-        else:
-            h_q, h_s = dyn_quant_rows((gelu_bf16_poly if opts.fast_gelu
-                                       else gelu)(h))
+        else:  # the GELU through E1, without a bias (int8_mm added it)
+            h_q, h_s = dyn_quant_rows(bias_act(h, act=gact))
         x = x + int8_mm(h_q, h_s, self.fc2_wq, self.fc2_ws, self.fc2_b, dt)
         return x.view(b, s, c)
 
