@@ -293,6 +293,17 @@ Phases; any failure exits non-zero before the result line is printed:
             four cards data:2,model:2 over NCCL.
             Readings: steps/s and all-reduce ms a step (gloo stages CUDA
             tensors through the host: no NCCL time).
+14. bench    `python -m hirest_tpu_torch.bench` in six processes, one after
+            the other: the ladder (eight configurations at B = 128),
+            --latency, --vr, --e2e, --unrolled --bf16 and --unrolled
+            --int8. Each must exit 0 and end in its metric's line with
+            its unit and a value > 0; a frames/s line's mfu in (0, 1] and
+            equal to value x the useful FLOP a frame over the card's peak,
+            and its tag one the bench names. The ladder must print all
+            eight tags' frames/s, bf16+v3 and int8+fq+v3+fm within 15 %
+            of the timing phase's production bf16 and int8 encoders on
+            float frames; the other tags are printed beside the timing
+            phase's ladder readings.
 
 Then it prints the card's name and power limit, one JSON line of kernels and,
 last, {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2248,8 +2259,9 @@ def time_factory(factory: dict, card: str) -> None:
             print(f"[timing] {card}: {label} B={n}: {rate:.2f} {what}/s")
 
 
-def time_ladder(ladder: dict, card: str) -> None:
+def time_ladder(ladder: dict, card: str) -> dict:
     """Frames/s of every ladder configuration at B=128, as time_factory."""
+    out = {}
     for tag, fn in ladder["fns"].items():
         fn(ladder["frames"])
         torch.cuda.synchronize()
@@ -2260,12 +2272,16 @@ def time_ladder(ladder: dict, card: str) -> None:
         torch.cuda.synchronize()
         fps = BATCH * iters / (time.perf_counter() - t0)
         print(f"[timing] {card}: ladder {tag} B={BATCH}: {fps:.2f} frames/s")
+        out[tag] = fps
+    return out
 
 
 def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
-                 card: str) -> dict:
+                 card: str) -> tuple:
     """Frames/s, and each kernel's ms beside its plain version, a library
-    yardstick and the bound, at the main path's B=128 shapes."""
+    yardstick and the bound, at the main path's B=128 shapes. Returns (the
+    kernels' readings, frames/s by the bench's tag: the production encoders
+    on float frames as bf16+v3 and int8+fq+v3+fm, and the ladder's)."""
     import torch.nn.functional as F
 
     from hirest_tpu_torch.models.layers import split_heads
@@ -2288,9 +2304,11 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
                                             mlp_int8_hidden_ref,
                                             mlp_int8_out_ref)
 
-    time_encoders(main, card)
+    enc = time_encoders(main, card)
     time_factory(factory, card)
-    time_ladder(ladder, card)
+    fps = {"bf16+v3": enc["fps_bf16_float"],
+           "int8+fq+v3+fm": enc["fps_int8_float"],
+           **time_ladder(ladder, card)}
     res = {}
     scale, heads, d = cfg.head_width ** -0.5, cfg.num_heads, cfg.head_width
     m, w, hid = BATCH * TOKENS, cfg.width, cfg.mlp_hidden
@@ -2589,7 +2607,7 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
               f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of it")
-    return res
+    return res, fps
 
 
 KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
@@ -4500,6 +4518,92 @@ def phase_parallel(card: str) -> None:
     print(f"[parallel] phase done in {time.perf_counter() - start:.1f} s")
 
 
+# python -m hirest_tpu_torch.bench: (arguments, metric, unit) of each mode
+BENCH_MODES = (
+    ([], "eva_clip_frames_per_sec_per_chip", "frames/sec"),
+    (["--latency"], "step_caption_p50_latency", "ms"),
+    (["--vr"], "video_retrieval_queries_per_sec", "queries/sec"),
+    (["--e2e"], "e2e_extraction_frames_per_sec", "frames/sec"),
+    (["--unrolled", "--bf16"], "eva_clip_frames_per_sec_per_chip",
+     "frames/sec"),
+    (["--unrolled", "--int8"], "eva_clip_frames_per_sec_per_chip",
+     "frames/sec"),
+)
+BENCH_AGREE = 0.15  # the production configurations against the timing phase
+
+
+def run_bench(args: list) -> tuple:
+    """`python -m hirest_tpu_torch.bench *args` -> (its last line, parsed;
+    its stderr); it must exit 0 and end in a JSON line."""
+    r = subprocess.run([sys.executable, "-m", "hirest_tpu_torch.bench",
+                        *args], cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    what = " ".join(args) or "the ladder"
+    require(r.returncode == 0, f"bench {what} exited {r.returncode}: "
+            f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    require(len(lines) >= 2, f"bench {what} printed {lines}")
+    return json.loads(lines[-1]), lines[-2], r.stderr
+
+
+def phase_bench(timing_fps: dict, card: str) -> None:
+    """The bench entry point in six modes, each in a process of its own:
+    each last line's metric, unit and value > 0; for frames/s its mfu in
+    (0, 1], equal to value x useful FLOP over the peak, and a known tag;
+    every ladder tag's frames/s, the production two within BENCH_AGREE of
+    the timing phase's readings of the same configurations."""
+    import re
+
+    from hirest_tpu_torch.bench import (LADDER, PEAK_BF16, config_tag,
+                                        eva_useful_tflops_per_frame)
+
+    import gc
+
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the bench's processes share the card
+    print(f"[bench] this process holds "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card")
+    ladder_tags = [config_tag(c) for c in LADDER]
+    known = set(ladder_tags) | {config_tag(c, scan=False) for c in LADDER}
+    tf = eva_useful_tflops_per_frame()
+    peak = PEAK_BF16[torch.cuda.get_device_name(0)]
+    for args, metric, unit in BENCH_MODES:
+        t0 = time.perf_counter()
+        line, card_line, err = run_bench(args)
+        what = " ".join(args) or "ladder"
+        print(f"[bench] {what} ({time.perf_counter() - t0:.1f} s, card "
+              f"line {card_line!r}): {json.dumps(line)}")
+        require(line.get("metric") == metric and line.get("unit") == unit
+                and line.get("value", 0) > 0 and "error" not in line,
+                f"bench {what}: last line {line}")
+        if metric == "eva_clip_frames_per_sec_per_chip":
+            mfu, value = line["mfu"], line["value"]
+            require(0 < mfu <= 1 and abs(mfu - value * tf * 1e12 / peak)
+                    <= 1e-4, f"bench {what}: mfu {mfu} for {value} frames/s")
+            require(line["config"].get("config") in known,
+                    f"bench {what}: unknown tag {line['config']}")
+        got = {tag: float(f) for tag, f in re.findall(
+            rf"^# batch {BATCH} (\S+): ([\d.]+) fps", err, re.M)}
+        if args:
+            continue
+        require(sorted(got) == sorted(ladder_tags),
+                f"bench ladder printed {sorted(got)}, expected "
+                f"{sorted(ladder_tags)}")
+        for tag in ladder_tags:
+            ref = timing_fps.get(tag)
+            beside = (f"timing phase {ref:.2f}, ratio {got[tag] / ref:.4f}"
+                      if ref else "not in the timing phase")
+            print(f"[bench] {card}: {tag} B={BATCH}: {got[tag]:.2f} "
+                  f"frames/s ({beside})")
+        for tag in ("bf16+v3", "int8+fq+v3+fm"):
+            ratio = got[tag] / timing_fps[tag]
+            require(abs(ratio - 1) <= BENCH_AGREE,
+                    f"bench {tag} {got[tag]:.2f} frames/s against the "
+                    f"timing phase's {timing_fps[tag]:.2f}")
+    print(f"[bench] phase done in {time.perf_counter() - start:.1f} s")
+
+
 EVAL_PROMPTS = ("make oatmeal pancake mix", "fold a fitted sheet",
                 "boil an egg", "tie a tie", "plant a tree", "wash a car",
                 "bake bread", "sharpen a knife")
@@ -5741,7 +5845,7 @@ def main() -> int:
     f32_ladder = phase_f32_ladder(cfg, weights, card)
     int8_tower = phase_int8_tower(cfg, weights, factory)
     phase_int8_tower_depth(cfg, weights, frames)
-    timing = phase_timing(cfg, main_res, factory, ladder, card)
+    timing, fps = phase_timing(cfg, main_res, factory, ladder, card)
     time_int8_tower(int8_tower, card)
     phase_profile(cfg, main_res, factory, ladder, card)
     phase_serving(main_res, card)
@@ -5755,6 +5859,9 @@ def main() -> int:
     for part in (f32_launches, f32_ladder_cut, f32_ladder, eval_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
+    # the bench's processes need the card's memory: free the towers
+    del main_res, factory, ladder, int8_tower
+    phase_bench(fps, card)
 
     print(card)
     print(json.dumps({"kernels": [{

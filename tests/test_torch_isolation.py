@@ -8,9 +8,9 @@ flax blocked, without loading any hirest_tpu module; its entry points (the
 encoder, the factory, the unrolled int8 tower, the serving engine and its
 server, the run CLI, the Whisper transcriber, the MiniLM embedder, the ASR
 and custom-video CLIs, the CLIP towers, the scorers, the evaluation and
-retrieval CLIs and a mesh's ranks) refuse to fall back to the CPU on their
-own; and chip_smoke.py refuses to report success where there is no
-GPU."""
+retrieval CLIs, a mesh's ranks and the bench) refuse to fall back to the
+CPU on their own; and chip_smoke.py refuses to report success where there
+is no GPU."""
 
 import json
 import os
@@ -234,7 +234,7 @@ def test_port_imports_and_runs_without_jax():
                 "hirest_tpu_torch.parallel",
                 "hirest_tpu_torch.parallel.mesh",
                 "hirest_tpu_torch.parallel.collectives",
-                "hirest_tpu_torch.parallel.tp"):
+                "hirest_tpu_torch.parallel.tp", "hirest_tpu_torch.bench"):
         assert mod in got["modules"]
     assert got["analysis"] == ["moment_bounds", "prompt", "steps", "video"]
 
@@ -324,6 +324,24 @@ def test_run_cli_refuses_cpu_fallback(tmp_path):
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
     assert not (tmp_path / "ckpt").exists()
+
+
+@pytest.mark.parametrize("mode", [["--bf16"], ["--latency"]],
+                         ids=["bf16", "latency"])
+def test_bench_refuses_cpu_fallback(mode):
+    """`python -m hirest_tpu_torch.bench` with no GPU visible prints one
+    zero-value JSON line naming the missing CUDA device and exits 1: it
+    times nothing on the CPU (only --cpu-smoke runs there, untimed). In a
+    process of its own: the fail-fast ends the interpreter."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", "hirest_tpu_torch.bench",
+                        *mode], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 1, r.stderr
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["value"] == 0.0 and "no CUDA device" in line["error"]
 
 
 def test_chip_smoke_fails_without_gpu():
