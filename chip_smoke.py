@@ -46,9 +46,9 @@ The flags combine: one process runs each asked for.
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout (set-up);
-            K4's two kernels', K1/K3's, the f32 body's, K5's, K2/K10's
-            and E1's and E2's instantiations' registers, spills and
-            shared memory.
+            K4's two kernels', K1/K3's, the f32 body's, K5's, K2/K10's,
+            E1's and E2's, and E3's and E4's instantiations' registers,
+            spills and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
@@ -101,7 +101,19 @@ Phases; any failure exits non-zero before the result line is printed:
             for bit against their plain versions, the exact GELU within
             one bf16 ulp of the largest value (f32: 1e-6 of it), the
             share of elements that differ printed; and the wrappers
-            refusing f16 and non-contiguous tensors.
+            refusing f16 and non-contiguous tensors. The int8 products'
+            epilogue and row quantizer (csrc/int8_epilogue.cu), bf16 and
+            f32, bit for bit against their plain versions: E3 on the qkv
+            projection [M, 4224] with and without its bias, out / fc2
+            [M, 1408] with bias and residual, fc1 [M, 6144] and the head
+            [M, 1024], for M = 32896, 1, 257 and 5000; E4 on rows of
+            1408 and 6144 at those M, the unrolled tower's patch rows
+            [B * 256, 588] into 592-wide codes and its head rows (the
+            class tokens, 257 x 1408 apart, B = 2 padded to 17 rows), B =
+            128 and 2, with k + 1/2 quotients and a zero row; K5 without
+            an activation (what dyn_quant_rows launches) bit for bit
+            against dyn_quant_rows' plain version at 1408 and 6144; and
+            E3/E4 refusing what they do not take.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -110,29 +122,32 @@ Phases; any failure exits non-zero before the result line is printed:
             precision's run and read after it: per forward, the bf16 path
             launches K1 40 times and E1 and E2 80 times each (the qkv
             bias and fc1's bias + GELU; proj's and fc2's bias + residual)
-            and no other kernel; the int8 path launches K2 80 times, K3
-            and K4 40 times each, and no other.
+            and no other kernel; the int8 path launches K2 and E3 (qkv's
+            and out's epilogue) 80 times each, K3 and K4 40 times each,
+            and no other.
 4. factory  build_eva_model_and_transforms(device="cuda") at full width
             (text 12 x 768, vision 40 x 1408; one draw of seeded random
             weights shared by every build): encode_text on 512 prompts, and
             encode_image at B = 128 unrolled (scan=False: 40 K6 a forward),
             padded unrolled (40 K7), padded scanned (40 K1 at head width
             128, 80 E1, 80 E2) and padded scanned int8 (80 K2, 40 K3 at
-            128, 40 K4), each with the counts zeroed before and read
-            after, and no other
+            128, 40 K4, 80 E3), each with the counts zeroed before and
+            read after, and no other
             kernel launched; then the unrolled int8 tower
             (models/eva_quant.py::build_int8_vision_apply, every dense
             layer int8, with and without quant_attention) on the same
-            weights and frames: 40 K6 a forward and nothing else, cosine
-            >= 0.98 to the float unrolled tower at full depth.
+            weights and frames: 40 K6 and 162 E4 and E3 a forward (82
+            without quant_attention) and nothing else, cosine >= 0.98 to
+            the float unrolled tower at full depth.
 5. ladder   the kernel flag configurations of build_scanned_vision_apply
             (bench.py's ladder without its TPU layout flags) at full width
             on one staged bf16 and one staged int8 tower: bf16 (v1, K8;
             E1 once and E2 twice a layer), bf16+v2 (K9), bf16+v3+lnk (K1,
             K10; E1 and E2 twice a layer each), int8 dyn (K8, E1 once a
-            layer), int8+fq (K2, K5, K8 int8), int8+fq+v2 (K2, K5, K9
-            int8) and int8+fq+v3 (K2, K3, K5), two forwards each with the
-            counts zeroed before
+            layer, K5 without an activation four times), int8+fq (K2, K5,
+            K8 int8), int8+fq+v2 (K2, K5, K9 int8) and int8+fq+v3 (K2,
+            K3, K5), the int8 ones with E3 four times a layer, two
+            forwards each with the counts zeroed before
             and read after; each one's 2-layer cut on the card against the
             CPU f32 path with the same flags.
 6. depth    the same weights cut to 2 layers, on the card in bf16 against the
@@ -141,8 +156,9 @@ Phases; any failure exits non-zero before the result line is printed:
             tower, the unrolled tower, and the padded unrolled and padded
             scanned towers against the unpadded CPU paths at >= 0.99; the
             unrolled int8 tower (both quant_attention) against its own CPU
-            f32 path at >= 0.99 and the float unrolled one at >= 0.98.
-            Then the f32 paths, 2 layers, card against CPU within 1e-5 of
+            f32 path at >= 0.99 and the float unrolled one at >= 0.98, and
+            with quant_attention in f32 on the card (2 K6, 10 E3 and 10 E4
+            f32) at the same bars. Then the f32 paths, 2 layers, card against CPU within 1e-5 of
             the largest value: build_eva_model_and_transforms(dtype=
             torch.float32) scanned (2 K1 f32; E1 and E2 f32 where the
             bf16 block runs them) and unrolled (2 K6 f32),
@@ -152,30 +168,38 @@ Phases; any failure exits non-zero before the result line is printed:
             int8 paths, 2 layers, against the CPU's f32 int8 path with
             the same flags at cosine >= 0.99 and its f32 float path at
             >= 0.98: build_eva_model_and_transforms(int8=True, dtype=
-            torch.float32) (2 K2, 1 K3, 1 K4 f32 a layer) and the scanned
+            torch.float32) (2 K2, 1 K3, 1 K4, 2 E3 f32 a layer) and the
+            scanned
             forward's int8 + fused_quant + fused_mlp with v1 (K8 int8 f32)
-            and v2 (K9 int8 f32). Then five ladder configurations in f32,
-            2 layers, against the CPU's f32 path with the same flags:
-            bf16+v3+lnk (K1 f32, 2 K10 f32 a layer) within 1e-5; int8 dyn
-            (K8 f32), int8+fq (2 K2, K5, K8 int8 f32), int8+fq+v2 (K9 int8)
-            and int8+fq+v3 (K3) at cosine >= 0.99, and >= 0.98 against the
+            and v2 (K9 int8 f32), 2 E3 f32 a layer. Then five ladder
+            configurations in f32, 2 layers, against the CPU's f32 path
+            with the same flags: bf16+v3+lnk (K1 f32, 2 K10 f32 a layer)
+            within 1e-5; int8 dyn (K8 f32, 4 K5 f32), int8+fq (2 K2, K5,
+            K8 int8 f32), int8+fq+v2 (K9 int8) and int8+fq+v3 (K3), 4 E3
+            f32 a layer each, at cosine >= 0.99, and >= 0.98 against the
             f32 float path; launch counts exact. After the ladder's cuts,
             bf16+v3+lnk and int8+fq+v3 in f32 at full width and depth on
             one staged f32 tower each: a warm-up and two timed forwards of
             B = 128, launch counts exact, frames/s, one profiled forward's
             device time by group of kernels (K5 f32 and K10 f32 their own),
             int8 at cosine >= 0.98 to float; each f32 phase's seconds.
+            Then the production int8 encoder (int8+fq+v3+fm), the
+            ladder's int8 dyn and the unrolled int8 tower at full width
+            and depth, each twice on the same frames: as built, and with
+            the plain versions of E3, E4 and dyn_quant_rows patched in
+            (plain_int8_epilogues): the outputs bit for bit equal.
 7. timing   frames/s at B=128 for every encoder, factory and ladder
             forward, text prompts/s, and each kernel's ms per call beside
             its plain version, one library call computing the same function
             (or its int8 products, for K4; SDPA in f32 for the f32 body),
-            and the card's bound; the
+            and the card's bound (E3 and E4 also beside a same-bytes
+            reference: acc.to(dtype), a clone of the rows); the
             unrolled int8 tower's frames/s and one profiled forward of
             each.
 8. profile  where one forward's device time goes, by group of kernels, and
             the device's idle share, for each precision, the unrolled
             towers and the ladder's bf16, int8 and int8+fq (K8) and
-            int8+fq+v3 (K5) forwards;
+            int8+fq+v3 (K5) forwards, E3 and E4 groups of their own;
             each plain per-layer op timed alone.
 9. serving  the serving path at full width over phase 3's int8 features
             (written as .npy): the engine as `python -m
@@ -311,6 +335,7 @@ last, {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -414,7 +439,8 @@ def counters() -> dict:
                                                 fused_attention_qkv3)
     from hirest_tpu_torch.ops.epilogue import bias_act, bias_residual
     from hirest_tpu_torch.ops.quant import (act_quant, fused_mlp_int8,
-                                            ln_bf16, ln_quant)
+                                            int8_epilogue, ln_bf16, ln_quant,
+                                            row_quant)
 
     return {"K1": (fused_attention_qkv3, "launches"),
             "K1f32": (fused_attention_qkv3, "launches_f32"),
@@ -443,7 +469,11 @@ def counters() -> dict:
             "E1": (bias_act, "launches"),
             "E1f32": (bias_act, "launches_f32"),
             "E2": (bias_residual, "launches"),
-            "E2f32": (bias_residual, "launches_f32")}
+            "E2f32": (bias_residual, "launches_f32"),
+            "E3": (int8_epilogue, "launches"),
+            "E3f32": (int8_epilogue, "launches_f32"),
+            "E4": (row_quant, "launches"),
+            "E4f32": (row_quant, "launches_f32")}
 
 
 def expect(**per_forward) -> dict:
@@ -1274,6 +1304,218 @@ def epilogue_times(m: int, w: int, hid: int, kernels: bool) -> dict:
     return res
 
 
+# E3's products at EVA-g's widths: (form, N, with a bias, with the
+# residual): v1's qkv has no bias, v2/v3's has; out and fc2 add the
+# residual; fc1 (int8 dyn, the fused-quant MLP without K4); the unrolled
+# tower's head
+E3_FORMS = (("qkv v1", 4224, False, False), ("qkv v2/v3", 4224, True, False),
+            ("out / fc2", 1408, True, True), ("fc1", 6144, True, False),
+            ("head", 1024, True, False))
+INT8_EDGE_M = (1, 257, 5000)  # a row, a frame, not a multiple of a block's
+
+
+def int8_epilogue_inputs(m: int, n: int, seed: int, dtype, with_bias: bool,
+                         with_res: bool) -> tuple:
+    """E3's operands: int32 accumulators as a 1408-deep int8 product gives
+    them (up to ~2^24.5, so the int -> f32 conversion rounds), the first
+    columns at its edges (2^24 + 1, -(2^25 + 3), 0, 127^2 * 1408), row and
+    channel scales, a bias, a residual in dtype."""
+    g = gen(seed)
+    acc = torch.randint(-2 ** 24, 2 ** 24, (m, n), generator=g,
+                        device="cuda", dtype=torch.int32) * 2 + 1
+    acc[:, :4] = torch.tensor([2 ** 24 + 1, -(2 ** 25 + 3), 0,
+                               127 * 127 * 1408], dtype=torch.int32)
+    x_s = torch.rand((m, 1), generator=g, device="cuda") * 0.05
+    w_s = torch.rand(n, generator=g, device="cuda") * 1e-3
+    b = torch.randn(n, generator=g, device="cuda") if with_bias else None
+    x = ((torch.randn((m, n), generator=g, device="cuda") * 2).to(dtype)
+         if with_res else None)
+    return acc, x_s, w_s, b, x
+
+
+def row_quant_inputs(m: int, c: int, seed: int, dtype) -> torch.Tensor:
+    """Rows [m, c] in dtype with a per-row spread; where m >= 5 the first
+    five are tie_rows' (quotients on k + 1/2, a zero row)."""
+    x = fc1_inputs(m, seed, c=c, dtype=torch.float32)
+    if m >= 5:
+        x[:5] = tie_rows(c).float()
+    return x.to(dtype)
+
+
+def codes_equal(tag: str, got, want) -> int:
+    """Codes and scales against the plain version's, bit for bit (bar 0);
+    returns the count of differing codes and scales."""
+    (q, s), (rq, rs) = got, want
+    torch.cuda.synchronize()
+    require(q.shape == rq.shape and s.shape == rs.shape,
+            f"{tag}: shapes {tuple(q.shape)} {tuple(s.shape)}, expected "
+            f"{tuple(rq.shape)} {tuple(rs.shape)}")
+    n = int((q != rq).sum().item()) + int(
+        (s.view(torch.int32) != rs.view(torch.int32)).sum().item())
+    print(f"[kernels] {tag}: {n} of {q.numel()} codes and {s.numel()} "
+          f"scales differ (bar 0)")
+    require(n == 0, f"{tag} off its plain version")
+    return n
+
+
+def int8_epilogue_checks() -> dict:
+    """E3 (every E3_FORMS product) bit for bit against its plain version
+    in bf16 and f32 at M = 32896 and INT8_EDGE_M; E4 bit for bit against
+    its plain version on the trunk's rows (1408, 6144), the unrolled
+    tower's patch rows (588 into 592-wide codes, B = 128 and 2 images) and
+    head rows (the class tokens, 257 x 1408 apart, B = 128, and B = 2
+    padded to 17 rows), with ties and a zero row; K5 without an activation
+    (what dyn_quant_rows launches on the card) bit for bit against
+    dyn_quant_rows' plain version at the scanned block's widths; then the
+    wrappers refusing what the kernels do not take. Returns E3's and E4's
+    largest errors (0 where bit for bit)."""
+    from hirest_tpu_torch.ops.quant import (INT_MM_MIN_ROWS, act_quant,
+                                            dyn_quant_rows_ref, int8_epilogue,
+                                            int8_epilogue_ref, row_quant,
+                                            row_quant_ref)
+
+    worst = {}
+    seed = 1300
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "" if dtype == torch.bfloat16 else "f32"
+        for form, n, with_bias, with_res in E3_FORMS:
+            errs, shares = [], []
+            for m in (BATCH * TOKENS, *INT8_EDGE_M):
+                seed += 1
+                acc, x_s, w_s, b, x = int8_epilogue_inputs(
+                    m, n, seed, dtype, with_bias, with_res)
+                got = int8_epilogue(acc, x_s, w_s, b, dtype, x)
+                want = int8_epilogue_ref(acc, x_s, w_s, b, dtype, x)
+                err, share = epilogue_check(f"E3{sfx} {form} [{m},{n}]",
+                                            got, want, exact=True)
+                errs.append(err)
+                shares.append(share)
+            print(f"[kernels] E3{sfx} {form} [M,{n}], M = {BATCH * TOKENS}, "
+                  f"{', '.join(map(str, INT8_EDGE_M))}: max_abs_err="
+                  f"{max(errs)}, share differing "
+                  f"{', '.join(f'{v:.6f}' for v in shares)} (bit for bit)")
+            worst["E3" + sfx] = max(worst.get("E3" + sfx, 0.0), *errs)
+        # E4: (what, rows x2, rows written, codes' width)
+        cases = []
+        for c in (1408, 6144):
+            for m in (BATCH * TOKENS, *INT8_EDGE_M):
+                seed += 1
+                x2 = row_quant_inputs(m, c, seed, dtype)
+                cases.append((f"[{m},{c}]", x2, max(m, INT_MM_MIN_ROWS), c))
+        for batch in (BATCH, 2):
+            seed += 1
+            patches = row_quant_inputs(batch * 256, 588, seed, dtype)
+            cases.append((f"patch rows [{batch * 256},588] into 592",
+                          patches, batch * 256, 592))
+            seed += 1
+            tokens = row_quant_inputs(batch * TOKENS, 1408, seed, dtype)
+            head = tokens.view(batch, TOKENS, 1408)[:, 0]
+            cases.append((f"head rows [{batch},1408] {TOKENS} x 1408 apart",
+                          head, max(batch, INT_MM_MIN_ROWS), 1408))
+        for what, x2, rows, ldq in cases:
+            codes_equal(f"E4{sfx} row_quant {what}, [{rows},{ldq}] out",
+                        row_quant(x2, rows, ldq),
+                        row_quant_ref(x2, rows, ldq))
+        worst["E4" + sfx] = 0.0
+        for c in (1408, 6144):
+            for m in (BATCH * TOKENS, *INT8_EDGE_M):
+                seed += 1
+                x = row_quant_inputs(m, c, seed, dtype)
+                codes_equal(f"K5{sfx} act=none vs dyn_quant_rows [{m},{c}]",
+                            act_quant(x, act="none"), dyn_quant_rows_ref(x))
+    acc = torch.zeros((32, 1408), dtype=torch.int32, device="cuda")
+    x_s = torch.ones((32, 1), device="cuda")
+    w_s = torch.ones(1408, device="cuda")
+    y = torch.zeros((32, 1408), dtype=torch.bfloat16, device="cuda")
+    for what, call in (
+            ("f16 out", lambda: int8_epilogue(acc, x_s, w_s, None,
+                                              torch.float16)),
+            ("an int16 accumulator", lambda: int8_epilogue(
+                acc.short(), x_s, w_s, None, torch.bfloat16)),
+            ("a transposed accumulator", lambda: int8_epilogue(
+                acc.t(), x_s, w_s, None, torch.bfloat16)),
+            ("N % 4 != 0", lambda: int8_epilogue(
+                acc[:, :1406].contiguous(), x_s, w_s[:1406], None,
+                torch.bfloat16)),
+            ("a residual of another dtype", lambda: int8_epilogue(
+                acc, x_s, w_s, None, torch.bfloat16, y.float())),
+            ("f16 rows", lambda: row_quant(y.half())),
+            ("C % 4 != 0", lambda: row_quant(y[:, :1406])),
+            ("a transposed view", lambda: row_quant(y.t())),
+            ("codes narrower than the row", lambda: row_quant(y, 32, 1404)),
+            ("fewer rows than x", lambda: row_quant(y, 16))):
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        require(False, f"E3/E4 took {what}")
+    print("[kernels] E3/E4 wrappers refuse f16, an int16 accumulator, a "
+          "transposed accumulator or view, N or C % 4 != 0, a residual of "
+          "another dtype, codes narrower than the row, fewer rows than x")
+    return worst
+
+
+def int8_epilogue_bound(m: int, n: int, dtype, with_bias: bool,
+                        with_res: bool) -> dict:
+    """E3's bound on [m, n]: the int32 accumulator read, the output written
+    (and the residual read) in dtype, the scales and bias read once."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    moved = m * n * (4 + size * (2 if with_res else 1)) + m * 4 + n * 4 * (
+        2 if with_bias else 1)
+    return bound(moved, 0, ISSUE_SLOTS_PER_S)
+
+
+def row_quant_bound(m: int, c: int, dtype, ldq=None) -> dict:
+    """E4's bound: the rows read once, the codes and scales written."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    return bound(m * c * size + m * (ldq or c) + m * 4, 0, ISSUE_SLOTS_PER_S)
+
+
+def int8_epilogue_times(m: int, w: int) -> tuple:
+    """E3 and E4 at B=128 (M = m) in bf16 and f32, each beside its plain
+    chain, a same-bytes reference and its bound: E3 on the qkv projection
+    [M, 3w] with its bias (the kernels line's row), on out / fc2 [M, w]
+    with bias and residual; reference acc.to(dtype) (and x + that for the
+    residual form). E4 on the unrolled tower's trunk rows [M, w] (the
+    kernels line's row) and its patch rows [128 * 256, 588] into 592;
+    reference a clone of the rows. Returns (the kernels line's rows,
+    the others)."""
+    from hirest_tpu_torch.ops.quant import (int8_epilogue, int8_epilogue_ref,
+                                            row_quant, row_quant_ref)
+
+    res, extra = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "" if dtype == torch.bfloat16 else "f32"
+        for key, n, with_res in ((f"E3{sfx}", 3 * w, False),
+                                 (f"E3{sfx} out/fc2 + residual [M,{w}]", w,
+                                  True)):
+            acc, x_s, w_s, b, x = int8_epilogue_inputs(m, n, 1400 + n, dtype,
+                                                       True, with_res)
+            ref = ((lambda: x + acc.to(dtype)) if with_res
+                   else (lambda: acc.to(dtype)))
+            (res if key == f"E3{sfx}" else extra)[key] = {
+                "ms": cuda_ms(lambda: int8_epilogue(acc, x_s, w_s, b, dtype,
+                                                    x), 20),
+                "plain_ms": cuda_ms(lambda: int8_epilogue_ref(
+                    acc, x_s, w_s, b, dtype, x), 5),
+                "library_ms": None,
+                "reference_ms": cuda_ms(ref, 20),
+                **int8_epilogue_bound(m, n, dtype, True, with_res)}
+            del acc, x_s, w_s, b, x
+        for key, rows, c, ldq in ((f"E4{sfx}", m, w, w),
+                                  (f"E4{sfx} patch rows [{BATCH * 256},588] "
+                                   f"into 592", BATCH * 256, 588, 592)):
+            x2 = row_quant_inputs(rows, c, 1450 + c, dtype)
+            (res if key == f"E4{sfx}" else extra)[key] = {
+                "ms": cuda_ms(lambda: row_quant(x2, rows, ldq), 20),
+                "plain_ms": cuda_ms(lambda: row_quant_ref(x2, rows, ldq), 5),
+                "library_ms": None,
+                "reference_ms": cuda_ms(lambda: x2.clone(), 20),
+                **row_quant_bound(rows, c, dtype, ldq)}
+            del x2
+    return res, extra
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
@@ -1496,6 +1738,7 @@ def phase_kernels(cfg) -> dict:
     worst.update(f32_int8_checks())
     worst.update(row_checks()[0])
     worst.update(epilogue_checks())
+    worst.update(int8_epilogue_checks())
     return worst
 
 
@@ -1562,7 +1805,7 @@ def phase_main(cfg, pretrained: Path) -> dict:
               f"{time.perf_counter() - t0:.1f} s")
         feats[tag], counts, fw = run_videos(cfg, encoders[tag], frames, tag)
         n = cfg.layers * fw
-        want = (expect(K2=2 * n, K3=n, K4=n) if int8
+        want = (expect(K2=2 * n, K3=n, K4=n, E3=2 * n) if int8
                 else expect(K1=n, E1=2 * n, E2=2 * n))
         require(counts == want, f"{tag} launches {counts}, expected {want}")
         launches.update({k: v for k, v in counts.items() if want[k]})
@@ -1614,7 +1857,7 @@ FACTORY = {
     "padded_scanned": (dict(scan=True, padded_heads=True),
                        dict(K1=1, E1=2, E2=2)),
     "padded_scanned_int8": (dict(scan=True, padded_heads=True, int8=True),
-                            dict(K2=2, K3=1, K4=1)),
+                            dict(K2=2, K3=1, K4=1, E3=2)),
 }
 
 
@@ -1677,18 +1920,21 @@ def phase_factory(cfg, text_cfg, weights: dict) -> dict:
 # ladder configuration -> (flags of build_scanned_vision_apply, launches
 # per layer); bench.py's ladder tags (:817-823) less the TPU layout flags.
 # E1 takes the qkv bias where v2/v3 fold it into the projection, and fc1's
-# bias and GELU (int8 dyn: its GELU); E2 proj's and fc2's bias + residual
+# bias and GELU (int8 dyn: its GELU); E2 proj's and fc2's bias + residual;
+# E3 each int8 product's epilogue (with the residual after out and fc2);
+# int8 dyn's four row quantizations run K5 without an activation
 LADDER = {
     "bf16": ({}, dict(K8=1, E1=1, E2=2)),
     "bf16+v2": (dict(attn_v2=True), dict(K9=1, E1=2, E2=2)),
     "bf16+v3+lnk": (dict(attn_v3=True, fused_ln=True),
                     dict(K1=1, K10=2, E1=2, E2=2)),
-    "int8": (dict(int8=True), dict(K8=1, E1=1)),
-    "int8+fq": (dict(int8=True, fused_quant=True), dict(K2=2, K5=1, K8q=1)),
+    "int8": (dict(int8=True), dict(K8=1, E1=1, E3=4, K5=4)),
+    "int8+fq": (dict(int8=True, fused_quant=True),
+                dict(K2=2, K5=1, K8q=1, E3=4)),
     "int8+fq+v2": (dict(int8=True, fused_quant=True, attn_v2=True),
-                   dict(K2=2, K5=1, K9q=1)),
+                   dict(K2=2, K5=1, K9q=1, E3=4)),
     "int8+fq+v3": (dict(int8=True, fused_quant=True, attn_v3=True),
-                   dict(K2=2, K3=1, K5=1)),
+                   dict(K2=2, K3=1, K5=1, E3=4)),
 }
 LADDER_FORWARDS = 2  # image forwards of B=128 per ladder configuration
 
@@ -1881,10 +2127,12 @@ F32_DEPTH = {
 # K4), and the scanned forward's int8 + fused_quant + fused_mlp with v1 and
 # v2, which carry K8 and K9 int8 without K5
 F32_INT8_DEPTH = {
-    "factory int8": (dict(attn_v3=True), dict(K2f32=2, K3f32=1, K4f32=1)),
-    "scanned int8 fq+fm v1": ({}, dict(K2f32=2, K8qf32=1, K4f32=1)),
+    "factory int8": (dict(attn_v3=True),
+                     dict(K2f32=2, K3f32=1, K4f32=1, E3f32=2)),
+    "scanned int8 fq+fm v1": ({}, dict(K2f32=2, K8qf32=1, K4f32=1,
+                                       E3f32=2)),
     "scanned int8 fq+fm v2": (dict(attn_v2=True),
-                              dict(K2f32=2, K9qf32=1, K4f32=1)),
+                              dict(K2f32=2, K9qf32=1, K4f32=1, E3f32=2)),
 }
 
 
@@ -1979,14 +2227,15 @@ def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
 
 
 # the ladder configurations in f32 (flags from LADDER) -> their f32
-# launches a layer: the fused LayerNorm's K10, K5 in the fused-quant MLP,
-# and int8 dyn's K8
+# launches a layer: the fused LayerNorm's K10, K5 in the fused-quant MLP
+# (and int8 dyn's four row quantizations), int8 dyn's K8, and E3 on every
+# int8 product
 F32_LADDER = {
     "bf16+v3+lnk": dict(K1f32=1, K10f32=2, E1f32=2, E2f32=2),
-    "int8": dict(K8f32=1, E1f32=1),
-    "int8+fq": dict(K2f32=2, K5f32=1, K8qf32=1),
-    "int8+fq+v2": dict(K2f32=2, K5f32=1, K9qf32=1),
-    "int8+fq+v3": dict(K2f32=2, K3f32=1, K5f32=1),
+    "int8": dict(K8f32=1, E1f32=1, E3f32=4, K5f32=4),
+    "int8+fq": dict(K2f32=2, K5f32=1, K8qf32=1, E3f32=4),
+    "int8+fq+v2": dict(K2f32=2, K5f32=1, K9qf32=1, E3f32=4),
+    "int8+fq+v3": dict(K2f32=2, K3f32=1, K5f32=1, E3f32=4),
 }
 F32_LADDER_FULL = ("bf16+v3+lnk", "int8+fq+v3")  # run at full depth too
 F32_LADDER_FORWARDS = 2  # timed forwards of B=128, after one warm-up
@@ -2119,17 +2368,26 @@ def phase_f32_ladder(cfg, weights: dict, card: str) -> dict:
 INT8_TOWER = {True: "unrolled int8", False: "unrolled int8, bf16 qkv/out"}
 
 
+def int8_tower_launches(cfg, quant_attention: bool) -> dict:
+    """The unrolled int8 tower's launches a forward: K6 a layer, and E4
+    and E3 for each QuantDense (4 a layer with quant_attention, else fc1
+    and fc2; the patch embedding and the head)."""
+    dense = (4 if quant_attention else 2) * cfg.layers + 2
+    return dict(K6=cfg.layers, E3=dense, E4=dense)
+
+
 def phase_int8_tower(cfg, weights: dict, factory: dict) -> dict:
     """build_int8_vision_apply at full width for each quant_attention, on
     the factory's seeded weights: FACTORY_FORWARDS forwards of B=128 each
-    with the launch counts zeroed before and read after (40 K6 a forward,
-    nothing else), the outputs finite and at cosine >= 0.98 to the float
-    unrolled tower at full depth. Returns the forwards and the K6 count."""
+    with the launch counts zeroed before and read after (int8_tower_
+    launches a forward, nothing else), the outputs finite and at cosine
+    >= 0.98 to the float unrolled tower at full depth. Returns the
+    forwards and their launches."""
     from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
 
     frames = factory["frames"]
     want = factory["models"]["unrolled"].encode_image(frames).cpu().numpy()
-    fns, launches = {}, 0
+    fns, launches = {}, {}
     for qa, tag in INT8_TOWER.items():
         t0 = time.perf_counter()
         fns[qa] = build_int8_vision_apply(weights, cfg, quant_attention=qa,
@@ -2142,15 +2400,18 @@ def phase_int8_tower(cfg, weights: dict, factory: dict) -> dict:
             out = fns[qa](frames)
         torch.cuda.synchronize()
         counts = read_counts()
-        n = cfg.layers * FACTORY_FORWARDS
+        want_counts = expect(**{k: v * FACTORY_FORWARDS for k, v in
+                                int8_tower_launches(cfg, qa).items()})
         print(f"[int8 tower] {tag}: {FACTORY_FORWARDS} forwards of {BATCH} "
               f"frames; launches {counts}")
-        require(counts == expect(K6=n), f"{tag} launches {counts}, "
-                                        f"expected {n} K6 and nothing else")
+        require(counts == want_counts, f"{tag} launches {counts}, expected "
+                                       f"{want_counts}")
         require(tuple(out.shape) == (BATCH, cfg.embed_dim)
                 and bool(out.isfinite().all()), f"{tag}: output "
                                                 f"{tuple(out.shape)}")
-        launches += counts["K6"]
+        for k, n in counts.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
         cos = cosine(out.cpu().numpy(), want).min()
         print(f"[int8 tower] {tag} vs the float unrolled tower at full "
               f"depth: min cosine {cos:.6f} (>= {COS_INT8_VS_FLOAT})")
@@ -2158,11 +2419,13 @@ def phase_int8_tower(cfg, weights: dict, factory: dict) -> dict:
     return {"fns": fns, "frames": frames, "launches": launches}
 
 
-def phase_int8_tower_depth(cfg, weights: dict, frames) -> None:
+def phase_int8_tower_depth(cfg, weights: dict, frames) -> dict:
     """The unrolled int8 tower cut to 2 layers, on the card in bf16 against
     the same function on the CPU in f32 (cosine >= 0.99) and against the
     float unrolled tower on the CPU in f32 (>= 0.98), for each
-    quant_attention."""
+    quant_attention; then with quant_attention in f32 on the card (E3, E4
+    and K6 in their f32 forms, launch counts exact) at the same bars.
+    Returns the f32 launches."""
     from dataclasses import replace
 
     from hirest_tpu_torch.models.eva_clip import build_unrolled_vision_apply
@@ -2171,10 +2434,11 @@ def phase_int8_tower_depth(cfg, weights: dict, frames) -> None:
     cut = replace(cfg, layers=2)
     cpu_float = build_unrolled_vision_apply(weights, cut, dtype=torch.float32,
                                             device="cpu")(frames).numpy()
+    refs = {}
     for qa, tag in INT8_TOWER.items():
-        ref = build_int8_vision_apply(weights, cut, quant_attention=qa,
-                                      dtype=torch.float32,
-                                      device="cpu")(frames).numpy()
+        ref = refs[qa] = build_int8_vision_apply(
+            weights, cut, quant_attention=qa, dtype=torch.float32,
+            device="cpu")(frames).numpy()
         got = build_int8_vision_apply(weights, cut, quant_attention=qa,
                                       device="cuda")(frames).cpu().numpy()
         for what, want, bar in (
@@ -2187,6 +2451,86 @@ def phase_int8_tower_depth(cfg, weights: dict, frames) -> None:
             require(got.shape == (len(frames), cfg.embed_dim)
                     and bool(cos >= bar), f"2-layer {tag} {what} below "
                                           f"{bar}")
+    encode = build_int8_vision_apply(weights, cut, dtype=torch.float32,
+                                     device="cuda")
+    zero_counts()
+    got = encode(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expect(**{k + "f32": v for k, v in
+                     int8_tower_launches(cut, True).items()})
+    require(counts == want, f"f32 unrolled int8 launches {counts}, expected "
+                            f"{want}")
+    got = got.cpu().numpy()
+    for what, ref, bar in (("f32 card vs the same f32 CPU plain", refs[True],
+                            COS_MIN),
+                           ("f32 card vs the float unrolled f32 CPU plain",
+                            cpu_float, COS_INT8_VS_FLOAT)):
+        cos = cosine(got, ref).min()
+        print(f"[depth] 2 layers, unrolled int8, {what}: cosine "
+              f"min={cos:.6f} (>= {bar}), max_abs_err="
+              f"{np.abs(got - ref).max()} of max|ref|={np.abs(ref).max()}")
+        require(bool(np.isfinite(got).all()) and bool(cos >= bar),
+                f"2-layer f32 unrolled int8 {what} below {bar}")
+    return {k: v for k, v in counts.items() if v}
+
+
+@contextlib.contextmanager
+def plain_int8_epilogues():
+    """Within it, the int8 towers run the plain versions where they launch
+    E3, E4 and K5's row quantization: `int8_epilogue` (E3, which int8_mm
+    and int8_matmul call), `row_quant` (E4, int8_matmul's) and the scanned
+    block's `dyn_quant_rows` (K5 without an activation)."""
+    import hirest_tpu_torch.models.eva_scan as eva_scan
+    import hirest_tpu_torch.ops.quant as quant
+
+    saved = [(quant, "int8_epilogue", quant.int8_epilogue_ref),
+             (quant, "row_quant", quant.row_quant_ref),
+             (eva_scan, "dyn_quant_rows", quant.dyn_quant_rows_ref)]
+    saved = [(mod, name, getattr(mod, name), plain)
+             for mod, name, plain in saved]
+    for mod, name, _, plain in saved:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, kernel, _ in saved:
+            setattr(mod, name, kernel)
+
+
+def phase_int8_plain(main: dict, ladder: dict, tower: dict) -> None:
+    """The production int8 encoder (int8+fq+v3+fm), the ladder's int8 dyn
+    and the unrolled int8 tower at full width and depth, each twice on the
+    same B=128 float frames: as built, and with plain_int8_epilogues. The
+    products are exact int32 and every other kernel runs alike, so any
+    difference would be E3's, E4's or K5's: the outputs must be equal bit
+    for bit. The counts show the kernels ran the first time and not the
+    second."""
+    t0 = time.perf_counter()
+    frames = normalize_frames(main["frames"]["vid_a"][:BATCH])
+    runs = {"int8+fq+v3+fm (production encoder)":
+            (main["encoders"]["int8"][False], ("E3",)),
+            "int8 dyn (ladder)": (ladder["fns"]["int8"], ("E3", "K5")),
+            "unrolled int8": (tower["fns"][True], ("E3", "E4"))}
+    for tag, (fn, kernels) in runs.items():
+        outs, counts = [], []
+        for plain in (False, True):
+            zero_counts()  # outside: the context swaps the wrappers
+            with (plain_int8_epilogues() if plain
+                  else contextlib.nullcontext()):
+                out = torch.as_tensor(fn(frames))
+                torch.cuda.synchronize()
+            counts.append({k: read_counts()[k] for k in kernels})
+            outs.append(out.float().cpu())
+        ok = torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+        n = int((outs[0] != outs[1]).sum().item())
+        print(f"[int8 plain] {tag}: kernels {counts[0]}, plain {counts[1]}; "
+              f"{n} of {outs[0].numel()} outputs differ (bar 0)")
+        require(all(counts[0].values()) and not any(counts[1].values()),
+                f"{tag}: launches {counts}")
+        require(ok and bool(outs[0].isfinite().all()),
+                f"{tag}: the kernels' forward off the plain versions'")
+    print(f"[int8 plain] {time.perf_counter() - t0:.1f} s")
 
 
 def time_int8_tower(tower: dict, card: str) -> None:
@@ -2594,17 +2938,25 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
     # (its bias alone), E2 on proj's and fc2's, in bf16 and f32
     for key, r in epilogue_times(m, w, hid, kernels=True).items():
         (res if key in ("E1", "E2", "E1f32", "E2f32") else extra)[key] = r
+    # E3 on the qkv projection and on out / fc2 with the residual, E4 on
+    # the unrolled tower's trunk and patch rows, in bf16 and f32
+    e3e4, e3e4_extra = int8_epilogue_times(m, w)
+    res.update(e3e4)
+    extra.update(e3e4_extra)
     for key, base in (("K3f32", "K3"), ("K9qf32", "K9q"), ("K8qf32", "K8q"),
                       ("K2f32", "K2"), ("K4f32", "K4"), ("K5f32", "K5"),
-                      ("K10f32", "K10"), ("E1f32", "E1"), ("E2f32", "E2")):
+                      ("K10f32", "K10"), ("E1f32", "E1"), ("E2f32", "E2"),
+                      ("E3f32", "E3"), ("E4f32", "E4")):
         print(f"[timing] {card}: {key} (f32 activations) {res[key]['ms']:.4f}"
               f" ms beside {base} (bf16) {res[base]['ms']:.4f} ms, "
               f"{res[key]['ms'] / res[base]['ms']:.2f}x")
     for name, r in {**res, **stages, **padded, **extra,
                     **f32_extra}.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        ref = ("" if "reference_ms" not in r else
+               f", same-bytes reference {r['reference_ms']:.4f} ms")
         print(f"[timing] {card}: {name} B={BATCH}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
+              f"plain {r['plain_ms']:.4f} ms, library {lib} ms{ref}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of it")
     return res, fps
@@ -2621,13 +2973,14 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          "chain, bias, residual)", ("elementwise", "reduce")),
     ),
     "int8": (
+        ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
          ("attention_qkv3", "quant_rows")),
         ("K4 fused_mlp_int8 (CUDA)", ("fused_mlp_int8",)),
         ("int8 qkv/out GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
-        ("elementwise (int8_mm dequant epilogue, residual, casts)",
+        ("elementwise (casts; without E3 the dequant chain)",
          ("elementwise", "reduce")),
     ),
     "ladder bf16": (
@@ -2640,26 +2993,29 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          "residual)", ("elementwise", "reduce")),
     ),
     "ladder int8 K8": (
+        ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
         ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K8 attention_split, with int8 out both steps (CUDA)",
          ("attention_split", "quant_rows")),
-        ("K5 act_quant (CUDA)", ("act_quant",)),
+        ("K5 act_quant (CUDA; int8 dyn's row quantization too)",
+         ("act_quant",)),
         ("int8 GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
-        ("elementwise (dequant epilogues, row quantization, residual, "
-         "casts; without E1 int8 dyn's GELU chain)",
+        ("elementwise (casts; without E3 and K5 the dequant and row "
+         "quantization chains, without E1 int8 dyn's GELU chain)",
          ("elementwise", "reduce")),
     ),
     "ladder int8": (
+        ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
          ("attention_qkv3", "quant_rows")),
         ("K5 act_quant (CUDA)", ("act_quant",)),
         ("int8 GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
-        ("elementwise (int8_mm dequant epilogues, residual, casts)",
+        ("elementwise (casts; without E3 the dequant chain)",
          ("elementwise", "reduce")),
     ),
     "ladder f32": (
@@ -2673,6 +3029,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          "residual)", ("elementwise", "reduce")),
     ),
     "ladder f32 int8": (
+        ("E3 f32 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<true>",
                                          "ln_f32_kernelILb1E")),
         ("K3 f32 attention_f32 int8 epilogue (CUDA, both steps)",
@@ -2680,7 +3037,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("K5 f32 act_quant_f32_kernel (CUDA)", ("act_quant_f32",)),
         ("int8 GEMMs (torch._int_mm)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
-        ("elementwise (int8_mm dequant epilogues, residual)",
+        ("elementwise (without E3 the dequant chain)",
          ("elementwise", "reduce")),
     ),
     "serving": (
@@ -2693,12 +3050,15 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("elementwise", ("elementwise",)),
     ),
     "unrolled int8": (
+        ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
+        ("E4 row_quant (CUDA)", ("row_quant_kernel",)),
         ("K6 attention_split (CUDA)", ("attention_split",)),
         ("GEMMs (int8 torch._int_mm; bf16 cuBLAS qkv/out without "
          "quant_attention)", ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("exact GELU", ("gelu", "Gelu")),
-        ("elementwise and reductions (row quantization, dequant epilogues, "
-         "LayerNorm, q/v bias, residual, casts)", ("elementwise", "reduce")),
+        ("elementwise and reductions (LayerNorm, q/v bias, residual, "
+         "casts; without E3 and E4 the dequant and row quantization "
+         "chains)", ("elementwise", "reduce")),
     ),
     "asr": (
         ("matmuls (cuBLAS, f32)", ("nvjet", "gemm", "cutlass", "xmma",
@@ -5095,6 +5455,21 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "E2f32": ("bias_residual (float32)",
               "hirest_tpu_torch/ops/csrc/epilogue.cu",
               "hirest_tpu/models/eva_scan.py:351"),
+    # no Pallas kernel: the XLA fusions of the int8 products' dequant
+    # epilogue (with the residual at :320, :334, :338, :345; also
+    # hirest_tpu/ops/quant.py:52-55) and of int8_matmul's row quantization
+    # (hirest_tpu/ops/quant.py:45-48, as _dyn_quant_rows :84-89); times at
+    # the qkv projection [M, 4224] and the unrolled tower's [M, 1408] rows
+    "E3": ("int8_epilogue", "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
+           "hirest_tpu/models/eva_scan.py:92"),
+    "E3f32": ("int8_epilogue (float32)",
+              "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
+              "hirest_tpu/models/eva_scan.py:92"),
+    "E4": ("row_quant", "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
+           "hirest_tpu/ops/quant.py:46"),
+    "E4f32": ("row_quant (float32)",
+              "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
+              "hirest_tpu/ops/quant.py:46"),
 }
 
 
@@ -5822,6 +6197,8 @@ def main() -> int:
     ptxas_summary(logs.get("ln_quant", ""), ("ln_kernel", "ln_f32_kernel"))
     ptxas_summary(logs.get("epilogue", ""), ("bias_act_kernel",
                                              "bias_residual_kernel"))
+    ptxas_summary(logs.get("int8_epilogue", ""), ("dequant_kernel",
+                                                  "row_quant_kernel"))
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
 
@@ -5844,7 +6221,8 @@ def main() -> int:
     phase_ladder_depth(cfg, frames)
     f32_ladder = phase_f32_ladder(cfg, weights, card)
     int8_tower = phase_int8_tower(cfg, weights, factory)
-    phase_int8_tower_depth(cfg, weights, frames)
+    int8_tower_f32 = phase_int8_tower_depth(cfg, weights, frames)
+    phase_int8_plain(main_res, ladder, int8_tower)
     timing, fps = phase_timing(cfg, main_res, factory, ladder, card)
     time_int8_tower(int8_tower, card)
     phase_profile(cfg, main_res, factory, ladder, card)
@@ -5855,8 +6233,8 @@ def main() -> int:
     phase_parallel(card)
     launches = {**ladder["launches"], **factory["launches"],
                 **main_res["launches"]}
-    launches["K6"] += int8_tower["launches"]
-    for part in (f32_launches, f32_ladder_cut, f32_ladder, eval_launches):
+    for part in (int8_tower["launches"], int8_tower_f32, f32_launches,
+                 f32_ladder_cut, f32_ladder, eval_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     # the bench's processes need the card's memory: free the towers
@@ -5867,7 +6245,9 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[k], "max_abs_err": errs[k],
-        **timing[k]} for k, (name, src, replaces) in SOURCES.items()]}))
+        **{key: timing[k][key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}
+        for k, (name, src, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

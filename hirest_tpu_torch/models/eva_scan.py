@@ -15,9 +15,13 @@ Each block runs the JAX block's dispatch (eva_scan.py:296-430):
   runs the two block LayerNorms through `ln_bf16` (K10). The biases, the
   GELU and the residuals follow the products in E1 and E2
   (ops/epilogue.py), the work XLA fused into the dots.
-- `int8` alone ("int8 dyn"): LayerNorm, then `dyn_quant_rows` and int8
-  products at every projection, the attention's bf16 output quantized the
-  same way, fc1's GELU through E1.
+- `int8` alone ("int8 dyn"): LayerNorm, then `dyn_quant_rows` (K5
+  without an activation on the card) and int8 products at every
+  projection, the attention's bf16 output quantized the same way, fc1's
+  GELU through E1.
+- Every int8 product is `torch._int_mm` followed by E3 (`int8_mm`'s
+  epilogue, ops/quant.py::int8_epilogue): the dequantization, the bias
+  and, after the out and fc2 products, the residual sum.
 - `int8` + `fused_quant`: `ln_quant` (K2), the attention's int8 epilogue
   (K3, K9 or K8), the int8 fc1, `act_quant` (K5) and the int8 fc2; with
   `fused_mlp` the MLP is one kernel (K4). int8 + fused_quant + attn_v3 +
@@ -142,8 +146,8 @@ class Int8Block(nn.Module):
                                 self.qkv_b[2 * hd:], self.scale, self.heads,
                                 opts.attn, quant_out=fq)
         a_q, a_s = att if fq else dyn_quant_rows(att)
-        x = x + int8_mm(a_q.view(b * s, -1), a_s.view(b * s, 1), self.out_wq,
-                        self.out_ws, self.out_b, dt)
+        x = int8_mm(a_q.view(b * s, -1), a_s.view(b * s, 1), self.out_wq,
+                    self.out_ws, self.out_b, dt, residual=x)
         h_q, h_s = norm_codes(x, self.norm2_w, self.norm2_b)
         if opts.fused_mlp:
             x = fused_mlp_int8(h_q, h_s, self.fc1_wq, self.fc1_ws, self.fc1_b,
@@ -155,7 +159,8 @@ class Int8Block(nn.Module):
             h_q, h_s = act_quant(h, act=gact)
         else:  # the GELU through E1, without a bias (int8_mm added it)
             h_q, h_s = dyn_quant_rows(bias_act(h, act=gact))
-        x = x + int8_mm(h_q, h_s, self.fc2_wq, self.fc2_ws, self.fc2_b, dt)
+        x = int8_mm(h_q, h_s, self.fc2_wq, self.fc2_ws, self.fc2_b, dt,
+                    residual=x)
         return x.view(b, s, c)
 
 

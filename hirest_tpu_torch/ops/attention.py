@@ -50,7 +50,7 @@ import torch
 
 from hirest_tpu_torch.models.layers import merge_heads, split_heads
 from hirest_tpu_torch.ops import build
-from hirest_tpu_torch.ops.quant import dyn_quant_rows
+from hirest_tpu_torch.ops.quant import dyn_quant_rows_ref
 
 LOG2E = 1.4426950408889634
 QKV3_HEAD_WIDTHS = (88, 128)  # head widths attention_qkv3.cu is built for
@@ -87,7 +87,7 @@ def fused_attention_qkv3_ref(qkv_biased: torch.Tensor, scale: float,
     o = torch.matmul(p.float(), v.float()) / den  # [B, H, S, d]
     o = o.transpose(1, 2).reshape(b, s, hd)
     if quant_out:
-        return dyn_quant_rows(o)
+        return dyn_quant_rows_ref(o)
     return o.to(qkv_biased.dtype)
 
 
@@ -569,7 +569,7 @@ def fused_attention_qkv_ref(qkv: torch.Tensor, q_bias: torch.Tensor,
     o = merge_heads(_softmax_attention_f32(
         *(split_heads(t, num_heads) for t in (q, k, v)), scale))
     if quant_out:
-        return dyn_quant_rows(o)
+        return dyn_quant_rows_ref(o)
     return o.to(qkv.dtype)
 
 

@@ -7,20 +7,27 @@ _int8_mm). Weights keep nn.Linear's
 [out, in] layout, so both operands of every int8 product are contiguous
 along the reduced axis.
 
-Four kernels live here, each a hand-written CUDA kernel with a plain
+Six kernels live here, each a hand-written CUDA kernel with a plain
 PyTorch version beside it: `ln_quant` (K2) and `ln_bf16` (K10), both in
-csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu) and `fused_mlp_int8`
-(K4, two kernels in csrc/fused_mlp_int8.cu). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. Each takes bf16 or
-f32 input, as the JAX kernels compute in the dtype they are given: the row
+csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu), `fused_mlp_int8`
+(K4, two kernels in csrc/fused_mlp_int8.cu), and the two the JAX package
+leaves to XLA, both in csrc/int8_epilogue.cu: `int8_epilogue` (E3), the
+dequantization of an int8 product's int32 accumulator, with its bias and
+the residual sum that follows it, and `row_quant` (E4), the dynamic
+per-row quantizer of `int8_matmul`. A CPU tensor takes the plain version;
+a CUDA tensor launches the kernel or raises. Each takes bf16 or f32
+input, as the JAX kernels compute in the dtype they are given: the row
 kernels (K2, K5, K10) have an f32 form of their own for f32 rows, K4 one
-for an f32 residual, and `row_kernel_shape` states which rows the row
-kernels take, without a GPU. The qkv and out
-projections (`int8_mm`) are int8 x int8 -> int32 products that the JAX
-package leaves to XLA; here they go to `torch._int_mm` with the
-dequantization in eager PyTorch. `int8_matmul` and `QuantDense` (the
-unrolled int8 tower's dense layers, models/eva_quant.py) quantize the
-activations per row and pad to the shapes `torch._int_mm` takes.
+for an f32 residual, E3 one for f32 out and E4 one for f32 rows;
+`row_kernel_shape`, `int8_epilogue_shape` and `row_quant_shape` state
+which tensors they take, without a GPU. The block's projections
+(`int8_mm`) are int8 x int8 -> int32 products on `torch._int_mm`, as the
+JAX package leaves the product to XLA, followed by E3. `dyn_quant_rows`,
+the scanned block's quantizer (eva_scan._dyn_quant_rows), runs K5's form
+without an activation, the same function bit for bit. `int8_matmul` and
+`QuantDense` (the unrolled int8 tower's dense layers, models/eva_quant.py)
+quantize the activations per row with E4 straight into the zero-padded
+operand `torch._int_mm` takes, then run the product and E3.
 
 Every quantization is the reference's: scale max(max|y| / 127, 1e-8),
 codes round-half-even(y / scale) clipped to +-127, products accumulated in
@@ -71,20 +78,214 @@ def quantize_weight(w: torch.Tensor):
     return q, s.squeeze(-1)
 
 
-def dyn_quant_rows(x: torch.Tensor):
-    """[..., n] float -> (int8 codes, [..., 1] f32 row scales)."""
+def dyn_quant_rows_ref(x: torch.Tensor):
+    """Plain version of `dyn_quant_rows` (and of E4's quantization): [...,
+    n] float -> (int8 codes, [..., 1] f32 row scales), quantized from f32
+    with true divisions."""
     return _scale_and_codes(x.float())
 
 
-def int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype) -> torch.Tensor:
-    """x_q [M, in] int8 with row scales x_s [M, 1], w_q [out, in] int8 with
-    channel scales w_s [out] -> (f32(x_q w_q^T) * x_s) * w_s + bias, cast
-    to out_dtype (eva_scan._int8_mm). The product is exact in int32."""
-    out = torch._int_mm(x_q, w_q.t()).float()
+# --- E3 and E4: the int8 products' epilogue and the dynamic row quantizer --
+
+
+def int8_epilogue_ref(acc, x_s, w_s, bias, out_dtype, residual=None):
+    """Plain version of E3: acc [M, N] int32 -> (f32(acc) * x_s) * w_s +
+    bias in f32 (x_s [M, 1], w_s [N], bias [N] or None), cast to out_dtype
+    (eva_scan._int8_mm's epilogue); with a residual [M, N] of out_dtype,
+    residual + that, summed in out_dtype (`x + _int8_mm(...)`)."""
+    out = acc.float()
     out.mul_(x_s).mul_(w_s)
     if bias is not None:
         out.add_(bias.float())
-    return out.to(out_dtype)
+    out = out.to(out_dtype)
+    return out if residual is None else residual + out
+
+
+# dtype -> bytes a vector of 4 values takes: what E3's out and residual and
+# E4's rows must be aligned to
+VEC4_BYTES = {torch.bfloat16: 8, torch.float32: 16}
+INT8_EPI_WIDTH = 8192  # widest row of E3 (w_s and the bias in shared
+                       # memory) and of E4 (a row in a group's registers)
+
+
+def int8_epilogue_shape(out_dtype, shape, contiguous: bool = True,
+                        aligned: bool = True) -> tuple:
+    """(M, N): what E3 makes of an int32 accumulator `shape` [M, N] with
+    out_dtype, or raises: TypeError unless out_dtype is bf16 or f32
+    (VEC4_BYTES) and the accumulator is 2-d, contiguous and 16-byte
+    aligned; ValueError unless N is a multiple of 4 and at most
+    INT8_EPI_WIDTH, M >= 1 and M * N < 2^31. Needs no GPU: `int8_epilogue`
+    checks its operands through it."""
+    if (out_dtype not in VEC4_BYTES or len(shape) != 2 or not contiguous
+            or not aligned):
+        raise TypeError(
+            f"E3 takes a contiguous, 16-byte aligned int32 [M, N] into "
+            f"torch.bfloat16 or torch.float32, got {out_dtype} "
+            f"{tuple(shape)}, contiguous={contiguous}, aligned={aligned}")
+    m, n = shape
+    if m < 1 or n % 4 or n > INT8_EPI_WIDTH or m * n >= 2 ** 31:
+        raise ValueError(f"E3 takes N % 4 == 0, N <= {INT8_EPI_WIDTH}, "
+                         f"M >= 1 and fewer than 2^31 values, got "
+                         f"{tuple(shape)}")
+    return m, n
+
+
+def row_quant_shape(dtype, shape, row_stride: int, aligned: bool = True,
+                    ldq=None, rows=None) -> tuple:
+    """(M, C): the rows [M, C] of `dtype` that E4 quantizes, rows
+    `row_stride` values apart, into codes ldq >= C wide (default C) for
+    `rows` >= M rows (default M), or raises: TypeError unless dtype is bf16
+    or f32 (VEC4_BYTES), the rows are 2-d and each starts on a vector
+    (aligned, row_stride % 4 == 0); ValueError unless C % 4 == 0, C <=
+    INT8_EPI_WIDTH, ldq % 4 == 0 and M >= 1. A tensor [..., C] comes as its
+    `reshape(-1, C)` with the last stride 1. Needs no GPU: `row_quant`
+    checks its input through it."""
+    if (dtype not in VEC4_BYTES or len(shape) != 2 or not aligned
+            or row_stride % 4 or row_stride < shape[-1]):
+        raise TypeError(
+            f"E4 takes torch.bfloat16 or torch.float32 rows [M, C], each "
+            f"starting on a {VEC4_BYTES.get(dtype, 16)}-byte vector, with "
+            f"unit last stride, got {dtype} {tuple(shape)}, row stride "
+            f"{row_stride}, aligned={aligned}")
+    m, c = shape
+    ldq = c if ldq is None else ldq
+    rows = m if rows is None else rows
+    if (m < 1 or c % 4 or c > INT8_EPI_WIDTH or ldq % 4 or ldq < c
+            or rows < m or rows * ldq >= 2 ** 31):
+        raise ValueError(f"E4 takes C % 4 == 0, C <= {INT8_EPI_WIDTH}, "
+                         f"codes ldq >= C wide with ldq % 4 == 0 and M >= 1, "
+                         f"got {tuple(shape)} into [{rows}, {ldq}]")
+    return m, c
+
+
+def _epi_fn(entry: str, n_pointers: int, long_stride: bool = False):
+    fn = getattr(build.load("int8_epilogue"), entry)
+    ints = ([ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
+            if long_stride else [ctypes.c_int] * 2)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int8_epilogue(acc, x_s, w_s, bias, out_dtype, residual=None):
+    """E3: acc [M, N] int32 -> (f32(acc) * x_s) * w_s + bias in f32, cast to
+    out_dtype, or residual + that in out_dtype; x_s [M, 1] (or any tensor
+    of M row scales), w_s and bias [N] (bias may be None), residual [M, N]
+    of out_dtype or None.
+
+    A CPU tensor takes the plain version. A CUDA call takes acc as
+    `int8_epilogue_shape` says and the residual contiguous and 16-byte
+    aligned, and launches the kernel (bf16 or f32 out); anything else
+    raises. `int8_epilogue.launches` counts bf16-out launches,
+    `.launches_f32` f32 ones."""
+    if acc.device.type == "cpu":
+        return int8_epilogue_ref(acc, x_s, w_s, bias, out_dtype, residual)
+    _require_cuda(acc)
+    if acc.dtype != torch.int32:
+        raise TypeError(f"E3 takes an int32 accumulator, got {acc.dtype}")
+    m, n = int8_epilogue_shape(out_dtype, acc.shape, acc.is_contiguous(),
+                               acc.data_ptr() % 16 == 0)
+    dev = acc.device
+    xs = _f32_vector(x_s, m, dev)
+    ws = _f32_vector(w_s, n, dev)
+    b = None if bias is None else _f32_vector(bias, n, dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if residual is not None:
+        _check_operands("int8_epilogue", dev,
+                        residual=(residual, (m, n), out_dtype))
+    f32 = out_dtype == torch.float32
+    fn = _epi_fn("hirest_dequant_f32" if f32 else "hirest_dequant", 6)
+    with torch.cuda.device(dev):
+        err = fn(acc.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                 None if b is None else b.data_ptr(),
+                 None if residual is None else residual.data_ptr(),
+                 out.data_ptr(), m, n,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("int8_epilogue"), err,
+                f"int8_epilogue{' f32' if f32 else ''} launch")
+    _count(int8_epilogue, f32)
+    return out
+
+
+def row_quant_ref(x2: torch.Tensor, rows=None, ldq=None):
+    """Plain version of E4: the rows x2 [M, C] quantized as
+    `dyn_quant_rows_ref`, the codes zero-padded to [rows, ldq] and the
+    scales to [rows, 1] (F.pad; rows default M, ldq default C)."""
+    q, s = dyn_quant_rows_ref(x2)
+    m, c = q.shape
+    rows = m if rows is None else rows
+    ldq = c if ldq is None else ldq
+    if rows != m or ldq != c:
+        q = F.pad(q, (0, ldq - c, 0, rows - m))
+        s = F.pad(s, (0, 0, 0, rows - m))
+    return q, s
+
+
+def row_quant(x2: torch.Tensor, rows=None, ldq=None):
+    """E4: the rows x2 [M, C] (a 2-d view with unit last stride, rows any
+    distance apart) -> (codes [rows, ldq] int8, scales [rows, 1] f32), each
+    row quantized as `dyn_quant_rows`, zero past C and past M: the operand
+    torch._int_mm takes, padded (rows default M, ldq default C).
+
+    A CPU tensor takes the plain version. A CUDA tensor must be bf16 or f32
+    rows as `row_quant_shape` says, and launches the kernel; anything else
+    raises. `row_quant.launches` counts launches on bf16 rows,
+    `.launches_f32` on f32 rows."""
+    if x2.device.type == "cpu":
+        return row_quant_ref(x2, rows, ldq)
+    _require_cuda(x2)
+    if x2.dim() != 2:
+        raise TypeError(f"E4 takes rows [M, C], got {tuple(x2.shape)}")
+    m, c = x2.shape
+    rows = m if rows is None else rows
+    ldq = c if ldq is None else ldq
+    ldx = x2.stride(0) if m > 1 else c
+    row_quant_shape(x2.dtype, x2.shape, ldx, x2.stride(-1) == 1
+                    and x2.data_ptr() % VEC4_BYTES.get(x2.dtype, 16) == 0,
+                    ldq, rows)
+    q = torch.empty((rows, ldq), dtype=torch.int8, device=x2.device)
+    s = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    f32 = x2.dtype == torch.float32
+    fn = _epi_fn("hirest_row_quant_f32" if f32 else "hirest_row_quant", 3,
+                 long_stride=True)
+    with torch.cuda.device(x2.device):
+        err = fn(x2.data_ptr(), q.data_ptr(), s.data_ptr(), m, rows, c, ldx,
+                 ldq, torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("int8_epilogue"), err,
+                f"row_quant{' f32' if f32 else ''} launch")
+    _count(row_quant, f32)
+    return q, s
+
+
+row_quant.launches = 0
+row_quant.launches_f32 = 0
+int8_epilogue.launches = 0
+int8_epilogue.launches_f32 = 0
+
+
+def dyn_quant_rows(x: torch.Tensor):
+    """[..., C] float -> (int8 codes like x, [..., 1] f32 row scales), as
+    eva_scan._dyn_quant_rows.
+
+    A CPU tensor takes the plain version (`dyn_quant_rows_ref`). A CUDA
+    tensor launches K5's form without an activation (`act_quant(x,
+    act="none")`: the same function, whose codes and scales chip_smoke.py
+    holds bit for bit against the plain version at the scanned block's
+    widths), so it takes what K5 takes (`row_kernel_shape`) and raises on
+    anything else; its launches count on `act_quant`."""
+    if x.device.type == "cpu":
+        return dyn_quant_rows_ref(x)
+    return act_quant(x, act="none")
+
+
+def int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype, residual=None):
+    """x_q [M, in] int8 with row scales x_s [M, 1], w_q [out, in] int8 with
+    channel scales w_s [out] -> (f32(x_q w_q^T) * x_s) * w_s + bias, cast
+    to out_dtype (eva_scan._int8_mm), or residual + that in out_dtype. The
+    product is exact in int32 (`torch._int_mm`); the epilogue is E3
+    (`int8_epilogue`)."""
+    return int8_epilogue(torch._int_mm(x_q, w_q.t()), x_s, w_s, bias,
+                         out_dtype, residual)
 
 
 # torch._int_mm on a CUDA tensor takes M > 16 rows and K, N multiples of 8
@@ -95,22 +296,22 @@ INT_MM_MULTIPLE = 8
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                 bias=None, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [..., in] float -> [..., out] (hirest_tpu/ops/quant.py::
-    int8_matmul): x quantized per row from f32 (`dyn_quant_rows`), the
-    int8 x int8 -> int32 product and the `int8_mm` epilogue
-    (acc * x_s * w_s + bias in f32, then the cast). w_q [out, in'] with
+    int8_matmul): x quantized per row from f32 by E4 (`row_quant`), the
+    int8 x int8 -> int32 product and E3 (`int8_epilogue`: acc * x_s * w_s
+    + bias in f32, then the cast) on the real rows. w_q [out, in'] with
     in' >= in: the weight's input axis may be zero-padded (QuantDense pads
-    it to a multiple of 8); x's codes are padded to match, and its rows to
-    at least INT_MM_MIN_ROWS, with zeros. Zero codes add nothing to an
-    int32 sum, so the padding changes no number."""
+    it to a multiple of 8); E4 writes x's codes that wide, and at least
+    INT_MM_MIN_ROWS rows, with zeros past x's. Zero codes add nothing to
+    an int32 sum, so the padding changes no number. A CPU tensor takes
+    both plain versions; on CUDA a shape either kernel does not take
+    raises."""
     shape = x.shape
-    x_q, x_s = dyn_quant_rows(x.reshape(-1, shape[-1]))
-    m, k = x_q.shape
-    rows = max(m, INT_MM_MIN_ROWS)
-    if rows != m or w_q.shape[1] != k:
-        x_q = F.pad(x_q, (0, w_q.shape[1] - k, 0, rows - m))
-        x_s = F.pad(x_s, (0, 0, 0, rows - m))
-    out = int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype)[:m]
-    return out.reshape(*shape[:-1], w_q.shape[0])
+    x2 = x.reshape(-1, shape[-1])
+    m = x2.shape[0]
+    x_q, x_s = row_quant(x2, max(m, INT_MM_MIN_ROWS), w_q.shape[1])
+    acc = torch._int_mm(x_q, w_q.t())
+    out = int8_epilogue(acc[:m], x_s[:m], w_s, bias, out_dtype)
+    return out.view(*shape[:-1], w_q.shape[0])
 
 
 class QuantDense:

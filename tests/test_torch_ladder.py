@@ -216,7 +216,8 @@ def test_k8_path_steps_match_jax_bf16(step):
 
 # (spec, flags) -> the wrappers one block calls, and how often: JAX's
 # dispatch (eva_scan.py:296-430). ":quant" marks an int8 epilogue,
-# act_quant carries its activation.
+# act_quant carries its activation; int8_mm is an int8 product and its
+# epilogue (E3): 4 a block, 2 where fused_mlp_int8 takes fc1 and fc2.
 DISPATCH = {
     "bf16": (PACKED, {}, {"fused_attention_qkv": 1}),
     "bf16+v2": (PACKED, dict(attn_v2=True), {"fused_attention_qkv2": 1}),
@@ -225,47 +226,51 @@ DISPATCH = {
     "bf16+v2+v3": (PACKED, dict(attn_v2=True, attn_v3=True),
                    {"fused_attention_qkv3": 1}),
     "int8": (PACKED, dict(int8=True),
-             {"fused_attention_qkv": 1, "dyn_quant_rows": 4}),
+             {"fused_attention_qkv": 1, "dyn_quant_rows": 4, "int8_mm": 4}),
     "int8+lnk+fm": (PACKED, dict(int8=True, fused_ln=True, fused_mlp=True),
-                    {"fused_attention_qkv": 1, "dyn_quant_rows": 4}),
+                    {"fused_attention_qkv": 1, "dyn_quant_rows": 4,
+                     "int8_mm": 4}),
     "int8+v3": (PACKED, dict(int8=True, attn_v3=True),
-                {"fused_attention_qkv3": 1, "dyn_quant_rows": 4}),
+                {"fused_attention_qkv3": 1, "dyn_quant_rows": 4,
+                 "int8_mm": 4}),
     "int8+fq": (PACKED, dict(int8=True, fused_quant=True),
                 {"ln_quant": 2, "fused_attention_qkv:quant": 1,
-                 "act_quant:gelu_poly": 1}),
+                 "act_quant:gelu_poly": 1, "int8_mm": 4}),
     "int8+fq+v2": (PACKED, dict(int8=True, fused_quant=True, attn_v2=True),
                    {"ln_quant": 2, "fused_attention_qkv2:quant": 1,
-                    "act_quant:gelu_poly": 1}),
+                    "act_quant:gelu_poly": 1, "int8_mm": 4}),
     "int8+fq+v3": (PACKED, dict(int8=True, fused_quant=True, attn_v3=True),
                    {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
-                    "act_quant:gelu_poly": 1}),
+                    "act_quant:gelu_poly": 1, "int8_mm": 4}),
     "int8+fq+v3+erf": (PACKED, dict(int8=True, fused_quant=True,
                                     attn_v3=True, fast_gelu=False),
                        {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
-                        "act_quant:gelu": 1}),
+                        "act_quant:gelu": 1, "int8_mm": 4}),
     "int8+fq+v3+fm": (PACKED, dict(int8=True, fused_quant=True, attn_v3=True,
                                    fused_mlp=True),
                       {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
-                       "fused_mlp_int8": 1}),
+                       "fused_mlp_int8": 1, "int8_mm": 2}),
     # head rows 64 wide: v2 and v3 fall back to v1 on split heads (K6)
     "unpacked+v3": (TINY, dict(attn_v3=True), {"fused_attention": 1}),
     "unpacked+int8+fq+v3": (TINY, dict(int8=True, fused_quant=True,
                                        attn_v3=True),
                             {"ln_quant": 2, "fused_attention": 1,
-                             "act_quant:none": 1, "act_quant:gelu_poly": 1}),
+                             "act_quant:none": 1, "act_quant:gelu_poly": 1,
+                             "int8_mm": 4}),
 }
 
 PORT_WRAPPERS = {eva_clip: ("fused_attention", "fused_attention_qkv",
                             "fused_attention_qkv2", "fused_attention_qkv3",
                             "act_quant", "ln_bf16"),
                  eva_scan: ("act_quant", "dyn_quant_rows", "fused_mlp_int8",
-                            "ln_quant")}
+                            "int8_mm", "ln_quant")}
 # JAX's names, module by module, and the port's name for each
 JAX_WRAPPERS = {jax_eva_scan: {"fused_attention": "fused_attention",
                                "fused_attention_qkv": "fused_attention_qkv",
                                "fused_attention_qkv2": "fused_attention_qkv2",
                                "fused_attention_qkv3": "fused_attention_qkv3",
-                               "_dyn_quant_rows": "dyn_quant_rows"},
+                               "_dyn_quant_rows": "dyn_quant_rows",
+                               "_int8_mm": "int8_mm"},
                 jax_quant: {n: n for n in ("act_quant", "ln_quant", "ln_bf16",
                                            "fused_mlp_int8")}}
 
@@ -397,7 +402,7 @@ def _record_port(monkeypatch, rows=None):
 # (extraction/features.py:176-183, models/eva_clip.py:255-262)
 PRODUCTION = {False: {"fused_attention_qkv3": 1},
               True: {"ln_quant": 2, "fused_attention_qkv3:quant": 1,
-                     "fused_mlp_int8": 1}}
+                     "fused_mlp_int8": 1, "int8_mm": 2}}
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
