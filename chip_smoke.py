@@ -9,6 +9,7 @@
     python3 chip_smoke.py --time-rows       # K2, K5, K10 ms alone
     python3 chip_smoke.py --time-f32        # the f32 forms ms alone
     python3 chip_smoke.py --time-epilogue   # E1, E2 and six forwards alone
+    python3 chip_smoke.py --time-int8-gemm  # G1 and six int8 forwards alone
 
 --time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
 tokens, one 192-row query tile a head), K9, K6, K7 and K8 (bf16 and int8
@@ -41,14 +42,24 @@ int8, padded scanned, ladder bf16, int8 dyn, bf16+v3+lnk in f32): frames/s
 and one profiled forward's groups each. In a checkout without
 ops/epilogue.py it says so and times the plain chains alone, so parent,
 change, change, parent in one call compares the two trees.
+--time-int8-gemm holds each G1 variant (256-wide tiles one block an SM,
+128-wide tiles two blocks an SM) bit for bit against int8_mm_ref, then times
+G1 (each variant) at every product it takes over beside its bound,
+torch._int_mm alone, torch._int_mm + E3 (the chain before G1) and the
+plain version, then six full-width int8 forwards (production int8, the
+ladder's int8 dyn, int8+fq and int8+fq+v3, int8+fq+v3 in f32, the
+unrolled int8 tower): frames/s and one profiled forward's groups each. In
+a checkout without csrc/int8_gemm.cu it says so and times torch._int_mm +
+E3 and the forwards, so parent, change, change, parent in one call
+compares the two trees.
 The flags combine: one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout (set-up);
             K4's two kernels', K1/K3's, the f32 body's, K5's, K2/K10's,
-            E1's and E2's, and E3's and E4's instantiations' registers,
-            spills and shared memory.
+            E1's and E2's, E3's and E4's, and G1's instantiations'
+            registers, spills and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, at the main paths' shapes: K1 and K3 (attention qkv
             [B, S, 4224] bf16; K3 also padded to S = 264 with n_real = 257;
@@ -109,11 +120,19 @@ Phases; any failure exits non-zero before the result line is printed:
             [M, 1024], for M = 32896, 1, 257 and 5000; E4 on rows of
             1408 and 6144 at those M, the unrolled tower's patch rows
             [B * 256, 588] into 592-wide codes and its head rows (the
-            class tokens, 257 x 1408 apart, B = 2 padded to 17 rows), B =
-            128 and 2, with k + 1/2 quotients and a zero row; K5 without
+            class tokens, 257 x 1408 apart), B = 128 and 2, with k + 1/2
+            quotients and a zero row; K5 without
             an activation (what dyn_quant_rows launches) bit for bit
             against dyn_quant_rows' plain version at 1408 and 6144; and
-            E3/E4 refusing what they do not take.
+            E3/E4 refusing what they do not take. G1 (int8_mm, the int8
+            projections whole, csrc/int8_gemm.cu) bit for bit against
+            int8_mm_ref in bf16 and f32 out: qkv with and without its bias
+            [M, 1408] x 4224 and, at padded heads, x 6144; out with its
+            residual (K = 1408 and 2048), fc1 (x 6144), fc2 (K = 6144) with
+            its residual, the patch embedding [B * 256, 592] x 1408, for
+            M = 32896 (32768), 1, 17, 257 and 5000; the head x 1024 on
+            class-token rows 257 x 1408 apart at B = 2 and 128; and G1
+            refusing what its shape rule refuses.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -122,21 +141,22 @@ Phases; any failure exits non-zero before the result line is printed:
             precision's run and read after it: per forward, the bf16 path
             launches K1 40 times and E1 and E2 80 times each (the qkv
             bias and fc1's bias + GELU; proj's and fc2's bias + residual)
-            and no other kernel; the int8 path launches K2 and E3 (qkv's
-            and out's epilogue) 80 times each, K3 and K4 40 times each,
-            and no other.
+            and no other kernel; the int8 path launches K2 and G1 (the qkv
+            and out products) 80 times each, K3 and K4 40 times each,
+            and no other. torch._int_mm is counted too: 0 calls on CUDA
+            tensors in every forward of every phase (count_int_mm).
 4. factory  build_eva_model_and_transforms(device="cuda") at full width
             (text 12 x 768, vision 40 x 1408; one draw of seeded random
             weights shared by every build): encode_text on 512 prompts, and
             encode_image at B = 128 unrolled (scan=False: 40 K6 a forward),
             padded unrolled (40 K7), padded scanned (40 K1 at head width
             128, 80 E1, 80 E2) and padded scanned int8 (80 K2, 40 K3 at
-            128, 40 K4, 80 E3), each with the counts zeroed before and
+            128, 40 K4, 80 G1), each with the counts zeroed before and
             read after, and no other
             kernel launched; then the unrolled int8 tower
             (models/eva_quant.py::build_int8_vision_apply, every dense
             layer int8, with and without quant_attention) on the same
-            weights and frames: 40 K6 and 162 E4 and E3 a forward (82
+            weights and frames: 40 K6 and 162 E4 and G1 a forward (82
             without quant_attention) and nothing else, cosine >= 0.98 to
             the float unrolled tower at full depth.
 5. ladder   the kernel flag configurations of build_scanned_vision_apply
@@ -146,7 +166,7 @@ Phases; any failure exits non-zero before the result line is printed:
             K10; E1 and E2 twice a layer each), int8 dyn (K8, E1 once a
             layer, K5 without an activation four times), int8+fq (K2, K5,
             K8 int8), int8+fq+v2 (K2, K5, K9 int8) and int8+fq+v3 (K2,
-            K3, K5), the int8 ones with E3 four times a layer, two
+            K3, K5), the int8 ones with G1 four times a layer, two
             forwards each with the counts zeroed before
             and read after; each one's 2-layer cut on the card against the
             CPU f32 path with the same flags.
@@ -157,7 +177,7 @@ Phases; any failure exits non-zero before the result line is printed:
             scanned towers against the unpadded CPU paths at >= 0.99; the
             unrolled int8 tower (both quant_attention) against its own CPU
             f32 path at >= 0.99 and the float unrolled one at >= 0.98, and
-            with quant_attention in f32 on the card (2 K6, 10 E3 and 10 E4
+            with quant_attention in f32 on the card (2 K6, 10 G1 and 10 E4
             f32) at the same bars. Then the f32 paths, 2 layers, card against CPU within 1e-5 of
             the largest value: build_eva_model_and_transforms(dtype=
             torch.float32) scanned (2 K1 f32; E1 and E2 f32 where the
@@ -168,14 +188,14 @@ Phases; any failure exits non-zero before the result line is printed:
             int8 paths, 2 layers, against the CPU's f32 int8 path with
             the same flags at cosine >= 0.99 and its f32 float path at
             >= 0.98: build_eva_model_and_transforms(int8=True, dtype=
-            torch.float32) (2 K2, 1 K3, 1 K4, 2 E3 f32 a layer) and the
+            torch.float32) (2 K2, 1 K3, 1 K4, 2 G1 f32 a layer) and the
             scanned
             forward's int8 + fused_quant + fused_mlp with v1 (K8 int8 f32)
-            and v2 (K9 int8 f32), 2 E3 f32 a layer. Then five ladder
+            and v2 (K9 int8 f32), 2 G1 f32 a layer. Then five ladder
             configurations in f32, 2 layers, against the CPU's f32 path
             with the same flags: bf16+v3+lnk (K1 f32, 2 K10 f32 a layer)
             within 1e-5; int8 dyn (K8 f32, 4 K5 f32), int8+fq (2 K2, K5,
-            K8 int8 f32), int8+fq+v2 (K9 int8) and int8+fq+v3 (K3), 4 E3
+            K8 int8 f32), int8+fq+v2 (K9 int8) and int8+fq+v3 (K3), 4 G1
             f32 a layer each, at cosine >= 0.99, and >= 0.98 against the
             f32 float path; launch counts exact. After the ladder's cuts,
             bf16+v3+lnk and int8+fq+v3 in f32 at full width and depth on
@@ -184,22 +204,26 @@ Phases; any failure exits non-zero before the result line is printed:
             device time by group of kernels (K5 f32 and K10 f32 their own),
             int8 at cosine >= 0.98 to float; each f32 phase's seconds.
             Then the production int8 encoder (int8+fq+v3+fm), the
-            ladder's int8 dyn and the unrolled int8 tower at full width
-            and depth, each twice on the same frames: as built, and with
-            the plain versions of E3, E4 and dyn_quant_rows patched in
-            (plain_int8_epilogues): the outputs bit for bit equal.
+            ladder's int8 dyn, int8+fq and int8+fq+v3, and the unrolled
+            int8 tower at full width and depth, each twice on the same
+            frames: as built, and with the plain versions of G1, E4 and
+            dyn_quant_rows patched in (plain_int8_kernels): the outputs
+            bit for bit equal, torch._int_mm called only by the plain
+            versions.
 7. timing   frames/s at B=128 for every encoder, factory and ladder
             forward, text prompts/s, and each kernel's ms per call beside
             its plain version, one library call computing the same function
             (or its int8 products, for K4; SDPA in f32 for the f32 body),
             and the card's bound (E3 and E4 also beside a same-bytes
-            reference: acc.to(dtype), a clone of the rows); the
+            reference: acc.to(dtype), a clone of the rows; G1 at every
+            product it takes over, beside torch._int_mm alone and
+            torch._int_mm + E3); the
             unrolled int8 tower's frames/s and one profiled forward of
             each.
 8. profile  where one forward's device time goes, by group of kernels, and
             the device's idle share, for each precision, the unrolled
             towers and the ladder's bf16, int8 and int8+fq (K8) and
-            int8+fq+v3 (K5) forwards, E3 and E4 groups of their own;
+            int8+fq+v3 (K5) forwards, G1 and E4 groups of their own;
             each plain per-layer op timed alone.
 9. serving  the serving path at full width over phase 3's int8 features
             (written as .npy): the engine as `python -m
@@ -439,8 +463,8 @@ def counters() -> dict:
                                                 fused_attention_qkv3)
     from hirest_tpu_torch.ops.epilogue import bias_act, bias_residual
     from hirest_tpu_torch.ops.quant import (act_quant, fused_mlp_int8,
-                                            int8_epilogue, ln_bf16, ln_quant,
-                                            row_quant)
+                                            int8_epilogue, int8_mm, ln_bf16,
+                                            ln_quant, row_quant)
 
     return {"K1": (fused_attention_qkv3, "launches"),
             "K1f32": (fused_attention_qkv3, "launches_f32"),
@@ -473,7 +497,33 @@ def counters() -> dict:
             "E3": (int8_epilogue, "launches"),
             "E3f32": (int8_epilogue, "launches_f32"),
             "E4": (row_quant, "launches"),
-            "E4f32": (row_quant, "launches_f32")}
+            "E4f32": (row_quant, "launches_f32"),
+            "G1": (int8_mm, "launches"),
+            "G1f32": (int8_mm, "launches_f32"),
+            # not a kernel: torch._int_mm's calls on CUDA tensors, which
+            # every forward of the port must leave at 0 (count_int_mm)
+            "_int_mm": (int_mm_counted, "launches")}
+
+
+_INT_MM = torch._int_mm  # the library product, the yardstick of G1
+
+
+def int_mm_counted(a, b):
+    """torch._int_mm, counting its calls on CUDA tensors (count_int_mm)."""
+    if a.is_cuda:
+        int_mm_counted.launches += 1
+    return _INT_MM(a, b)
+
+
+int_mm_counted.launches = 0
+
+
+def count_int_mm() -> None:
+    """From now on every torch._int_mm call on a CUDA tensor counts as
+    read_counts()' "_int_mm", which expect() wants 0 in every forward: no
+    CUDA path of the port calls it (G1 takes every int8 product). The
+    plain versions call it, and chip_smoke's yardsticks call _INT_MM."""
+    torch._int_mm = int_mm_counted
 
 
 def expect(**per_forward) -> dict:
@@ -1363,13 +1413,13 @@ def int8_epilogue_checks() -> dict:
     in bf16 and f32 at M = 32896 and INT8_EDGE_M; E4 bit for bit against
     its plain version on the trunk's rows (1408, 6144), the unrolled
     tower's patch rows (588 into 592-wide codes, B = 128 and 2 images) and
-    head rows (the class tokens, 257 x 1408 apart, B = 128, and B = 2
-    padded to 17 rows), with ties and a zero row; K5 without an activation
+    head rows (the class tokens, 257 x 1408 apart, B = 128 and 2), with
+    ties and a zero row; K5 without an activation
     (what dyn_quant_rows launches on the card) bit for bit against
     dyn_quant_rows' plain version at the scanned block's widths; then the
     wrappers refusing what the kernels do not take. Returns E3's and E4's
     largest errors (0 where bit for bit)."""
-    from hirest_tpu_torch.ops.quant import (INT_MM_MIN_ROWS, act_quant,
+    from hirest_tpu_torch.ops.quant import (act_quant,
                                             dyn_quant_rows_ref, int8_epilogue,
                                             int8_epilogue_ref, row_quant,
                                             row_quant_ref)
@@ -1401,7 +1451,7 @@ def int8_epilogue_checks() -> dict:
             for m in (BATCH * TOKENS, *INT8_EDGE_M):
                 seed += 1
                 x2 = row_quant_inputs(m, c, seed, dtype)
-                cases.append((f"[{m},{c}]", x2, max(m, INT_MM_MIN_ROWS), c))
+                cases.append((f"[{m},{c}]", x2, m, c))
         for batch in (BATCH, 2):
             seed += 1
             patches = row_quant_inputs(batch * 256, 588, seed, dtype)
@@ -1411,7 +1461,7 @@ def int8_epilogue_checks() -> dict:
             tokens = row_quant_inputs(batch * TOKENS, 1408, seed, dtype)
             head = tokens.view(batch, TOKENS, 1408)[:, 0]
             cases.append((f"head rows [{batch},1408] {TOKENS} x 1408 apart",
-                          head, max(batch, INT_MM_MIN_ROWS), 1408))
+                          head, batch, 1408))
         for what, x2, rows, ldq in cases:
             codes_equal(f"E4{sfx} row_quant {what}, [{rows},{ldq}] out",
                         row_quant(x2, rows, ldq),
@@ -1514,6 +1564,315 @@ def int8_epilogue_times(m: int, w: int) -> tuple:
                 **row_quant_bound(rows, c, dtype, ldq)}
             del x2
     return res, extra
+
+
+# G1's products at EVA-g's widths: (form, K, N, with a bias, with the
+# residual): v1's qkv without its bias, v2/v3's with it, both heads' widths
+# (88, and padded to 128: qkv 6144 wide, out 2048 deep), out and fc2 with
+# the residual, fc1, and the unrolled tower's patch embedding (588 padded
+# to 592); the head on class-token rows is G1_HEAD
+G1_FORMS = (("qkv v1", 1408, 4224, False, False),
+            ("qkv v2/v3", 1408, 4224, True, False),
+            ("qkv v1 padded heads", 1408, 6144, False, False),
+            ("qkv padded heads", 1408, 6144, True, False),
+            ("out", 1408, 1408, True, True),
+            ("out padded heads", 2048, 1408, True, True),
+            ("fc1", 1408, 6144, True, False),
+            ("fc2", 6144, 1408, True, True),
+            ("patch embed", 592, 1408, True, False))
+G1_EDGE_M = (1, 17, 257, 5000)  # a row, _int_mm's least, a frame, ragged
+G1_HEAD = (1408, 1024)  # the head: K, N, on B class-token rows
+# G1's variants (ops/quant.py::INT8_GEMM_VARIANTS) -> what each is
+G1_VARIANTS = {0: "256-wide tiles, one block an SM",
+               1: "128-wide tiles, two blocks an SM"}
+
+
+def int8_gemm_inputs(m: int, k: int, n: int, seed: int, dtype,
+                     with_bias: bool, with_res: bool,
+                     head_rows: bool = False) -> tuple:
+    """G1's operands: random int8 codes x_q [m, k] (with head_rows, the
+    class tokens of [m, 257, k] codes: rows 257 k apart) and w_q [n, k],
+    row and channel scales, a bias, a residual in dtype. Row 0 against w_q's
+    row 0 gives an odd product, past 2^24 where K > 1040 (the int -> f32
+    conversion rounds), row 1 its negation."""
+    g = gen(seed)
+    if head_rows:
+        x_q = torch.randint(-127, 128, (m, TOKENS, k), generator=g,
+                            device="cuda", dtype=torch.int8)[:, 0]
+    else:
+        x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                            dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                        dtype=torch.int8)
+    x_q[0] = 127
+    w_q[0] = 127
+    w_q[0, 0] = 126
+    if m > 1:
+        x_q[1] = -127
+    x_s = torch.rand((m, 1), generator=g, device="cuda") * 0.05 + 1e-3
+    w_s = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-5
+    b = torch.randn(n, generator=g, device="cuda") if with_bias else None
+    x = ((torch.randn((m, n), generator=g, device="cuda") * 2).to(dtype)
+         if with_res else None)
+    return x_q, x_s, w_q, w_s, b, x
+
+
+def int8_gemm_cases(seed: int, edges: bool = True):
+    """(tag, G1's operands) at every shape G1 takes over, in bf16 and f32:
+    each G1_FORMS product at M = 32896 (the patch embedding at 32768) and,
+    with edges, G1_EDGE_M; the head on class-token rows at B = 2 and
+    128."""
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "" if dtype == torch.bfloat16 else "f32"
+        for form, k, n, with_bias, with_res in G1_FORMS:
+            big = BATCH * 256 if form == "patch embed" else BATCH * TOKENS
+            for m in (big, *(G1_EDGE_M if edges else ())):
+                seed += 1
+                yield (f"G1{sfx} {form} [{m},{k}]x[{k},{n}]",
+                       int8_gemm_inputs(m, k, n, seed, dtype, with_bias,
+                                        with_res), dtype)
+        for batch in (2, BATCH):
+            seed += 1
+            k, n = G1_HEAD
+            yield (f"G1{sfx} head [{batch},{k}]x[{k},{n}] on class-token "
+                   f"rows {TOKENS} x {k} apart",
+                   int8_gemm_inputs(batch, k, n, seed, dtype, True, False,
+                                    head_rows=True), dtype)
+
+
+def int8_gemm_checks(variants: bool = False) -> dict:
+    """G1 (int8_mm on CUDA) bit for bit against its plain version
+    (int8_mm_ref: torch._int_mm, then E3's plain version) at every shape
+    of int8_gemm_cases, in bf16 and f32 out; with `variants`, also each
+    G1 variant at the large M of each form and M = 5000. Then the wrapper
+    refusing what G1's rule refuses.
+    Returns G1's largest errors (0: bit for bit)."""
+    from hirest_tpu_torch.ops.quant import (_int8_gemm_launch, int8_mm,
+                                            int8_mm_ref)
+
+    worst = {"G1": 0.0, "G1f32": 0.0}
+    n_checks = 0
+    for tag, (x_q, x_s, w_q, w_s, b, x), dtype in int8_gemm_cases(2100):
+        want = int8_mm_ref(x_q, x_s, w_q, w_s, b, dtype, x)
+        got = int8_mm(x_q, x_s, w_q, w_s, b, dtype, x)
+        err, share = epilogue_check(tag, got, want, exact=True)
+        n_checks += 1
+        m = x_q.shape[0]
+        if variants and (m >= 5000 or m == BATCH):
+            for v in G1_VARIANTS:
+                got = _int8_gemm_launch(x_q, x_s, w_q, w_s, b, dtype, x,
+                                        variant=v)
+                epilogue_check(f"{tag} variant {v}", got, want, exact=True)
+                n_checks += 1
+        key = "G1" if dtype == torch.bfloat16 else "G1f32"
+        worst[key] = max(worst[key], err)
+        if m in (BATCH * TOKENS, BATCH * 256, 2):
+            print(f"[kernels] {tag}: max_abs_err={err}, share differing "
+                  f"{share} (bit for bit; also at M = "
+                  f"{', '.join(map(str, G1_EDGE_M))})")
+        del x_q, x_s, w_q, w_s, b, x, got, want
+    print(f"[kernels] G1 int8_mm: {n_checks} products bit for bit with "
+          f"int8_mm_ref, bf16 and f32 out")
+    codes = torch.zeros((32, 1408), dtype=torch.int8, device="cuda")
+    w_q = torch.zeros((1408, 1408), dtype=torch.int8, device="cuda")
+    x_s = torch.ones((32, 1), device="cuda")
+    w_s = torch.ones(1408, device="cuda")
+    y = torch.zeros((32, 1408), dtype=torch.bfloat16, device="cuda")
+    for what, call in (
+            ("f16 out", lambda: int8_mm(codes, x_s, w_q, w_s, None,
+                                        torch.float16)),
+            ("K % 16 != 0", lambda: int8_mm(
+                codes[:, :1400].contiguous(), x_s,
+                w_q[:, :1400].contiguous(), w_s, None, torch.bfloat16)),
+            ("N % 8 != 0", lambda: int8_mm(codes, x_s, w_q[:1404], w_s[:1404],
+                                           None, torch.bfloat16)),
+            ("a transposed x_q", lambda: int8_mm(
+                w_q[:, :32].t(), x_s, w_q, w_s, None, torch.bfloat16)),
+            ("x_q rows not 16 bytes apart", lambda: int8_mm(
+                torch.zeros(32 * 1416, dtype=torch.int8, device="cuda")
+                .as_strided((32, 1408), (1416, 1)), x_s, w_q, w_s, None,
+                torch.bfloat16)),
+            ("a transposed w_q", lambda: int8_mm(codes, x_s, w_q.t(), w_s,
+                                                 None, torch.bfloat16)),
+            ("f32 codes", lambda: int8_mm(codes.float(), x_s, w_q, w_s, None,
+                                          torch.bfloat16)),
+            ("a residual of another dtype", lambda: int8_mm(
+                codes, x_s, w_q, w_s, None, torch.bfloat16, y.float())),
+            ("K differing between the operands", lambda: int8_mm(
+                codes, x_s, w_q[:, :1392].contiguous(), w_s, None,
+                torch.bfloat16))):
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        require(False, f"G1 took {what}")
+    print("[kernels] G1 wrapper refuses f16 out, K % 16 != 0, N % 8 != 0, "
+          "a transposed x_q or w_q, x_q rows not 16 bytes apart, f32 codes, "
+          "a residual of another dtype, K differing between the operands")
+    return worst
+
+
+def int8_gemm_bound(m: int, k: int, n: int, dtype, with_bias: bool,
+                    with_res: bool) -> dict:
+    """G1's bound: 2 M N K int8 operations at the dense int8 rate, or the
+    bytes (x_q, w_q, the scales and bias read once, the output written and
+    the residual read in dtype), whichever takes longer."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    moved = (m * k + n * k + m * 4 + n * 4 * (2 if with_bias else 1)
+             + m * n * size * (2 if with_res else 1))
+    return bound(moved, 2 * m * n * k, INT8_OP_PER_S)
+
+
+def int8_gemm_times(variants: bool) -> tuple:
+    """At every G1_FORMS product (M = 32896, the patch embedding 32768) and
+    the head at B = 128, in bf16 and f32 out: G1 (int8_mm; with variants,
+    each variant) beside its bound, the
+    plain version (int8_mm_ref), torch._int_mm alone and torch._int_mm +
+    E3 (int8_epilogue), the chain G1 replaces. Where the checkout has no
+    G1, its int8_mm (torch._int_mm + E3) and the rest. Returns (the
+    kernels line's rows: qkv v2/v3, its bias, the kernels line's; every
+    row, by tag)."""
+    from hirest_tpu_torch.ops import quant
+
+    kernel = hasattr(quant, "int8_gemm_shape")
+    rows = {}
+    seed = 2500
+    for dtype in (torch.bfloat16, torch.float32):
+        sfx = "" if dtype == torch.bfloat16 else "f32"
+        for form, k, n, with_bias, with_res in (*G1_FORMS,
+                                                ("head", *G1_HEAD, True,
+                                                 False)):
+            m = {"patch embed": BATCH * 256, "head": BATCH}.get(
+                form, BATCH * TOKENS)
+            seed += 1
+            x_q, x_s, w_q, w_s, b, x = int8_gemm_inputs(
+                m, k, n, seed, dtype, with_bias, with_res,
+                head_rows=form == "head")
+            x_c = x_q.contiguous()
+            # no one PyTorch call computes G1's function: library_ms is
+            # null, and torch._int_mm's product alone is int_mm_ms
+            r = {"ms": None,
+                 "plain_ms": cuda_ms(lambda: quant.int8_mm_ref(
+                     x_q, x_s, w_q, w_s, b, dtype, x), 5)
+                 if kernel else None,
+                 "library_ms": None,
+                 "int_mm_ms": cuda_ms(lambda: _INT_MM(x_c, w_q.t()), 20),
+                 "int_mm_e3_ms": cuda_ms(lambda: quant.int8_epilogue(
+                     _INT_MM(x_c, w_q.t()), x_s, w_s, b, dtype, x), 20),
+                 **int8_gemm_bound(m, k, n, dtype, with_bias, with_res)}
+            if kernel:
+                r["ms"] = cuda_ms(lambda: quant.int8_mm(
+                    x_q, x_s, w_q, w_s, b, dtype, x), 20)
+                if variants:
+                    r["variants"] = {
+                        v: cuda_ms(lambda: quant._int8_gemm_launch(
+                            x_q, x_s, w_q, w_s, b, dtype, x, variant=v), 20)
+                        for v in G1_VARIANTS}
+            rows[f"G1{sfx} {form} [{m},{k}]x[{k},{n}]"] = r
+            if form == "qkv v2/v3":
+                rows[f"G1{sfx}"] = r
+            del x_q, x_s, w_q, w_s, b, x, x_c
+    line = {key: rows[key] for key in ("G1", "G1f32")}
+    return line, {k: v for k, v in rows.items() if k not in line}
+
+
+def print_int8_gemm_times(rows: dict, card: str, tag: str) -> None:
+    for name, r in rows.items():
+        kernel = ("missing" if r["ms"] is None else
+                  f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of bound)")
+        plain = ("missing" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.4f} ms")
+        print(f"[{tag}] {card}: {REPO.name}: {name}: G1 {kernel}, "
+              f"_int_mm {r['int_mm_ms']:.4f} ms, _int_mm + E3 "
+              f"{r['int_mm_e3_ms']:.4f} ms, plain {plain}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for v, ms in r.get("variants", {}).items():
+            print(f"[{tag}] {card}:   variant {v} ({G1_VARIANTS[v]}): "
+                  f"{ms:.4f} ms ({r['bound_ms'] / ms:.3f} of bound)")
+
+
+# the int8 forwards --time-int8-gemm times: staged tower dtype (None: the
+# unrolled int8 tower) -> (tag, flags of build_scanned_vision_apply,
+# KERNEL_GROUPS set)
+G1_TOWERS = (
+    (torch.bfloat16, (
+        ("production int8", dict(int8=True, attn_v3=True, fused_quant=True,
+                                 fused_mlp=True), "int8"),
+        ("ladder int8 dyn", dict(int8=True), "ladder int8 K8"),
+        ("ladder int8+fq", dict(int8=True, fused_quant=True),
+         "ladder int8 K8"),
+        ("ladder int8+fq+v3", dict(int8=True, fused_quant=True,
+                                   attn_v3=True), "ladder int8"))),
+    (torch.float32, (
+        ("ladder int8+fq+v3 in f32", dict(int8=True, fused_quant=True,
+                                          attn_v3=True), "ladder f32 int8"),)),
+    (None, (("unrolled int8", {}, "unrolled int8"),)),
+)
+G1_FORWARDS = 3  # timed forwards of B=128 a configuration, after a warm-up
+
+
+def time_int8_gemm(cfg, card: str) -> None:
+    """G1 at every shape it takes over beside its bound, torch._int_mm
+    alone, torch._int_mm + E3 and the plain version (int8_gemm_times),
+    after every variant's bit-for-bit check (int8_gemm_checks with
+    variants); then each G1_TOWERS forward at full width and depth on
+    seeded weights: ms a forward and frames/s over G1_FORWARDS, and one
+    profiled forward's groups. A checkout without G1 times torch._int_mm +
+    E3 (its int8_mm) and its forwards, so parent, change, change, parent
+    in one call compares the two trees."""
+    from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
+    from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+                                                  stage_scanned_params)
+    from hirest_tpu_torch.ops import build
+    from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
+
+    kernel = "int8_gemm" in build.SOURCES
+    logs = build.build()  # every source at once, as the forwards need them
+    if kernel:
+        from hirest_tpu_torch.ops.quant import int8_gemm_smem_bytes
+
+        ptxas_summary(logs.get("int8_gemm", ""), ("int8_gemm_kernel",))
+        print(f"[time-int8-gemm] G1 dynamic shared memory a block: "
+              f"{int8_gemm_smem_bytes()}")
+        int8_gemm_checks(variants=True)
+    else:
+        print(f"[time-int8-gemm] {REPO}: G1 (csrc/int8_gemm.cu) is not in "
+              f"this checkout: torch._int_mm + E3 alone")
+    line, rows = int8_gemm_times(variants=kernel)
+    print_int8_gemm_times({**line, **rows}, card, "time-int8-gemm")
+    t0 = time.perf_counter()
+    sd = random_eva_vision_state_dict(cfg, seed=0)
+    print(f"[time-int8-gemm] seeded weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    frames = normalize_frames(np.random.default_rng(5).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8))
+    for dtype, runs in G1_TOWERS:
+        staged = (None if dtype is None else
+                  stage_scanned_params(sd, cfg, int8=True, dtype=dtype,
+                                       device="cuda"))
+        for tag, flags, groups in runs:
+            fn = (build_int8_vision_apply(sd, cfg, device="cuda")
+                  if dtype is None else
+                  build_scanned_vision_apply(None, cfg, staged=staged,
+                                             dtype=dtype, device="cuda",
+                                             **flags))
+            fn(frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(G1_FORWARDS):
+                out = fn(frames)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            require(bool(torch.as_tensor(out).isfinite().all()),
+                    f"{tag}: non-finite output")
+            print(f"[time-int8-gemm] {card}: {REPO.name}: {tag}: "
+                  f"{secs / G1_FORWARDS * 1e3:.2f} ms a forward of {BATCH}, "
+                  f"{BATCH * G1_FORWARDS / secs:.2f} frames/s")
+            profile_call(f"one {tag} forward B={BATCH}", lambda: fn(frames),
+                         card, groups, tag="time-int8-gemm")
+            del fn, out
+        del staged
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(cfg) -> dict:
@@ -1739,6 +2098,7 @@ def phase_kernels(cfg) -> dict:
     worst.update(row_checks()[0])
     worst.update(epilogue_checks())
     worst.update(int8_epilogue_checks())
+    worst.update(int8_gemm_checks())
     return worst
 
 
@@ -1805,7 +2165,7 @@ def phase_main(cfg, pretrained: Path) -> dict:
               f"{time.perf_counter() - t0:.1f} s")
         feats[tag], counts, fw = run_videos(cfg, encoders[tag], frames, tag)
         n = cfg.layers * fw
-        want = (expect(K2=2 * n, K3=n, K4=n, E3=2 * n) if int8
+        want = (expect(K2=2 * n, K3=n, K4=n, G1=2 * n) if int8
                 else expect(K1=n, E1=2 * n, E2=2 * n))
         require(counts == want, f"{tag} launches {counts}, expected {want}")
         launches.update({k: v for k, v in counts.items() if want[k]})
@@ -1857,7 +2217,7 @@ FACTORY = {
     "padded_scanned": (dict(scan=True, padded_heads=True),
                        dict(K1=1, E1=2, E2=2)),
     "padded_scanned_int8": (dict(scan=True, padded_heads=True, int8=True),
-                            dict(K2=2, K3=1, K4=1, E3=2)),
+                            dict(K2=2, K3=1, K4=1, G1=2)),
 }
 
 
@@ -1921,20 +2281,20 @@ def phase_factory(cfg, text_cfg, weights: dict) -> dict:
 # per layer); bench.py's ladder tags (:817-823) less the TPU layout flags.
 # E1 takes the qkv bias where v2/v3 fold it into the projection, and fc1's
 # bias and GELU (int8 dyn: its GELU); E2 proj's and fc2's bias + residual;
-# E3 each int8 product's epilogue (with the residual after out and fc2);
+# G1 each int8 product with its epilogue (the residual after out and fc2);
 # int8 dyn's four row quantizations run K5 without an activation
 LADDER = {
     "bf16": ({}, dict(K8=1, E1=1, E2=2)),
     "bf16+v2": (dict(attn_v2=True), dict(K9=1, E1=2, E2=2)),
     "bf16+v3+lnk": (dict(attn_v3=True, fused_ln=True),
                     dict(K1=1, K10=2, E1=2, E2=2)),
-    "int8": (dict(int8=True), dict(K8=1, E1=1, E3=4, K5=4)),
+    "int8": (dict(int8=True), dict(K8=1, E1=1, G1=4, K5=4)),
     "int8+fq": (dict(int8=True, fused_quant=True),
-                dict(K2=2, K5=1, K8q=1, E3=4)),
+                dict(K2=2, K5=1, K8q=1, G1=4)),
     "int8+fq+v2": (dict(int8=True, fused_quant=True, attn_v2=True),
-                   dict(K2=2, K5=1, K9q=1, E3=4)),
+                   dict(K2=2, K5=1, K9q=1, G1=4)),
     "int8+fq+v3": (dict(int8=True, fused_quant=True, attn_v3=True),
-                   dict(K2=2, K3=1, K5=1, E3=4)),
+                   dict(K2=2, K3=1, K5=1, G1=4)),
 }
 LADDER_FORWARDS = 2  # image forwards of B=128 per ladder configuration
 
@@ -2128,11 +2488,11 @@ F32_DEPTH = {
 # v2, which carry K8 and K9 int8 without K5
 F32_INT8_DEPTH = {
     "factory int8": (dict(attn_v3=True),
-                     dict(K2f32=2, K3f32=1, K4f32=1, E3f32=2)),
+                     dict(K2f32=2, K3f32=1, K4f32=1, G1f32=2)),
     "scanned int8 fq+fm v1": ({}, dict(K2f32=2, K8qf32=1, K4f32=1,
-                                       E3f32=2)),
+                                       G1f32=2)),
     "scanned int8 fq+fm v2": (dict(attn_v2=True),
-                              dict(K2f32=2, K9qf32=1, K4f32=1, E3f32=2)),
+                              dict(K2f32=2, K9qf32=1, K4f32=1, G1f32=2)),
 }
 
 
@@ -2228,14 +2588,14 @@ def phase_f32_depth(cfg, text_cfg, weights: dict, frames, ref: dict) -> dict:
 
 # the ladder configurations in f32 (flags from LADDER) -> their f32
 # launches a layer: the fused LayerNorm's K10, K5 in the fused-quant MLP
-# (and int8 dyn's four row quantizations), int8 dyn's K8, and E3 on every
+# (and int8 dyn's four row quantizations), int8 dyn's K8, and G1 for every
 # int8 product
 F32_LADDER = {
     "bf16+v3+lnk": dict(K1f32=1, K10f32=2, E1f32=2, E2f32=2),
-    "int8": dict(K8f32=1, E1f32=1, E3f32=4, K5f32=4),
-    "int8+fq": dict(K2f32=2, K5f32=1, K8qf32=1, E3f32=4),
-    "int8+fq+v2": dict(K2f32=2, K5f32=1, K9qf32=1, E3f32=4),
-    "int8+fq+v3": dict(K2f32=2, K3f32=1, K5f32=1, E3f32=4),
+    "int8": dict(K8f32=1, E1f32=1, G1f32=4, K5f32=4),
+    "int8+fq": dict(K2f32=2, K5f32=1, K8qf32=1, G1f32=4),
+    "int8+fq+v2": dict(K2f32=2, K5f32=1, K9qf32=1, G1f32=4),
+    "int8+fq+v3": dict(K2f32=2, K3f32=1, K5f32=1, G1f32=4),
 }
 F32_LADDER_FULL = ("bf16+v3+lnk", "int8+fq+v3")  # run at full depth too
 F32_LADDER_FORWARDS = 2  # timed forwards of B=128, after one warm-up
@@ -2370,10 +2730,10 @@ INT8_TOWER = {True: "unrolled int8", False: "unrolled int8, bf16 qkv/out"}
 
 def int8_tower_launches(cfg, quant_attention: bool) -> dict:
     """The unrolled int8 tower's launches a forward: K6 a layer, and E4
-    and E3 for each QuantDense (4 a layer with quant_attention, else fc1
+    and G1 for each QuantDense (4 a layer with quant_attention, else fc1
     and fc2; the patch embedding and the head)."""
     dense = (4 if quant_attention else 2) * cfg.layers + 2
-    return dict(K6=cfg.layers, E3=dense, E4=dense)
+    return dict(K6=cfg.layers, G1=dense, E4=dense)
 
 
 def phase_int8_tower(cfg, weights: dict, factory: dict) -> dict:
@@ -2476,15 +2836,16 @@ def phase_int8_tower_depth(cfg, weights: dict, frames) -> dict:
 
 
 @contextlib.contextmanager
-def plain_int8_epilogues():
+def plain_int8_kernels():
     """Within it, the int8 towers run the plain versions where they launch
-    E3, E4 and K5's row quantization: `int8_epilogue` (E3, which int8_mm
-    and int8_matmul call), `row_quant` (E4, int8_matmul's) and the scanned
-    block's `dyn_quant_rows` (K5 without an activation)."""
+    G1, E4 and K5's row quantization: `int8_mm` (G1, which the scanned
+    block and int8_matmul call), `row_quant` (E4, int8_matmul's) and the
+    scanned block's `dyn_quant_rows` (K5 without an activation)."""
     import hirest_tpu_torch.models.eva_scan as eva_scan
     import hirest_tpu_torch.ops.quant as quant
 
-    saved = [(quant, "int8_epilogue", quant.int8_epilogue_ref),
+    saved = [(quant, "int8_mm", quant.int8_mm_ref),
+             (eva_scan, "int8_mm", quant.int8_mm_ref),
              (quant, "row_quant", quant.row_quant_ref),
              (eva_scan, "dyn_quant_rows", quant.dyn_quant_rows_ref)]
     saved = [(mod, name, getattr(mod, name), plain)
@@ -2499,35 +2860,42 @@ def plain_int8_epilogues():
 
 
 def phase_int8_plain(main: dict, ladder: dict, tower: dict) -> None:
-    """The production int8 encoder (int8+fq+v3+fm), the ladder's int8 dyn
-    and the unrolled int8 tower at full width and depth, each twice on the
-    same B=128 float frames: as built, and with plain_int8_epilogues. The
-    products are exact int32 and every other kernel runs alike, so any
-    difference would be E3's, E4's or K5's: the outputs must be equal bit
-    for bit. The counts show the kernels ran the first time and not the
-    second."""
+    """The production int8 encoder (int8+fq+v3+fm), the ladder's int8 dyn,
+    int8+fq and int8+fq+v3, and the unrolled int8 tower at full width and
+    depth, each twice on the same B=128 float frames: as built, and with
+    plain_int8_kernels. The products are exact int32 and every other
+    kernel runs alike, so any difference would be G1's, E4's or K5's: the
+    outputs must be equal bit for bit. The counts show the kernels ran the
+    first time and not the second, and torch._int_mm ran only in the
+    plain versions."""
     t0 = time.perf_counter()
     frames = normalize_frames(main["frames"]["vid_a"][:BATCH])
     runs = {"int8+fq+v3+fm (production encoder)":
-            (main["encoders"]["int8"][False], ("E3",)),
-            "int8 dyn (ladder)": (ladder["fns"]["int8"], ("E3", "K5")),
-            "unrolled int8": (tower["fns"][True], ("E3", "E4"))}
+            (main["encoders"]["int8"][False], ("G1",)),
+            "int8 dyn (ladder)": (ladder["fns"]["int8"], ("G1", "K5")),
+            "int8+fq (ladder)": (ladder["fns"]["int8+fq"], ("G1",)),
+            "int8+fq+v3 (ladder)": (ladder["fns"]["int8+fq+v3"], ("G1",)),
+            "unrolled int8": (tower["fns"][True], ("G1", "E4"))}
     for tag, (fn, kernels) in runs.items():
-        outs, counts = [], []
+        outs, counts, int_mm = [], [], []
         for plain in (False, True):
             zero_counts()  # outside: the context swaps the wrappers
-            with (plain_int8_epilogues() if plain
+            with (plain_int8_kernels() if plain
                   else contextlib.nullcontext()):
                 out = torch.as_tensor(fn(frames))
                 torch.cuda.synchronize()
             counts.append({k: read_counts()[k] for k in kernels})
+            int_mm.append(read_counts()["_int_mm"])
             outs.append(out.float().cpu())
         ok = torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
         n = int((outs[0] != outs[1]).sum().item())
         print(f"[int8 plain] {tag}: kernels {counts[0]}, plain {counts[1]}; "
-              f"{n} of {outs[0].numel()} outputs differ (bar 0)")
-        require(all(counts[0].values()) and not any(counts[1].values()),
-                f"{tag}: launches {counts}")
+              f"torch._int_mm calls {int_mm[0]} with the kernels, "
+              f"{int_mm[1]} with the plain versions; {n} of "
+              f"{outs[0].numel()} outputs differ (bar 0)")
+        require(all(counts[0].values()) and not any(counts[1].values())
+                and int_mm[0] == 0 and int_mm[1] > 0,
+                f"{tag}: launches {counts}, torch._int_mm calls {int_mm}")
         require(ok and bool(outs[0].isfinite().all()),
                 f"{tag}: the kernels' forward off the plain versions'")
     print(f"[int8 plain] {time.perf_counter() - t0:.1f} s")
@@ -2943,10 +3311,15 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
     e3e4, e3e4_extra = int8_epilogue_times(m, w)
     res.update(e3e4)
     extra.update(e3e4_extra)
+    # G1 at every product it takes over, beside torch._int_mm and
+    # torch._int_mm + E3
+    g1, g1_extra = int8_gemm_times(variants=False)
+    res.update(g1)
+    print_int8_gemm_times({**g1, **g1_extra}, card, "timing")
     for key, base in (("K3f32", "K3"), ("K9qf32", "K9q"), ("K8qf32", "K8q"),
                       ("K2f32", "K2"), ("K4f32", "K4"), ("K5f32", "K5"),
                       ("K10f32", "K10"), ("E1f32", "E1"), ("E2f32", "E2"),
-                      ("E3f32", "E3"), ("E4f32", "E4")):
+                      ("E3f32", "E3"), ("E4f32", "E4"), ("G1f32", "G1")):
         print(f"[timing] {card}: {key} (f32 activations) {res[key]['ms']:.4f}"
               f" ms beside {base} (bf16) {res[base]['ms']:.4f} ms, "
               f"{res[key]['ms'] / res[base]['ms']:.2f}x")
@@ -2973,12 +3346,14 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          "chain, bias, residual)", ("elementwise", "reduce")),
     ),
     "int8": (
+        ("G1 int8_gemm, products and dequant (CUDA)",
+         ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
          ("attention_qkv3", "quant_rows")),
         ("K4 fused_mlp_int8 (CUDA)", ("fused_mlp_int8",)),
-        ("int8 qkv/out GEMMs (torch._int_mm)",
+        ("other GEMMs (cuBLAS; torch._int_mm before G1)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("elementwise (casts; without E3 the dequant chain)",
          ("elementwise", "reduce")),
@@ -2993,6 +3368,8 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          "residual)", ("elementwise", "reduce")),
     ),
     "ladder int8 K8": (
+        ("G1 int8_gemm, products and dequant (CUDA)",
+         ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
         ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
@@ -3001,19 +3378,21 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          ("attention_split", "quant_rows")),
         ("K5 act_quant (CUDA; int8 dyn's row quantization too)",
          ("act_quant",)),
-        ("int8 GEMMs (torch._int_mm)",
+        ("other GEMMs (cuBLAS; torch._int_mm before G1)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("elementwise (casts; without E3 and K5 the dequant and row "
          "quantization chains, without E1 int8 dyn's GELU chain)",
          ("elementwise", "reduce")),
     ),
     "ladder int8": (
+        ("G1 int8_gemm, products and dequant (CUDA)",
+         ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
          ("attention_qkv3", "quant_rows")),
         ("K5 act_quant (CUDA)", ("act_quant",)),
-        ("int8 GEMMs (torch._int_mm)",
+        ("other GEMMs (cuBLAS; torch._int_mm before G1)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("elementwise (casts; without E3 the dequant chain)",
          ("elementwise", "reduce")),
@@ -3029,13 +3408,15 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          "residual)", ("elementwise", "reduce")),
     ),
     "ladder f32 int8": (
+        ("G1 f32 int8_gemm, products and dequant (CUDA)",
+         ("int8_gemm_kernel",)),
         ("E3 f32 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<true>",
                                          "ln_f32_kernelILb1E")),
         ("K3 f32 attention_f32 int8 epilogue (CUDA, both steps)",
          ("attention_f32", "quant_rows")),
         ("K5 f32 act_quant_f32_kernel (CUDA)", ("act_quant_f32",)),
-        ("int8 GEMMs (torch._int_mm)",
+        ("other GEMMs (cuBLAS; torch._int_mm before G1)",
          ("nvjet", "gemm", "cutlass", "xmma", "imma")),
         ("elementwise (without E3 the dequant chain)",
          ("elementwise", "reduce")),
@@ -3050,11 +3431,14 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("elementwise", ("elementwise",)),
     ),
     "unrolled int8": (
+        ("G1 int8_gemm, products and dequant (CUDA)",
+         ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("E4 row_quant (CUDA)", ("row_quant_kernel",)),
         ("K6 attention_split (CUDA)", ("attention_split",)),
-        ("GEMMs (int8 torch._int_mm; bf16 cuBLAS qkv/out without "
-         "quant_attention)", ("nvjet", "gemm", "cutlass", "xmma", "imma")),
+        ("other GEMMs (bf16 cuBLAS qkv/out without quant_attention; "
+         "torch._int_mm before G1)", ("nvjet", "gemm", "cutlass", "xmma",
+                                      "imma")),
         ("exact GELU", ("gelu", "Gelu")),
         ("elementwise and reductions (LayerNorm, q/v bias, residual, "
          "casts; without E3 and E4 the dequant and row quantization "
@@ -3152,7 +3536,7 @@ def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
     from hirest_tpu_torch.models.eva_clip import layer_norm
     from hirest_tpu_torch.models.layers import (gelu, gelu_bf16_poly,
                                                 layer_norm_fast_var)
-    from hirest_tpu_torch.ops.quant import int8_mm
+    from hirest_tpu_torch.ops.quant import int8_epilogue, int8_mm
 
     batch = normalize_frames(main["frames"]["vid_a"][:BATCH])
     for tag, encoders in main["encoders"].items():
@@ -3193,14 +3577,17 @@ def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
         "fc2 linear [M,6144]x[6144,1408]": lambda: F.linear(h, w2, b2),
         "gelu_bf16_poly [M,6144]": lambda: gelu_bf16_poly(h),
         "layer_norm (f32) [M,1408]": lambda: layer_norm(x, norm),
-        "_int_mm qkv [M,1408]x[1408,4224]": lambda: torch._int_mm(x_q,
-                                                                  qkv_q.t()),
-        "int8_mm qkv (product + dequant epilogue)": lambda: int8_mm(
+        "_int_mm qkv [M,1408]x[1408,4224]": lambda: _INT_MM(x_q, qkv_q.t()),
+        "_int_mm + E3 qkv (the chain before G1)": lambda: int8_epilogue(
+            _INT_MM(x_q, qkv_q.t()), x_s, qkv_s, bq, torch.bfloat16),
+        "int8_mm qkv (G1: product + dequant epilogue)": lambda: int8_mm(
             x_q, x_s, qkv_q, qkv_s, bq, torch.bfloat16),
-        "_int_mm out [M,1408]x[1408,1408]": lambda: torch._int_mm(x_q,
-                                                                  out_q.t()),
-        "int8_mm out (product + dequant epilogue)": lambda: int8_mm(
-            x_q, x_s, out_q, out_s, bp, torch.bfloat16),
+        "_int_mm out [M,1408]x[1408,1408]": lambda: _INT_MM(x_q, out_q.t()),
+        "_int_mm + E3 out + residual (the chain before G1)":
+            lambda: int8_epilogue(_INT_MM(x_q, out_q.t()), x_s, out_s, bp,
+                                  torch.bfloat16, x),
+        "int8_mm out + residual (G1)": lambda: int8_mm(
+            x_q, x_s, out_q, out_s, bp, torch.bfloat16, x),
         "exact gelu [M,6144]": lambda: gelu(h),
         "layer_norm_fast_var (flax arithmetic) [M,1408]":
             lambda: layer_norm_fast_var(x, norm),
@@ -5470,6 +5857,15 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     "E4f32": ("row_quant (float32)",
               "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
               "hirest_tpu/ops/quant.py:46"),
+    # no Pallas kernel: XLA's int8 dot_general with the dequant (E3's
+    # arithmetic) fused into its epilogue (hirest_tpu/ops/quant.py:41-55
+    # too); times at the qkv projection [32896, 1408] x [1408, 4224] with
+    # its bias; library_ms null (no one PyTorch call computes it),
+    # torch._int_mm's product alone and with E3 beside it
+    "G1": ("int8_mm", "hirest_tpu_torch/ops/csrc/int8_gemm.cu",
+           "hirest_tpu/models/eva_scan.py:92"),
+    "G1f32": ("int8_mm (float32)", "hirest_tpu_torch/ops/csrc/int8_gemm.cu",
+              "hirest_tpu/models/eva_scan.py:92"),
 }
 
 
@@ -6165,6 +6561,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
+    count_int_mm()
     card = gpu_name_and_power()
     cfg, text_cfg = EvaVisionConfig(), EvaTextConfig()
     pretrained = REPO / "pretrained_weights"
@@ -6173,7 +6570,8 @@ def main() -> int:
               "--time-mlp": lambda: time_mlp(card),
               "--time-rows": lambda: time_rows(cfg, card),
               "--time-f32": lambda: time_f32(cfg, card),
-              "--time-epilogue": lambda: time_epilogue(cfg, card)}
+              "--time-epilogue": lambda: time_epilogue(cfg, card),
+              "--time-int8-gemm": lambda: time_int8_gemm(cfg, card)}
     asked = [flag for flag in timers if flag in sys.argv[1:]]
     for flag in asked:
         timers[flag]()
@@ -6185,7 +6583,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"[build] {name}:\n{log.strip()}")
-    from hirest_tpu_torch.ops.quant import mlp_int8_smem_bytes
+    from hirest_tpu_torch.ops.quant import (int8_gemm_smem_bytes,
+                                            mlp_int8_smem_bytes)
 
     ptxas_summary(logs.get("fused_mlp_int8", ""),
                   ("fused_mlp_int8_hidden_kernel",
@@ -6199,8 +6598,11 @@ def main() -> int:
                                              "bias_residual_kernel"))
     ptxas_summary(logs.get("int8_epilogue", ""), ("dequant_kernel",
                                                   "row_quant_kernel"))
+    ptxas_summary(logs.get("int8_gemm", ""), ("int8_gemm_kernel",))
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
+    print(f"[build] G1 dynamic shared memory a block, by (variant, out): "
+          f"{int8_gemm_smem_bytes()}")
 
     if "--parallel-only" in sys.argv[1:]:
         phase_parallel(card)
@@ -6244,9 +6646,11 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": launches[k], "max_abs_err": errs[k],
+        "launches": launches.get(k, 0), "max_abs_err": errs[k],
         **{key: timing[k][key] for key in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}}
+                                           "bound_by", "library_ms",
+                                           "int_mm_ms", "int_mm_e3_ms")
+           if key in timing[k]}}
         for k, (name, src, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

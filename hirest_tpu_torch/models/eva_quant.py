@@ -4,17 +4,18 @@ Counterpart of hirest_tpu/models/eva_quant.py::build_int8_vision_apply: a
 functional forward over the float tower's state dict in which every dense
 layer, the patch embedding and the head included, is an int8 x int8 ->
 int32 product (`ops/quant.py::QuantDense`: weights per output channel,
-activations per row from f32, the epilogue in f32 and then the cast). With
+activations per row from f32 by E4, the product and its epilogue, in f32
+and then the cast, in G1). With
 `quant_attention=False` the qkv and out projections stay in the working
 dtype. The rest of the block is the JAX function's: `eva_scan._ln` (f32
 statistics, cast back), the q/v biases added in the working dtype after the
 split, the split-heads attention kernel (K6, `ops/attention.py::
 fused_attention`) and the exact GELU.
 
-On the card `torch._int_mm` takes M > 16 and K, N multiples of 8: the patch
-embedding's K = 14 * 14 * 3 = 588 is zero-padded to 592 and the head's B
-rows to at least 17 (`ops/quant.py::int8_matmul`); neither changes a
-number.
+G1 reads its operands by TMA, so K must be a multiple of 16: the patch
+embedding's K = 14 * 14 * 3 = 588 is zero-padded to 592 (`ops/quant.py::
+QuantDense`), which changes no number. G1 takes any number of rows, the
+head's B class-token rows included.
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ Each block runs the JAX block's dispatch (eva_scan.py:296-430):
   without an activation on the card) and int8 products at every
   projection, the attention's bf16 output quantized the same way, fc1's
   GELU through E1.
-- Every int8 product is `torch._int_mm` followed by E3 (`int8_mm`'s
-  epilogue, ops/quant.py::int8_epilogue): the dequantization, the bias
-  and, after the out and fc2 products, the residual sum.
+- Every int8 product is one G1 launch (ops/quant.py::int8_mm,
+  csrc/int8_gemm.cu): the int8 x int8 -> int32 product and, in its
+  epilogue, the dequantization, the bias and, after the out and fc2
+  products, the residual sum.
 - `int8` + `fused_quant`: `ln_quant` (K2), the attention's int8 epilogue
   (K3, K9 or K8), the int8 fc1, `act_quant` (K5) and the int8 fc2; with
   `fused_mlp` the MLP is one kernel (K4). int8 + fused_quant + attn_v3 +

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("attention_qkv3", "attention_split", "ln_quant", "fused_mlp_int8",
-           "act_quant", "attention_f32", "epilogue", "int8_epilogue")
+           "act_quant", "attention_f32", "epilogue", "int8_epilogue",
+           "int8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,14 +15,11 @@
 //                 q = clamp(round_half_even(x / s), -127, 127)   [M, C]
 //
 // Each is the plain version rounding for rounding (ops/quant.py:
-// int8_epilogue_ref, dyn_quant_rows_ref): the int32 -> f32 conversion
-// rounds to nearest (__int2float_rn, as .float() converts), and the
-// products and the sum are __fmul_rn / __fadd_rn, which nvcc never
-// contracts into an FMA (one FMA would move codes downstream). In bf16
-// the result is rounded to bf16 before the residual reads it, and the sum
-// is rounded again, as `x + int8_mm(...)` rounds. E4's divisions are IEEE
-// (__fdiv_rn, rowquant.cuh's row_scale and code4), then __float2int_rn
-// (half to even) and the clip.
+// int8_epilogue_ref, dyn_quant_rows_ref). E3's arithmetic is
+// int8_dequant.cuh's, which G1 (int8_gemm.cu) runs in its own epilogue:
+// since G1 takes the int8 products whole, E3 runs on no path of the port.
+// E4's divisions are IEEE (__fdiv_rn, rowquant.cuh's row_scale and code4),
+// then __float2int_rn (half to even) and the clip.
 //
 // Bound on an H100 SXM (EVA-g, M = 128 * 257 = 32896), by bytes. E3 on the
 // qkv projection, [M, 4224]: 555.8 MB of int32 in, 277.9 MB of bf16 out,
@@ -40,14 +37,15 @@
 // up to kVecs vectors of 4 values in registers until the row's max is
 // known (warp shuffles, then for a warpgroup shared memory). E4 writes its
 // codes into rows ldq >= C wide, zero past C, and zero codes and scale
-// into rows M..rows-1: int8_matmul's zero-padded operand of torch._int_mm
-// (K a multiple of 8, at least 17 rows), so no pad pass follows it.
+// into rows M..rows-1: int8_matmul's operand of G1, zero-padded along K
+// (the patch rows' 588 to 592), so no pad pass follows it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "int8_dequant.cuh"
 #include "rowquant.cuh"
 
 namespace {
@@ -77,10 +75,6 @@ struct Vec4<__nv_bfloat16> {
   __device__ static Raw store(const float (&f)[4]) {
     return make_uint2(pack2(f[0], f[1]), pack2(f[2], f[3]));
   }
-  // v as the plain version stores it: rounded to bf16
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
 };
 
 template <>
@@ -95,7 +89,6 @@ struct Vec4<float> {
   __device__ static Raw store(const float (&f)[4]) {
     return make_float4(f[0], f[1], f[2], f[3]);
   }
-  __device__ static float round(float v) { return v; }
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -146,18 +139,18 @@ __global__ void __launch_bounds__(kThreads)
         float f[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          f[k] = __fmul_rn(__fmul_rn(__int2float_rn(av[k]), s), wv[k]);
+          f[k] = int8_dequant(av[k], s, wv[k]);
         if constexpr (kBias) {
           const float4 bb = rows[cvec + c];
           const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) f[k] = __fadd_rn(f[k], bv[k]);
+          for (int k = 0; k < 4; ++k) f[k] = int8_dequant_bias(f[k], bv[k]);
         }
         if constexpr (kResidual) {
           float h[4];
           V::load(r[u], h);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) f[k] = __fadd_rn(h[k], V::round(f[k]));
+          for (int k = 0; k < 4; ++k) f[k] = int8_residual_sum<T>(h[k], f[k]);
         }
         out[i] = V::store(f);
       }

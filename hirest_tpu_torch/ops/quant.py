@@ -7,27 +7,29 @@ _int8_mm). Weights keep nn.Linear's
 [out, in] layout, so both operands of every int8 product are contiguous
 along the reduced axis.
 
-Six kernels live here, each a hand-written CUDA kernel with a plain
+Seven kernels live here, each a hand-written CUDA kernel with a plain
 PyTorch version beside it: `ln_quant` (K2) and `ln_bf16` (K10), both in
 csrc/ln_quant.cu, `act_quant` (K5, csrc/act_quant.cu), `fused_mlp_int8`
-(K4, two kernels in csrc/fused_mlp_int8.cu), and the two the JAX package
-leaves to XLA, both in csrc/int8_epilogue.cu: `int8_epilogue` (E3), the
-dequantization of an int8 product's int32 accumulator, with its bias and
-the residual sum that follows it, and `row_quant` (E4), the dynamic
-per-row quantizer of `int8_matmul`. A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises. Each takes bf16 or f32
-input, as the JAX kernels compute in the dtype they are given: the row
-kernels (K2, K5, K10) have an f32 form of their own for f32 rows, K4 one
-for an f32 residual, E3 one for f32 out and E4 one for f32 rows;
-`row_kernel_shape`, `int8_epilogue_shape` and `row_quant_shape` state
-which tensors they take, without a GPU. The block's projections
-(`int8_mm`) are int8 x int8 -> int32 products on `torch._int_mm`, as the
-JAX package leaves the product to XLA, followed by E3. `dyn_quant_rows`,
-the scanned block's quantizer (eva_scan._dyn_quant_rows), runs K5's form
-without an activation, the same function bit for bit. `int8_matmul` and
-`QuantDense` (the unrolled int8 tower's dense layers, models/eva_quant.py)
-quantize the activations per row with E4 straight into the zero-padded
-operand `torch._int_mm` takes, then run the product and E3.
+(K4, two kernels in csrc/fused_mlp_int8.cu), and three the JAX package
+leaves to XLA: `int8_mm` (G1, csrc/int8_gemm.cu), an int8 projection
+whole, the int8 x int8 -> int32 product on wgmma with its dequantization,
+bias and residual sum in its epilogue; and, in csrc/int8_epilogue.cu,
+`int8_epilogue` (E3), that dequantization alone on an int32 accumulator,
+and `row_quant` (E4), the dynamic per-row quantizer of `int8_matmul`. A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Each takes bf16 or f32 input, as the JAX kernels compute in the
+dtype they are given: the row kernels (K2, K5, K10) have an f32 form of
+their own for f32 rows, K4 one for an f32 residual, G1 and E3 one for f32
+out and E4 one for f32 rows; `row_kernel_shape`, `int8_gemm_shape`,
+`int8_epilogue_shape` and `row_quant_shape` state which tensors they
+take, without a GPU. The block's projections (`int8_mm`) launch G1, whose
+epilogue is E3's arithmetic (csrc/int8_dequant.cuh), so E3 runs on no path
+of the port. `dyn_quant_rows`, the scanned block's quantizer
+(eva_scan._dyn_quant_rows), runs K5's form without an activation, the
+same function bit for bit. `int8_matmul` and `QuantDense` (the unrolled
+int8 tower's dense layers, models/eva_quant.py) quantize the activations
+per row with E4 straight into the operand G1 takes, zero-padded along K,
+then run G1.
 
 Every quantization is the reference's: scale max(max|y| / 127, 1e-8),
 codes round-half-even(y / scale) clipped to +-127, products accumulated in
@@ -73,9 +75,10 @@ def quantize_weight(w: torch.Tensor):
     """[..., out, in] float weight -> ([..., out, in] int8 codes,
     [..., out] f32 scales), one scale per output channel (and per layer
     for a stacked [L, out, in] weight). Counterpart of `quantize_weight`
-    and `eva_scan._quantize_stacked`, in nn.Linear's layout."""
+    and `eva_scan._quantize_stacked`, in nn.Linear's layout, the codes
+    contiguous whatever w's strides (G1 reads their rows by TMA)."""
     q, s = _scale_and_codes(w.float(), -1)
-    return q, s.squeeze(-1)
+    return q.contiguous(), s.squeeze(-1)
 
 
 def dyn_quant_rows_ref(x: torch.Tensor):
@@ -225,7 +228,7 @@ def row_quant(x2: torch.Tensor, rows=None, ldq=None):
     """E4: the rows x2 [M, C] (a 2-d view with unit last stride, rows any
     distance apart) -> (codes [rows, ldq] int8, scales [rows, 1] f32), each
     row quantized as `dyn_quant_rows`, zero past C and past M: the operand
-    torch._int_mm takes, padded (rows default M, ldq default C).
+    G1 takes, zero-padded along K (rows default M, ldq default C).
 
     A CPU tensor takes the plain version. A CUDA tensor must be bf16 or f32
     rows as `row_quant_shape` says, and launches the kernel; anything else
@@ -278,39 +281,183 @@ def dyn_quant_rows(x: torch.Tensor):
     return act_quant(x, act="none")
 
 
+# --- G1: the int8 projections, product and epilogue in one kernel --------
+
+INT8_GEMM_OUT = (torch.bfloat16, torch.float32)  # G1's output dtypes
+INT8_GEMM_K_MULTIPLE = 16  # TMA reads rows 16-byte aligned
+INT8_GEMM_N_MULTIPLE = 8  # the epilogue stores 8 bf16 values at a time
+# torch._int_mm on a CUDA tensor takes M > 16 rows: the plain version pads
+_INT_MM_MIN_ROWS = 17
+
+
+def int8_mm_ref(x_q, x_s, w_q, w_s, bias, out_dtype, residual=None):
+    """Plain version of G1: the exact int32 product x_q w_q^T
+    (`torch._int_mm`), then E3's plain version (`int8_epilogue_ref`). On a
+    CUDA tensor x_q's rows are zero-padded to the 17 `torch._int_mm`
+    takes there and the product cut back."""
+    m = x_q.shape[0]
+    x2 = x_q
+    if x_q.device.type == "cuda" and m < _INT_MM_MIN_ROWS:
+        x2 = F.pad(x_q, (0, 0, 0, _INT_MM_MIN_ROWS - m))
+    acc = torch._int_mm(x2.contiguous(), w_q.t())[:m]
+    return int8_epilogue_ref(acc, x_s, w_s, bias, out_dtype, residual)
+
+
+def int8_gemm_shape(out_dtype, x_shape, w_shape, x_stride=None,
+                    w_stride=None, aligned: bool = True) -> tuple:
+    """(M, N, K): what G1 makes of x_q `x_shape` [M, K] times w_q `w_shape`
+    [N, K]^T into out_dtype, each int8 operand with the strides given
+    (default contiguous), or raises: TypeError unless out_dtype is bf16 or
+    f32 (INT8_GEMM_OUT), both operands are 2-d with unit last stride and
+    rows a multiple of 16 bytes and at least K apart, and both start
+    16-byte aligned; ValueError (checked before the strides) unless they
+    share K, K is a multiple of INT8_GEMM_K_MULTIPLE, N of
+    INT8_GEMM_N_MULTIPLE, and M, N >= 1. A single row (M == 1) may have
+    any row stride. Needs no GPU: `int8_mm` checks its operands through
+    it."""
+    def row_stride(shape, stride):
+        if stride is None:
+            return shape[-1], 1
+        if len(stride) != 2:
+            return -1, -1
+        return (shape[-1] if shape[0] == 1 else stride[0]), stride[1]
+
+    if (out_dtype not in INT8_GEMM_OUT or len(x_shape) != 2
+            or len(w_shape) != 2 or not aligned):
+        raise TypeError(
+            f"G1 takes int8 x_q [M, K] and w_q [N, K], 16-byte aligned, into "
+            f"torch.bfloat16 or torch.float32, got {out_dtype} "
+            f"{tuple(x_shape)} x {tuple(w_shape)}, aligned={aligned}")
+    (m, k), (n, kw) = x_shape, w_shape
+    if (k != kw or k < 1 or k % INT8_GEMM_K_MULTIPLE or m < 1 or n < 1
+            or n % INT8_GEMM_N_MULTIPLE):
+        raise ValueError(f"G1 takes K % {INT8_GEMM_K_MULTIPLE} == 0 shared "
+                         f"by both operands, N % {INT8_GEMM_N_MULTIPLE} == 0 "
+                         f"and M >= 1, got {tuple(x_shape)} x "
+                         f"{tuple(w_shape)}")
+    for name, shape, stride in (("x_q", x_shape, x_stride),
+                                ("w_q", w_shape, w_stride)):
+        ld, unit = row_stride(shape, stride)
+        if unit != 1 or ld % 16 or ld < k:
+            raise TypeError(f"G1 reads {name} by TMA: unit last stride and "
+                            f"rows a multiple of 16 bytes and at least K "
+                            f"apart, got strides {stride} for "
+                            f"{tuple(shape)}")
+    return m, n, k
+
+
+# G1's variants (csrc/int8_gemm.cu): 256-wide tiles, one block an SM; or
+# 128-wide tiles, two blocks an SM
+INT8_GEMM_WIDE, INT8_GEMM_PAIR = 0, 1
+INT8_GEMM_VARIANTS = (INT8_GEMM_WIDE, INT8_GEMM_PAIR)
+
+
+def int8_gemm_config(k: int, f32: bool = False,
+                     residual: bool = False) -> int:
+    """The variant G1 launches for a product K deep into f32 (else bf16),
+    with or without a residual: what measured fastest on an H100 at
+    EVA-g's shapes (chip_smoke.py --time-int8-gemm, PERF.md). An epilogue
+    that reads a residual takes two blocks an SM, so that one block's
+    epilogue runs beside the other's products, unless the products are
+    deep enough (bf16 out, K > 2048) to outweigh it; every other product
+    takes 256-wide tiles."""
+    if residual and (f32 or k <= 2048):
+        return INT8_GEMM_PAIR
+    return INT8_GEMM_WIDE
+
+
+def _gemm_fn():
+    fn = build.load("int8_gemm").hirest_int8_gemm
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int8_gemm_smem_bytes() -> dict:
+    """Dynamic shared memory a block of each G1 variant asks for, by
+    (variant, output dtype name)."""
+    fn = build.load("int8_gemm").hirest_int8_gemm_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {(v, name): fn(v, int(name == "float32"))
+            for v in INT8_GEMM_VARIANTS for name in ("bfloat16", "float32")}
+
+
+def _int8_gemm_launch(x_q, x_s, w_q, w_s, bias, out_dtype, residual=None,
+                      variant=None):
+    """G1 on CUDA tensors, as int8_mm_ref, in `variant` or
+    int8_gemm_config's; checks its operands, counts nothing."""
+    _require_cuda(x_q)
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"G1 takes int8 operands, got {x_q.dtype} and "
+                        f"{w_q.dtype}")
+    if w_q.device != x_q.device:
+        raise ValueError(f"w_q on {w_q.device}, x_q on {x_q.device}")
+    m, n, k = int8_gemm_shape(out_dtype, x_q.shape, w_q.shape, x_q.stride(),
+                              w_q.stride(), x_q.data_ptr() % 16 == 0
+                              and w_q.data_ptr() % 16 == 0)
+    dev = x_q.device
+    xs = _f32_vector(x_s, m, dev)
+    ws = _f32_vector(w_s, n, dev)
+    b = None if bias is None else _f32_vector(bias, n, dev)
+    if residual is not None:
+        _check_operands("int8_mm", dev,
+                        residual=(residual, (m, n), out_dtype))
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    f32 = out_dtype == torch.float32
+    if variant is None:
+        variant = int8_gemm_config(k, f32, residual is not None)
+    ldx = x_q.stride(0) if m > 1 else k
+    with torch.cuda.device(dev):
+        err = _gemm_fn()(
+            x_q.data_ptr(), ldx, xs.data_ptr(), w_q.data_ptr(),
+            w_q.stride(0), ws.data_ptr(), None if b is None else b.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), m, n, k, int(f32), variant,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(build.load("int8_gemm"), err,
+                f"int8_mm{' f32' if f32 else ''} launch")
+    return out
+
+
 def int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype, residual=None):
     """x_q [M, in] int8 with row scales x_s [M, 1], w_q [out, in] int8 with
     channel scales w_s [out] -> (f32(x_q w_q^T) * x_s) * w_s + bias, cast
-    to out_dtype (eva_scan._int8_mm), or residual + that in out_dtype. The
-    product is exact in int32 (`torch._int_mm`); the epilogue is E3
-    (`int8_epilogue`)."""
-    return int8_epilogue(torch._int_mm(x_q, w_q.t()), x_s, w_s, bias,
-                         out_dtype, residual)
+    to out_dtype (eva_scan._int8_mm), or residual + that in out_dtype.
+
+    A CPU tensor takes the plain version (`int8_mm_ref`). A CUDA call
+    takes the operands as `int8_gemm_shape` says and the residual
+    contiguous and 16-byte aligned, and launches G1: the exact int32
+    product on wgmma and E3's arithmetic in its epilogue, bf16 or f32 out;
+    anything else raises. `int8_mm.launches` counts bf16-out launches,
+    `.launches_f32` f32 ones."""
+    if x_q.device.type == "cpu":
+        return int8_mm_ref(x_q, x_s, w_q, w_s, bias, out_dtype, residual)
+    out = _int8_gemm_launch(x_q, x_s, w_q, w_s, bias, out_dtype, residual)
+    _count(int8_mm, out_dtype == torch.float32)
+    return out
 
 
-# torch._int_mm on a CUDA tensor takes M > 16 rows and K, N multiples of 8
-INT_MM_MIN_ROWS = 17
-INT_MM_MULTIPLE = 8
+int8_mm.launches = 0
+int8_mm.launches_f32 = 0
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                 bias=None, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [..., in] float -> [..., out] (hirest_tpu/ops/quant.py::
-    int8_matmul): x quantized per row from f32 by E4 (`row_quant`), the
-    int8 x int8 -> int32 product and E3 (`int8_epilogue`: acc * x_s * w_s
-    + bias in f32, then the cast) on the real rows. w_q [out, in'] with
+    int8_matmul): x quantized per row from f32 by E4 (`row_quant`), then
+    the int8 x int8 -> int32 product and its epilogue (acc * x_s * w_s +
+    bias in f32, then the cast) in G1 (`int8_mm`). w_q [out, in'] with
     in' >= in: the weight's input axis may be zero-padded (QuantDense pads
-    it to a multiple of 8); E4 writes x's codes that wide, and at least
-    INT_MM_MIN_ROWS rows, with zeros past x's. Zero codes add nothing to
-    an int32 sum, so the padding changes no number. A CPU tensor takes
-    both plain versions; on CUDA a shape either kernel does not take
-    raises."""
+    it to a multiple of INT8_GEMM_K_MULTIPLE); E4 writes x's codes that
+    wide, with zeros past x's. Zero codes add nothing to an int32 sum, so
+    the padding changes no number. A CPU tensor takes both plain versions;
+    on CUDA a shape either kernel does not take raises."""
     shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    m = x2.shape[0]
-    x_q, x_s = row_quant(x2, max(m, INT_MM_MIN_ROWS), w_q.shape[1])
-    acc = torch._int_mm(x_q, w_q.t())
-    out = int8_epilogue(acc[:m], x_s[:m], w_s, bias, out_dtype)
+    x_q, x_s = row_quant(x.reshape(-1, shape[-1]), ldq=w_q.shape[1])
+    out = int8_mm(x_q, x_s, w_q, w_s, bias, out_dtype)
     return out.view(*shape[:-1], w_q.shape[0])
 
 
@@ -318,12 +465,13 @@ class QuantDense:
     """An int8 stand-in for a float Linear (hirest_tpu/ops/quant.py::
     QuantDense), callable on activations: the weight [out, in] quantized
     per output channel once, its input axis zero-padded to a multiple of
-    8 (exact: see int8_matmul), the bias kept in f32."""
+    INT8_GEMM_K_MULTIPLE (exact: see int8_matmul), the bias kept in
+    f32."""
 
     def __init__(self, weight: torch.Tensor, bias=None,
                  out_dtype=torch.bfloat16):
         w_q, self.w_s = quantize_weight(weight)
-        pad = -w_q.shape[1] % INT_MM_MULTIPLE
+        pad = -w_q.shape[1] % INT8_GEMM_K_MULTIPLE
         self.w_q = F.pad(w_q, (0, pad)) if pad else w_q
         self.bias = None if bias is None else bias.float()
         self.out_dtype = out_dtype

@@ -28,7 +28,7 @@ import hirest_tpu_torch.models.eva_scan as eva_scan
 import hirest_tpu_torch.ops.quant as quant
 from hirest_tpu.models.eva_scan import _dyn_quant_rows as jax_dyn_quant_rows
 from hirest_tpu.models.eva_scan import _int8_mm as jax_int8_mm
-from hirest_tpu_torch.ops.quant import (INT_MM_MIN_ROWS, act_quant,
+from hirest_tpu_torch.ops.quant import (act_quant,
                                         dyn_quant_rows, dyn_quant_rows_ref,
                                         int8_epilogue, int8_epilogue_ref,
                                         int8_epilogue_shape, int8_matmul,
@@ -40,6 +40,7 @@ C, F, QKV, EMBED = 1408, 6144, 4224, 1024  # EVA-g's widths
 PATCH = 14 * 14 * 3  # the unrolled tower's patch rows, 588 (K' = 592)
 DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16),
           "f32": (torch.float32, jnp.float32)}
+PAD_ROWS = 17  # rows E4 zero-pads its operand to, past the rows it quantizes
 
 
 def _rng(seed):
@@ -155,7 +156,7 @@ E4_CASES = [(c, dt) for c in (PATCH, C, F) for dt in DTYPES]
                          ids=[f"{c}-{d}" for c, d in E4_CASES])
 def test_row_quantizers_are_bit_equal_to_jax_dyn_quant_rows(c, dt):
     """`dyn_quant_rows` and E4's plain version (`row_quant`, also padded to
-    int8_matmul's [17, K'] operand) against JAX's `_dyn_quant_rows` on the
+    a [17, K'] operand) against JAX's `_dyn_quant_rows` on the
     same rows in the same dtype, codes and scales bit for bit, ties and
     the zero row included; the padding is zeros."""
     tdt, jdt = DTYPES[dt]
@@ -170,13 +171,13 @@ def test_row_quantizers_are_bit_equal_to_jax_dyn_quant_rows(c, dt):
     assert s[1, 0] == 1.0 and q[1, :7].tolist() == [127, 2, -4, 0, 0, 2, 126]
     assert torch.equal(q[2], -q[1])
     ldq = c + (-c % 8)
-    pq, ps = row_quant(xt, INT_MM_MIN_ROWS, ldq)
-    assert pq.shape == (INT_MM_MIN_ROWS, ldq) and ps.shape == (17, 1)
+    pq, ps = row_quant(xt, PAD_ROWS, ldq)
+    assert pq.shape == (PAD_ROWS, ldq) and ps.shape == (17, 1)
     np.testing.assert_array_equal(pq[:12, :c].numpy(), jq)
     np.testing.assert_array_equal(ps[:12].numpy(), js)
     assert not pq[12:].any() and not pq[:, c:].any() and not ps[12:].any()
     assert all(torch.equal(a, b) for a, b in
-               zip(row_quant_ref(xt, INT_MM_MIN_ROWS, ldq), (pq, ps)))
+               zip(row_quant_ref(xt, PAD_ROWS, ldq), (pq, ps)))
 
 
 def _jax_int8_matmul_quantization(monkeypatch, x):
@@ -215,8 +216,8 @@ def test_e4_plain_is_bit_equal_to_jax_int8_matmul_quantization(
 @pytest.mark.parametrize("k,n", [(PATCH, C), (C, EMBED), (C, QKV)],
                          ids=["patch", "head", "qkv"])
 def test_int8_matmul_matches_jax(k, n):
-    """`int8_matmul` (QuantDense's call: E4, the padded product, E3) on 5
-    rows, fewer than torch._int_mm's 17 on the card, against JAX's
+    """`int8_matmul` (QuantDense's call: E4, then the padded product and
+    its epilogue, G1's plain version) on 5 rows against JAX's
     `int8_matmul` in f32: within an f32 rounding; the codes it pads to
     K' = 592 add nothing."""
     rng = _rng(5)
@@ -240,7 +241,7 @@ def test_int8_matmul_matches_jax(k, n):
 EVA_G_E3 = [(32896, QKV), (32896, C), (32896, F), (128, EMBED), (128, C)]
 EVA_G_E4 = [((32896, C), C, C, 32896), ((32896, F), F, F, 32896),
             ((32768, PATCH), PATCH, 592, 32768), ((128, C), 257 * C, C, 128),
-            ((2, C), 257 * C, C, INT_MM_MIN_ROWS)]
+            ((2, C), 257 * C, C, 2)]
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -331,7 +332,7 @@ INT8_LADDER = {"int8": dict(int8=True),
                "int8+fq+v3": dict(int8=True, fused_quant=True, attn_v3=True),
                "int8+fq+v3+fm": dict(int8=True, fused_quant=True,
                                      attn_v3=True, fused_mlp=True)}
-# E3 calls and dyn_quant_rows (K5 none) calls a block makes in each
+# int8 products and dyn_quant_rows (K5 none) calls a block makes in each
 PER_BLOCK = {"int8": (4, 4), "int8+fq": (4, 0), "int8+fq+v2": (4, 0),
              "int8+fq+v3": (4, 0), "int8+fq+v3+fm": (2, 0)}
 RULE_CASES = [(name, dt) for name in INT8_LADDER for dt in DTYPES]
@@ -340,17 +341,21 @@ RULE_CASES = [(name, dt) for name in INT8_LADDER for dt in DTYPES]
 @pytest.mark.parametrize("name,dt", RULE_CASES,
                          ids=[f"{n}-{d}" for n, d in RULE_CASES])
 def test_shape_rules_take_every_scanned_int8_call(monkeypatch, name, dt):
-    """Every E3 call and every row quantization (`dyn_quant_rows`, K5
-    without an activation on the card) of each int8 configuration of the
-    scanned forward, in bf16 and f32, recorded on the CPU and held to the
-    CUDA wrappers' rules as it would come at EVA-g's widths: the same
-    dtype, leading dims, contiguity and alignment, each width EVA-g's."""
+    """Every int8 product's epilogue (each `int8_mm` call, whose [M, N]
+    accumulator E3 would dequantize) and every row quantization
+    (`dyn_quant_rows`, K5 without an activation on the card) of each int8
+    configuration of the scanned forward, in bf16 and f32, recorded on the
+    CPU and held to the CUDA wrappers' rules as it would come at EVA-g's
+    widths: the same dtype, leading dims, contiguity and alignment, each
+    width EVA-g's. (tests/test_torch_int8_gemm.py holds the same calls to
+    G1's rule.)"""
     tdt = DTYPES[dt][0]
     widths = _eva_g(configs(PACKED)[1])
     e3, k5 = [], []
-    _record(monkeypatch, quant, "int8_epilogue",
-            lambda acc, x_s, w_s, bias, out_dtype, residual=None:
-            _hold_e3(e3, widths, tuple(acc.shape), out_dtype, residual, tdt))
+    _record(monkeypatch, eva_scan, "int8_mm",
+            lambda x_q, x_s, w_q, w_s, bias, out_dtype, residual=None:
+            _hold_e3(e3, widths, (x_q.shape[0], w_q.shape[0]), out_dtype,
+                     residual, tdt))
     _record(monkeypatch, eva_scan, "dyn_quant_rows",
             lambda x: _hold_k5(k5, widths, x, tdt))
     sd, im = eva_state_dict(PACKED, seed=60), images(PACKED, 2, seed=60)
@@ -368,17 +373,19 @@ def test_shape_rules_take_every_scanned_int8_call(monkeypatch, name, dt):
 @pytest.mark.parametrize("dt", DTYPES)
 def test_shape_rules_take_every_unrolled_int8_call(monkeypatch, dt,
                                                    quant_attention):
-    """Every E4 and E3 call of the unrolled int8 tower (QuantDense: the
-    patch rows, 588 wide into 592-wide codes; the trunk's products; the
-    head on the class tokens, rows 257 x C apart, 2 of them padded to 17
-    rows), recorded on the CPU and held to the CUDA wrappers' rules at
-    EVA-g's widths."""
+    """Every E4 call and every product's epilogue (each `int8_mm` call,
+    whose [M, N] accumulator E3 would dequantize) of the unrolled int8
+    tower (QuantDense: the patch rows, 588 wide into 592-wide codes; the
+    trunk's products; the head on the class tokens, rows 257 x C apart),
+    recorded on the CPU and held to the CUDA wrappers' rules at EVA-g's
+    widths."""
     tdt = DTYPES[dt][0]
     widths = _eva_g(configs(PACKED)[1])
     e3, e4 = [], []
-    _record(monkeypatch, quant, "int8_epilogue",
-            lambda acc, x_s, w_s, bias, out_dtype, residual=None:
-            _hold_e3(e3, widths, tuple(acc.shape), out_dtype, residual, tdt))
+    _record(monkeypatch, quant, "int8_mm",
+            lambda x_q, x_s, w_q, w_s, bias, out_dtype, residual=None:
+            _hold_e3(e3, widths, (x_q.shape[0], w_q.shape[0]), out_dtype,
+                     residual, tdt))
     _record(monkeypatch, quant, "row_quant",
             lambda x2, rows=None, ldq=None:
             _hold_e4(e4, widths, x2, rows, ldq, tdt))
@@ -415,7 +422,7 @@ def test_cpu_calls_take_plain_versions_without_counting():
         for got, want in ((dyn_quant_rows(r), dyn_quant_rows_ref(r)),
                           (row_quant(r, 24, 68), row_quant_ref(r, 24, 68))):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
-        q, s = row_quant_ref(r[:5], INT_MM_MIN_ROWS)
+        q, s = row_quant_ref(r[:5], PAD_ROWS)
         want = int8_epilogue_ref(torch._int_mm(q, wq.t()), s, ws, None,
                                  dtype)[:5]
         assert torch.equal(int8_matmul(r[:5], wq, ws, out_dtype=dtype),
