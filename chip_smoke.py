@@ -12,8 +12,12 @@
     python3 chip_smoke.py --time-int8-gemm  # G1 and six int8 forwards alone
 
 --time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
-tokens, one 192-row query tile a head), K9, K6, K7 and K8 (bf16 and int8
-out), beside scaled_dot_product_attention, and nothing else, so a copy of
+tokens, one 192-row query tile a head), K9 (bf16 and int8 out, int8 also at
+128), K6, K7 and K8 (bf16 and int8 out), beside
+scaled_dot_product_attention; where K3 has its cluster epilogue, also
+K3's two-step epilogue and each cluster variant forced, with
+cudaOccupancyMaxActiveClusters and the variant the launch takes; then
+each head width's bounds; and nothing else, so a copy of
 this file run from a `git archive` of an earlier commit times that
 commit's kernels: run parent, change, change, parent in one call to
 compare two trees on one card. Where attention_split.cu has its
@@ -24,7 +28,9 @@ for K4 at B=128 (through fused_mlp_int8, which every version of the port
 has), beside its two products as torch._int_mm; where the checkout splits
 K4 into two kernels it also times the first alone. --time-rows does the
 same for K2, K5 (gelu_bf16_poly at 6144, none at 1408) and K10 beside
-F.layer_norm and a clone of K10's bytes, and K5 on the fc1 outputs of an
+F.layer_norm and a clone of K10's bytes, E4 (row_quant) at [M, 1408],
+[M, 6144], the patch rows and the head rows beside its bound and K5 none,
+and K5 on the fc1 outputs of an
 int8+fq+v3 forward; it first runs row_checks (each case's codes that
 differ from the plain version), then measures where K2's time spreads
 (the clocks, the kernel's own time against the host's, x in L2 or
@@ -56,7 +62,8 @@ The flags combine: one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
 
-1. build    compile every CUDA kernel of the port from this checkout (set-up);
+1. build    compile every CUDA kernel of the port from this checkout, and
+            attention_qkv3.cu again with -DHIREST_QKV3_TWO_STEP=1 (set-up);
             K4's two kernels', K1/K3's, the f32 body's, K5's, K2/K10's,
             E1's and E2's, E3's and E4's, and G1's instantiations'
             registers, spills and shared memory.
@@ -80,7 +87,16 @@ Phases; any failure exits non-zero before the result line is printed:
             the streamed body's blocks an SM for K6/K7's, K8's and K8
             int8's instantiations, K9
             (v2, bf16 and int8 out, and int8 padded to S = 264 with
-            n_real = 257), B = 2 and 128, M = 257 B; then row_checks: K2
+            n_real = 257), B = 2 and 128, M = 257 B; K3's cluster
+            epilogue (16 heads: the heads of a row on one thread-block
+            cluster) bit for bit, codes and scales, against the two-step
+            epilogue of the same body (the -DHIREST_QKV3_TWO_STEP=1 build)
+            through K3, K9 int8 and each cluster variant forced, at d = 88
+            and 128, B = 2 and 128, 257 tokens, 264 with n_real = 257,
+            and 33, 65 and 592 (d = 88) / 432 (d = 128) tokens, the
+            counts of differing values printed, with what
+            cudaOccupancyMaxActiveClusters gives each variant; then
+            row_checks: K2
             (ln_quant, [2 * 257 and M, 1408]), K5 (act_quant, [M, 6144]
             with both GELUs, [M, 1408] without one) and K10 (ln_bf16,
             [M, 1408]), each also at M = 1, 2, 257 and 5000 (not a
@@ -118,10 +134,13 @@ Phases; any failure exits non-zero before the result line is printed:
             projection [M, 4224] with and without its bias, out / fc2
             [M, 1408] with bias and residual, fc1 [M, 6144] and the head
             [M, 1024], for M = 32896, 1, 257 and 5000; E4 on rows of
-            1408 and 6144 at those M, the unrolled tower's patch rows
-            [B * 256, 588] into 592-wide codes and its head rows (the
-            class tokens, 257 x 1408 apart), B = 128 and 2, with k + 1/2
-            quotients and a zero row; K5 without
+            1408 and 6144 at those M and 257 rows into [300, C + 32]
+            (codes wider than the row, rows past M), the unrolled tower's
+            patch rows [B * 256, 588] into 592-wide codes and its head
+            rows (the class tokens, 257 x 1408 apart), B = 128 and 2, with
+            k + 1/2 quotients and a zero row, each on the kernel
+            row_quant_route names (bf16: the ring, bar the patch rows;
+            f32: row_quant_kernel) and counted there; K5 without
             an activation (what dyn_quant_rows launches) bit for bit
             against dyn_quant_rows' plain version at 1408 and 6144; and
             E3/E4 refusing what they do not take. G1 (int8_mm, the int8
@@ -156,8 +175,9 @@ Phases; any failure exits non-zero before the result line is printed:
             kernel launched; then the unrolled int8 tower
             (models/eva_quant.py::build_int8_vision_apply, every dense
             layer int8, with and without quant_attention) on the same
-            weights and frames: 40 K6 and 162 E4 and G1 a forward (82
-            without quant_attention) and nothing else, cosine >= 0.98 to
+            weights and frames: 40 K6, 162 G1 and 162 E4 a forward (82
+            without quant_attention; E4 on the ring but for the patch
+            rows, one row_quant_kernel) and nothing else, cosine >= 0.98 to
             the float unrolled tower at full depth.
 5. ladder   the kernel flag configurations of build_scanned_vision_apply
             (bench.py's ladder without its TPU layout flags) at full width
@@ -223,7 +243,9 @@ Phases; any failure exits non-zero before the result line is printed:
 8. profile  where one forward's device time goes, by group of kernels, and
             the device's idle share, for each precision, the unrolled
             towers and the ladder's bf16, int8 and int8+fq (K8) and
-            int8+fq+v3 (K5) forwards, G1 and E4 groups of their own;
+            int8+fq+v3 (K5) forwards, G1 and E4 groups of their own; the
+            production int8 and int8+fq+v3 forwards must run no
+            quant_rows_kernel and no memset (K3's epilogue in the kernel);
             each plain per-layer op timed alone.
 9. serving  the serving path at full width over phase 3's int8 features
             (written as .npy): the engine as `python -m
@@ -497,6 +519,7 @@ def counters() -> dict:
             "E3": (int8_epilogue, "launches"),
             "E3f32": (int8_epilogue, "launches_f32"),
             "E4": (row_quant, "launches"),
+            "E4rows": (row_quant, "rows_launches"),
             "E4f32": (row_quant, "launches_f32"),
             "G1": (int8_mm, "launches"),
             "G1f32": (int8_mm, "launches_f32"),
@@ -1392,18 +1415,23 @@ def row_quant_inputs(m: int, c: int, seed: int, dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-def codes_equal(tag: str, got, want) -> int:
-    """Codes and scales against the plain version's, bit for bit (bar 0);
-    returns the count of differing codes and scales."""
+def differing(got, want, tag: str = "") -> int:
+    """Codes and scales (by their bits) of got that differ from want's."""
     (q, s), (rq, rs) = got, want
     torch.cuda.synchronize()
     require(q.shape == rq.shape and s.shape == rs.shape,
             f"{tag}: shapes {tuple(q.shape)} {tuple(s.shape)}, expected "
             f"{tuple(rq.shape)} {tuple(rs.shape)}")
-    n = int((q != rq).sum().item()) + int(
+    return int((q != rq).sum().item()) + int(
         (s.view(torch.int32) != rs.view(torch.int32)).sum().item())
-    print(f"[kernels] {tag}: {n} of {q.numel()} codes and {s.numel()} "
-          f"scales differ (bar 0)")
+
+
+def codes_equal(tag: str, got, want) -> int:
+    """Codes and scales against the plain version's, bit for bit (bar 0);
+    returns the count of differing codes and scales."""
+    n = differing(got, want, tag)
+    print(f"[kernels] {tag}: {n} of {got[0].numel()} codes and "
+          f"{got[1].numel()} scales differ (bar 0)")
     require(n == 0, f"{tag} off its plain version")
     return n
 
@@ -1411,10 +1439,12 @@ def codes_equal(tag: str, got, want) -> int:
 def int8_epilogue_checks() -> dict:
     """E3 (every E3_FORMS product) bit for bit against its plain version
     in bf16 and f32 at M = 32896 and INT8_EDGE_M; E4 bit for bit against
-    its plain version on the trunk's rows (1408, 6144), the unrolled
-    tower's patch rows (588 into 592-wide codes, B = 128 and 2 images) and
-    head rows (the class tokens, 257 x 1408 apart, B = 128 and 2), with
-    ties and a zero row; K5 without an activation
+    its plain version on the trunk's rows (1408, 6144; also 257 rows into
+    [300, C + 32]), the unrolled tower's patch rows (588 into 592-wide
+    codes, B = 128 and 2 images) and head rows (the class tokens, 257 x
+    1408 apart, B = 128 and 2), with ties and a zero row, each on the
+    kernel row_quant_route names and counted there; K5 without an
+    activation
     (what dyn_quant_rows launches on the card) bit for bit against
     dyn_quant_rows' plain version at the scanned block's widths; then the
     wrappers refusing what the kernels do not take. Returns E3's and E4's
@@ -1422,7 +1452,7 @@ def int8_epilogue_checks() -> dict:
     from hirest_tpu_torch.ops.quant import (act_quant,
                                             dyn_quant_rows_ref, int8_epilogue,
                                             int8_epilogue_ref, row_quant,
-                                            row_quant_ref)
+                                            row_quant_ref, row_quant_route)
 
     worst = {}
     seed = 1300
@@ -1452,6 +1482,10 @@ def int8_epilogue_checks() -> dict:
                 seed += 1
                 x2 = row_quant_inputs(m, c, seed, dtype)
                 cases.append((f"[{m},{c}]", x2, m, c))
+            # codes wider than the row and rows past M, both zero
+            seed += 1
+            x2 = row_quant_inputs(TOKENS, c, seed, dtype)
+            cases.append((f"[{TOKENS},{c}] padded", x2, 300, c + 32))
         for batch in (BATCH, 2):
             seed += 1
             patches = row_quant_inputs(batch * 256, 588, seed, dtype)
@@ -1462,11 +1496,26 @@ def int8_epilogue_checks() -> dict:
             head = tokens.view(batch, TOKENS, 1408)[:, 0]
             cases.append((f"head rows [{batch},1408] {TOKENS} x 1408 apart",
                           head, batch, 1408))
+        # each case on the kernel row_quant_route names: the ring for bf16
+        # rows a bulk copy takes, row_quant_kernel for the patch rows and
+        # f32 rows; the launch counted on that kernel's count
         for what, x2, rows, ldq in cases:
-            codes_equal(f"E4{sfx} row_quant {what}, [{rows},{ldq}] out",
-                        row_quant(x2, rows, ldq),
+            ldx = x2.stride(0) if x2.shape[0] > 1 else x2.shape[1]
+            route = row_quant_route(dtype, x2.shape, ldx,
+                                    x2.data_ptr() % 16 == 0, ldq)
+            attr = ("launches" if route == "ring" else
+                    "launches_f32" if sfx else "rows_launches")
+            require(route == ("rows" if sfx or "patch" in what else "ring"),
+                    f"E4{sfx} {what} routed to {route}")
+            before = getattr(row_quant, attr)
+            codes_equal(f"E4{sfx} row_quant {what}, [{rows},{ldq}] out, "
+                        f"{route}", row_quant(x2, rows, ldq),
                         row_quant_ref(x2, rows, ldq))
+            require(getattr(row_quant, attr) == before + 1,
+                    f"E4{sfx} {what}: no launch on {attr}")
         worst["E4" + sfx] = 0.0
+        if not sfx:
+            worst["E4rows"] = 0.0
         for c in (1408, 6144):
             for m in (BATCH * TOKENS, *INT8_EDGE_M):
                 seed += 1
@@ -1521,17 +1570,48 @@ def row_quant_bound(m: int, c: int, dtype, ldq=None) -> dict:
     return bound(m * c * size + m * (ldq or c) + m * 4, 0, ISSUE_SLOTS_PER_S)
 
 
-def int8_epilogue_times(m: int, w: int) -> tuple:
+def e4_cases(m: int, w: int, hid: int, dtype=torch.bfloat16) -> dict:
+    """E4's shapes on the unrolled int8 tower at B=128: name -> (rows x2,
+    rows written, codes' width): the trunk's rows [M, w], the MLP's
+    [M, hid], the patch rows [128 * 256, 588] into 592 and the head's
+    class-token rows [128, w], 257 x w apart."""
+    tokens = row_quant_inputs(m, w, 1452, dtype)
+    return {f"[M,{w}]": (row_quant_inputs(m, w, 1450, dtype), m, w),
+            f"[M,{hid}]": (row_quant_inputs(m, hid, 1451, dtype), m, hid),
+            f"patch rows [{BATCH * 256},588] into 592": (
+                row_quant_inputs(BATCH * 256, 588, 1453, dtype), BATCH * 256,
+                592),
+            f"head rows [{BATCH},{w}] {TOKENS} x {w} apart": (
+                tokens.view(BATCH, TOKENS, w)[:, 0], BATCH, w)}
+
+
+def e4_times(m: int, w: int, hid: int, dtype=torch.bfloat16) -> dict:
+    """E4 (row_quant, through the wrapper every version of the port has) at
+    each e4_cases shape: ms beside its plain version, a clone of its rows
+    and its bound."""
+    from hirest_tpu_torch.ops.quant import row_quant, row_quant_ref
+
+    res = {}
+    for name, (x2, rows, ldq) in e4_cases(m, w, hid, dtype).items():
+        res[name] = {
+            "ms": cuda_ms(lambda: row_quant(x2, rows, ldq), 50, 5),
+            "plain_ms": cuda_ms(lambda: row_quant_ref(x2, rows, ldq), 5),
+            "library_ms": None,
+            "reference_ms": cuda_ms(lambda: x2.clone(), 20),
+            **row_quant_bound(rows, x2.shape[1], dtype, ldq)}
+    return res
+
+
+def int8_epilogue_times(m: int, w: int, hid: int) -> tuple:
     """E3 and E4 at B=128 (M = m) in bf16 and f32, each beside its plain
     chain, a same-bytes reference and its bound: E3 on the qkv projection
     [M, 3w] with its bias (the kernels line's row), on out / fc2 [M, w]
     with bias and residual; reference acc.to(dtype) (and x + that for the
-    residual form). E4 on the unrolled tower's trunk rows [M, w] (the
-    kernels line's row) and its patch rows [128 * 256, 588] into 592;
-    reference a clone of the rows. Returns (the kernels line's rows,
-    the others)."""
-    from hirest_tpu_torch.ops.quant import (int8_epilogue, int8_epilogue_ref,
-                                            row_quant, row_quant_ref)
+    residual form). E4 at e4_cases' shapes: the trunk's rows [M, w] on the
+    ring (the kernels line's E4; f32: row_quant_kernel, E4f32) and the
+    patch rows (row_quant_kernel, the kernels line's E4rows); reference a
+    clone of the rows. Returns (the kernels line's rows, the others)."""
+    from hirest_tpu_torch.ops.quant import int8_epilogue, int8_epilogue_ref
 
     res, extra = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1552,17 +1632,13 @@ def int8_epilogue_times(m: int, w: int) -> tuple:
                 "reference_ms": cuda_ms(ref, 20),
                 **int8_epilogue_bound(m, n, dtype, True, with_res)}
             del acc, x_s, w_s, b, x
-        for key, rows, c, ldq in ((f"E4{sfx}", m, w, w),
-                                  (f"E4{sfx} patch rows [{BATCH * 256},588] "
-                                   f"into 592", BATCH * 256, 588, 592)):
-            x2 = row_quant_inputs(rows, c, 1450 + c, dtype)
-            (res if key == f"E4{sfx}" else extra)[key] = {
-                "ms": cuda_ms(lambda: row_quant(x2, rows, ldq), 20),
-                "plain_ms": cuda_ms(lambda: row_quant_ref(x2, rows, ldq), 5),
-                "library_ms": None,
-                "reference_ms": cuda_ms(lambda: x2.clone(), 20),
-                **row_quant_bound(rows, c, dtype, ldq)}
-            del x2
+        for name, r in e4_times(m, w, hid, dtype).items():
+            if name == f"[M,{w}]":
+                res[f"E4{sfx}"] = r
+            elif name.startswith("patch") and not sfx:
+                res["E4rows"] = r
+            else:
+                extra[f"E4{sfx} {name}"] = r
     return res, extra
 
 
@@ -1875,6 +1951,66 @@ def time_int8_gemm(cfg, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# K3 and K9 int8's shapes in the kernels phase: (d, B, tokens, n_real):
+# EVA-g's and the padded heads', the padding to 264 tokens, and the tiles'
+# edges (a tile and one more row or key; the longest rows the staged first
+# version took)
+K3_SHAPES = tuple((d, batch, tokens, n_real) for d in (88, 128)
+                  for batch, tokens, n_real in (
+                      (2, TOKENS, 0), (BATCH, TOKENS, 0), (2, 264, TOKENS),
+                      (BATCH, 264, TOKENS), (2, 33, 0), (2, 65, 0),
+                      (2, 592 if d == 88 else 432, 0)))
+# heads a block of K3's cluster epilogue -> its clusters
+K3_VARIANTS = {1: "clusters of 16, one head a block",
+               2: "clusters of 8, two heads a block"}
+
+
+def k3_cluster_checks(heads: int) -> int:
+    """K3's cluster epilogue (attention_qkv3.cu at 16 heads) bit for bit
+    against the two-step epilogue of the same body (the library built with
+    -DHIREST_QKV3_TWO_STEP=1: the f32 workspace, atomicMax and the second
+    kernel) at every K3_SHAPES shape: through fused_attention_qkv3 and
+    fused_attention_qkv2 (the variant the card's rule picks) and each
+    K3_VARIANTS variant forced, codes and scales, the counts of differing
+    values printed (bar 0). Prints what cudaOccupancyMaxActiveClusters
+    gives each variant. Returns the differing values in all."""
+    from hirest_tpu_torch.ops import attention
+
+    for d in (88, 128):
+        info = attention.qkv3_cluster_info(d)
+        print(f"[kernels] K3 cluster epilogue d={d}: "
+              f"cudaOccupancyMaxActiveClusters {info['clusters_of_16']} "
+              f"clusters of 16 ({16 * info['clusters_of_16']} SMs), "
+              f"{info['clusters_of_8']} of 8 ({8 * info['clusters_of_8']} "
+              f"SMs); the launch takes {info['heads_per_block']} head(s) a "
+              f"block ({K3_VARIANTS[info['heads_per_block']]})")
+    total = 0
+    for i, (d, batch, tokens, n_real) in enumerate(K3_SHAPES):
+        qkv = attention_inputs(batch, seed=200 + i, tokens=tokens,
+                               hd=heads * d)
+        args = (qkv, d ** -0.5, heads)
+        want = attention._launch_qkv3(*args, True, n_real, two_step=True)
+        calls = {"K3": lambda: attention.fused_attention_qkv3(
+                     *args, quant_out=True, n_real=n_real),
+                 "K9 int8": lambda: attention.fused_attention_qkv2(
+                     *args, quant_out=True, n_real=n_real),
+                 **{f"{h} head(s) a block": (
+                     lambda h=h: attention._launch_qkv3(
+                         *args, True, n_real, heads_per_block=h))
+                    for h in K3_VARIANTS}}
+        counts = {name: differing(call(), want, f"K3 {name}")
+                  for name, call in calls.items()}
+        total += sum(counts.values())
+        print(f"[kernels] K3 cluster epilogue vs two-step [{batch},{tokens},"
+              f"{3 * heads * d}] n_real={n_real}: differing codes and "
+              f"scales " + ", ".join(f"{k} {n}" for k, n in counts.items())
+              + " (bar 0)")
+        require(not any(counts.values()),
+                f"K3 cluster epilogue off the two-step one at [{batch},"
+                f"{tokens},{3 * heads * d}] n_real={n_real}: {counts}")
+    return total
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
@@ -2091,6 +2227,7 @@ def phase_kernels(cfg) -> dict:
             fused_attention_qkv2_ref(qkv, scale, heads, quant_out=True,
                                      n_real=n_real), 0.99, 2 ** -7))
 
+    k3_cluster_checks(heads)
     f32 = f32_checks()
     worst["K6"] = max(worst["K6"], f32.pop("K6"))
     worst.update(f32)
@@ -2728,12 +2865,17 @@ def phase_f32_ladder(cfg, weights: dict, card: str) -> dict:
 INT8_TOWER = {True: "unrolled int8", False: "unrolled int8, bf16 qkv/out"}
 
 
-def int8_tower_launches(cfg, quant_attention: bool) -> dict:
+def int8_tower_launches(cfg, quant_attention: bool, f32: bool = False
+                        ) -> dict:
     """The unrolled int8 tower's launches a forward: K6 a layer, and E4
     and G1 for each QuantDense (4 a layer with quant_attention, else fc1
-    and fc2; the patch embedding and the head)."""
+    and fc2; the patch embedding and the head); in bf16 E4 on the ring for
+    all but the patch rows, which take row_quant_kernel (E4rows); their
+    f32 forms with f32."""
     dense = (4 if quant_attention else 2) * cfg.layers + 2
-    return dict(K6=cfg.layers, G1=dense, E4=dense)
+    if f32:
+        return dict(K6f32=cfg.layers, G1f32=dense, E4f32=dense)
+    return dict(K6=cfg.layers, G1=dense, E4=dense - 1, E4rows=1)
 
 
 def phase_int8_tower(cfg, weights: dict, factory: dict) -> dict:
@@ -2817,8 +2959,7 @@ def phase_int8_tower_depth(cfg, weights: dict, frames) -> dict:
     got = encode(frames)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = expect(**{k + "f32": v for k, v in
-                     int8_tower_launches(cut, True).items()})
+    want = expect(**int8_tower_launches(cut, True, f32=True))
     require(counts == want, f"f32 unrolled int8 launches {counts}, expected "
                             f"{want}")
     got = got.cpu().numpy()
@@ -2875,7 +3016,7 @@ def phase_int8_plain(main: dict, ladder: dict, tower: dict) -> None:
             "int8 dyn (ladder)": (ladder["fns"]["int8"], ("G1", "K5")),
             "int8+fq (ladder)": (ladder["fns"]["int8+fq"], ("G1",)),
             "int8+fq+v3 (ladder)": (ladder["fns"]["int8+fq+v3"], ("G1",)),
-            "unrolled int8": (tower["fns"][True], ("G1", "E4"))}
+            "unrolled int8": (tower["fns"][True], ("G1", "E4", "E4rows"))}
     for tag, (fn, kernels) in runs.items():
         outs, counts, int_mm = [], [], []
         for plain in (False, True):
@@ -3308,7 +3449,7 @@ def phase_timing(cfg, main: dict, factory: dict, ladder: dict,
         (res if key in ("E1", "E2", "E1f32", "E2f32") else extra)[key] = r
     # E3 on the qkv projection and on out / fc2 with the residual, E4 on
     # the unrolled tower's trunk and patch rows, in bf16 and f32
-    e3e4, e3e4_extra = int8_epilogue_times(m, w)
+    e3e4, e3e4_extra = int8_epilogue_times(m, w, hid)
     res.update(e3e4)
     extra.update(e3e4_extra)
     # G1 at every product it takes over, beside torch._int_mm and
@@ -3350,7 +3491,8 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
-        ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
+        ("K3 attention_qkv3, int8 epilogue in the kernel (CUDA; the two-step "
+         "epilogue's quant_rows too, should it run)",
          ("attention_qkv3", "quant_rows")),
         ("K4 fused_mlp_int8 (CUDA)", ("fused_mlp_int8",)),
         ("other GEMMs (cuBLAS; torch._int_mm before G1)",
@@ -3389,7 +3531,8 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
          ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
-        ("K3 attention_qkv3 int8 epilogue (CUDA, both steps)",
+        ("K3 attention_qkv3, int8 epilogue in the kernel (CUDA; the two-step "
+         "epilogue's quant_rows too, should it run)",
          ("attention_qkv3", "quant_rows")),
         ("K5 act_quant (CUDA)", ("act_quant",)),
         ("other GEMMs (cuBLAS; torch._int_mm before G1)",
@@ -3434,7 +3577,8 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("G1 int8_gemm, products and dequant (CUDA)",
          ("int8_gemm_kernel",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
-        ("E4 row_quant (CUDA)", ("row_quant_kernel",)),
+        ("E4 row_quant (CUDA: act_quant_kernel's ring; the patch rows' "
+         "row_quant_kernel)", ("row_quant_kernel", "act_quant_kernel")),
         ("K6 attention_split (CUDA)", ("attention_split",)),
         ("other GEMMs (bf16 cuBLAS qkv/out without quant_attention; "
          "torch._int_mm before G1)", ("nvjet", "gemm", "cutlass", "xmma",
@@ -3516,14 +3660,26 @@ def profile_call(label: str, fn, card: str, group_set: str,
         print(f"[{tag}]   {g}: {ms:.2f} ms ({ms / busy:.4f} of busy)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[{tag}]     kernel {name[:110]}: {ms:.2f} ms")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": launches}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": launches,
+            "kernels": kernels}
 
 
 def profile_forward(tag: str, enc, batch: np.ndarray, card: str,
-                    group_set: str) -> None:
+                    group_set: str) -> dict:
     """One forward's device kernels by group, and the idle share."""
-    profile_call(f"one {tag} forward B={BATCH}", lambda: enc(batch), card,
-                 group_set)
+    return profile_call(f"one {tag} forward B={BATCH}", lambda: enc(batch),
+                        card, group_set)
+
+
+def no_two_step_epilogue(tag: str, prof: dict) -> None:
+    """K3's int8 epilogue ran inside the attention kernel: the profiled
+    forward ran no quant_rows_kernel and no memset (the two-step
+    epilogue's second kernel and its rowmax zeroing)."""
+    found = [k for k in prof["kernels"]
+             if "quant_rows" in k or "memset" in k.lower()]
+    print(f"[profile] {tag}: quant_rows_kernel or memset on the device: "
+          f"{found or 'none'}")
+    require(not found, f"{tag} ran the two-step epilogue's {found}")
 
 
 def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
@@ -3540,12 +3696,16 @@ def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
 
     batch = normalize_frames(main["frames"]["vid_a"][:BATCH])
     for tag, encoders in main["encoders"].items():
-        profile_forward(tag, encoders[False], batch, card, tag)
+        prof = profile_forward(tag, encoders[False], batch, card, tag)
+        if tag == "int8":
+            no_two_step_epilogue("the production int8 forward", prof)
     for tag, groups in (("bf16", "ladder bf16"), ("int8", "ladder int8 K8"),
                         ("int8+fq", "ladder int8 K8"),
                         ("int8+fq+v3", "ladder int8")):
-        profile_forward(f"ladder {tag}", ladder["fns"][tag], batch, card,
-                        groups)
+        prof = profile_forward(f"ladder {tag}", ladder["fns"][tag], batch,
+                               card, groups)
+        if tag == "int8+fq+v3":
+            no_two_step_epilogue("ladder int8+fq+v3", prof)
     for tag in ("unrolled", "padded_unrolled", "padded_scanned"):
         profile_forward(f"factory {tag}", factory["models"][tag].encode_image,
                         batch, card, "bf16" if "scanned" in tag
@@ -5846,14 +6006,18 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
     # epilogue (with the residual at :320, :334, :338, :345; also
     # hirest_tpu/ops/quant.py:52-55) and of int8_matmul's row quantization
     # (hirest_tpu/ops/quant.py:45-48, as _dyn_quant_rows :84-89); times at
-    # the qkv projection [M, 4224] and the unrolled tower's [M, 1408] rows
+    # the qkv projection [M, 4224], the unrolled tower's [M, 1408] rows (E4
+    # on K5's ring body) and its patch rows (E4rows: row_quant_kernel)
     "E3": ("int8_epilogue", "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
            "hirest_tpu/models/eva_scan.py:92"),
     "E3f32": ("int8_epilogue (float32)",
               "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
               "hirest_tpu/models/eva_scan.py:92"),
-    "E4": ("row_quant", "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
+    "E4": ("row_quant", "hirest_tpu_torch/ops/csrc/act_quant.cu",
            "hirest_tpu/ops/quant.py:46"),
+    "E4rows": ("row_quant (patch rows)",
+               "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
+               "hirest_tpu/ops/quant.py:46"),
     "E4f32": ("row_quant (float32)",
               "hirest_tpu_torch/ops/csrc/int8_epilogue.cu",
               "hirest_tpu/ops/quant.py:46"),
@@ -5901,6 +6065,7 @@ def time_attention(cfg, card: str) -> None:
                                                 fused_attention_ref)
 
     variants = "defines" in inspect.signature(build.load).parameters
+    cluster = hasattr(attention, "qkv3_cluster_info")  # K3's epilogue
     flags = {k: (f"-DHIREST_SPLIT_ARITH={k}",) for k in ARITH_VARIANTS if k}
     with ThreadPoolExecutor(8) as pool:
         jobs = [pool.submit(build.build,
@@ -5908,6 +6073,9 @@ def time_attention(cfg, card: str) -> None:
         if variants:
             jobs += [pool.submit(build.build, ("attention_split",), f)
                      for f in flags.values()]
+        if cluster:
+            jobs.append(pool.submit(build.build, ("attention_qkv3",),
+                                    attention.QKV3_TWO_STEP))
         for job in jobs:
             job.result()
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
@@ -5947,8 +6115,35 @@ def time_attention(cfg, card: str) -> None:
                                                     heads), 50),
           "K8q": cuda_ms(lambda: fused_attention_qkv(
               qkv8, qb, vb, scale, heads, quant_out=True), 50)}
+    ms["K9q d=128"] = cuda_ms(lambda: fused_attention_qkv2(
+        qkv128, p128, heads, quant_out=True), 50)
+    if cluster:
+        # K3's epilogues on the same inputs: the two-step one (the same
+        # body, -DHIREST_QKV3_TWO_STEP=1) and each cluster variant forced
+        for d, x, sc in ((88, qkv, scale), (128, qkv128, p128)):
+            sfx = "" if d == 88 else " d=128"
+            info = attention.qkv3_cluster_info(d)
+            print(f"[time-attention] {card}: K3 d={d}: "
+                  f"cudaOccupancyMaxActiveClusters {info['clusters_of_16']} "
+                  f"clusters of 16, {info['clusters_of_8']} of 8; the "
+                  f"launch takes {K3_VARIANTS[info['heads_per_block']]}")
+            ms[f"K3 two-step{sfx}"] = cuda_ms(
+                lambda x=x, sc=sc: attention._launch_qkv3(
+                    x, sc, heads, True, 0, two_step=True), 50)
+            for h in K3_VARIANTS:
+                ms[f"K3 {K3_VARIANTS[h]}{sfx}"] = cuda_ms(
+                    lambda x=x, sc=sc, h=h: attention._launch_qkv3(
+                        x, sc, heads, True, 0, heads_per_block=h), 50)
     print(f"[time-attention] {card}: {REPO}: " + ", ".join(
         f"{name} {t:.4f} ms" for name, t in ms.items()))
+    for d, x in ((88, qkv), (128, qkv128)):
+        m, hd = BATCH * TOKENS, heads * d
+        flops = 2 * 2 * BATCH * heads * TOKENS * TOKENS * d
+        k1 = bound(x.numel() * 2 + m * hd * 2, flops, BF16_FLOP_PER_S)
+        k3 = bound(x.numel() * 2 + m * hd + m * 4, flops, BF16_FLOP_PER_S)
+        print(f"[time-attention] bounds d={d}: K1 {k1['bound_ms']:.4f} ms "
+              f"({k1['bound_by']}), K3 and K9 int8 {k3['bound_ms']:.4f} ms "
+              f"({k3['bound_by']})")
     if not variants:
         return
     want6 = fused_attention_ref(q, k, v, scale)
@@ -6389,7 +6584,8 @@ def row_spread(x, g, b, card: str, others: dict) -> None:
 
 def time_rows(cfg, card: str) -> None:
     """K2, K5 (gelu_bf16_poly at 6144, none at 1408) and K10 ms per call at
-    B=128, beside F.layer_norm for K10 and a clone of K10's bytes, and K5
+    B=128, beside F.layer_norm for K10 and a clone of K10's bytes, E4 at
+    e4_cases' shapes beside its bound and K5 none, and K5
     on the fc1 outputs of an int8+fq+v3 forward, through the wrappers that
     every version of the port has (see time_attention); the kernels'
     ptxas registers where this call built them, and row_checks'
@@ -6427,6 +6623,12 @@ def time_rows(cfg, card: str) -> None:
             lambda: quant.act_quant(h, act=act), 50)
     print(f"[time-rows] {card}: {REPO}: " + ", ".join(
         f"{name} {t:.4f} ms" for name, t in ms.items()))
+    for name, r in e4_times(m, w, hid).items():
+        print(f"[time-rows] {card}: E4 row_quant {name}: {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.3f} of it), a clone of its rows "
+              f"{r['reference_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+              f"K5 none at [M,{w}] {ms['K5 none']:.4f} ms")
     for what, h in [*((f"layer {i}'s fc1", h) for i, h in enumerate(fc1)),
                     ("the synthetic fc1", h6)]:
         y = quant._act(act, quant.QUANT_ACTS)(h.float())
@@ -6577,10 +6779,18 @@ def main() -> int:
         timers[flag]()
     if asked:
         return 0
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hirest_tpu_torch.ops.attention import QKV3_TWO_STEP
+
     t0 = time.perf_counter()
-    logs = build.build()
-    print(f"[build] {len(logs)} CUDA sources compiled in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        # K3's two-step epilogue, the cluster epilogue's yardstick
+        two_step = pool.submit(build.build, ("attention_qkv3",), QKV3_TWO_STEP)
+        logs = build.build()
+        two_step.result()
+    print(f"[build] {len(logs)} CUDA sources and the two-step attention_qkv3 "
+          f"compiled in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"[build] {name}:\n{log.strip()}")
     from hirest_tpu_torch.ops.quant import (int8_gemm_smem_bytes,

@@ -6,7 +6,10 @@ Counterparts of hirest_tpu/ops/attention.py:
   epilogue (quant_out): the production scanned trunk. It launches the CUDA
   kernel `csrc/attention_qkv3.cu` on a CUDA tensor (K and V through a TMA
   ring, QK^T and PV on wgmma): K1 for bf16 output, K3 for int8 codes and
-  row scales.
+  row scales. At 16 heads K3 quantizes inside the kernel, the heads of a
+  row on the blocks of one thread-block cluster (`qkv3_route`); at other
+  head counts it takes the two-step epilogue (an f32 workspace, then a
+  second kernel).
 - `fused_attention_qkv2` (v2, K9): the same function, which the TPU kernel
   computes one head at a time. That loop is TPU scheduling, so it launches
   the same CUDA kernel, under its own launch counts.
@@ -54,11 +57,44 @@ from hirest_tpu_torch.ops.quant import dyn_quant_rows_ref
 
 LOG2E = 1.4426950408889634
 QKV3_HEAD_WIDTHS = (88, 128)  # head widths attention_qkv3.cu is built for
+QKV3_CLUSTER_HEADS = 16  # the head count of K3's cluster epilogue
+QKV3_TWO_STEP = ("-DHIREST_QKV3_TWO_STEP=1",)  # the two-step-only build
 SPLIT_HEAD_WIDTHS = (64, 88, 128)  # and attention_split.cu, attention_f32.cu
 
 
-def _split(qkv_biased: torch.Tensor, num_heads: int):
-    b, s, three_hd = qkv_biased.shape
+def qkv3_route(num_heads: int, quant_out: bool) -> str:
+    """Which of attention_qkv3.cu's epilogues a call with num_heads heads
+    takes: "bf16" (K1, bf16 out); with quant_out "cluster" (K3's int8
+    epilogue inside the kernel, the heads of a row on the blocks of one
+    thread-block cluster) at QKV3_CLUSTER_HEADS heads, else "two_step"
+    (an f32 workspace, each row's max by atomicMax, a second kernel)."""
+    if not quant_out:
+        return "bf16"
+    return "cluster" if num_heads == QKV3_CLUSTER_HEADS else "two_step"
+
+
+def qkv3_shape(dtype, shape, num_heads: int, quant_out: bool,
+               contiguous: bool = True, aligned: bool = True) -> str:
+    """The epilogue (`qkv3_route`) that attention_qkv3.cu runs for bias-
+    complete qkv `shape` [B, S, 3*H*d] of dtype with num_heads heads, or
+    raises: ValueError unless qkv is 3-d with a last dim 3 * num_heads * d,
+    d in QKV3_HEAD_WIDTHS, contiguous and 16-byte aligned; TypeError unless
+    bf16. Needs no GPU: the CUDA wrappers check their input through it."""
+    if len(shape) != 3:
+        raise ValueError(f"expected [B, S, 3*H*d], got {tuple(shape)}")
+    d = _split(shape, num_heads)[3]
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bfloat16, got {dtype}")
+    if d not in QKV3_HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel is built for head widths "
+                         f"{QKV3_HEAD_WIDTHS}, got {d}")
+    if not contiguous or not aligned:
+        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    return qkv3_route(num_heads, quant_out)
+
+
+def _split(shape, num_heads: int):
+    b, s, three_hd = shape
     if three_hd % (3 * num_heads):
         raise ValueError(f"last dim {three_hd} is not 3 * {num_heads} heads "
                          f"* head width")
@@ -76,7 +112,7 @@ def fused_attention_qkv3_ref(qkv_biased: torch.Tensor, scale: float,
 
     quant_out: return (int8 codes [B, S, H*d], f32 scales [B, S, 1]) of
     the f32 output, one scale over all heads of a row, instead."""
-    b, s, hd, d = _split(qkv_biased, num_heads)
+    b, s, hd, d = _split(qkv_biased.shape, num_heads)
     q, k, v = qkv_biased.view(b, s, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if n_real:
@@ -99,16 +135,34 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return True
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = build.load("attention_qkv3")
+def _kernel_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = build.load("attention_qkv3", defines)
     ints = [ctypes.c_int] * 5  # B, S, H, D, n_keys
     lib.hirest_attention_qkv3_bf16.argtypes = (
         [ctypes.c_void_p] * 2 + ints + [ctypes.c_float, ctypes.c_void_p])
     lib.hirest_attention_qkv3_quant.argtypes = (
-        [ctypes.c_void_p] * 5 + ints + [ctypes.c_float, ctypes.c_void_p])
-    lib.hirest_attention_qkv3_bf16.restype = ctypes.c_int
-    lib.hirest_attention_qkv3_quant.restype = ctypes.c_int
+        [ctypes.c_void_p] * 5 + ints + [ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_void_p])
+    lib.hirest_attention_qkv3_cluster_info.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.hirest_attention_qkv3_bf16,
+               lib.hirest_attention_qkv3_quant,
+               lib.hirest_attention_qkv3_cluster_info):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def qkv3_cluster_info(d: int) -> dict:
+    """K3's cluster epilogue on this card at head width d: the clusters of
+    16 and of 8 blocks it holds at once (cudaOccupancyMaxActiveClusters),
+    and the heads a block the launch takes (1: clusters of 16, 2: clusters
+    of 8)."""
+    lib = _kernel_lib()
+    info = (ctypes.c_int * 3)()
+    build.check(lib, lib.hirest_attention_qkv3_cluster_info(d, info),
+                "attention_qkv3 cluster info")
+    return {"clusters_of_16": info[0], "clusters_of_8": info[1],
+            "heads_per_block": info[2]}
 
 
 def _count_f32(wrapper, quant_out: bool) -> None:
@@ -119,37 +173,43 @@ def _count_f32(wrapper, quant_out: bool) -> None:
 
 
 def _launch_qkv3(qkv_biased: torch.Tensor, scale: float, num_heads: int,
-                 quant_out: bool, n_real: int):
-    """Launch attention_qkv3.cu on bias-complete [B, S, 3*H*d] qkv."""
-    if qkv_biased.dim() != 3:
-        raise ValueError(f"expected [B, S, 3*H*d], got "
-                         f"{tuple(qkv_biased.shape)}")
-    b, s, hd, d = _split(qkv_biased, num_heads)
-    if qkv_biased.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bfloat16, got "
-                        f"{qkv_biased.dtype}")
-    if d not in QKV3_HEAD_WIDTHS:
-        raise ValueError(f"the CUDA kernel is built for head widths "
-                         f"{QKV3_HEAD_WIDTHS}, got {d}")
-    if not qkv_biased.is_contiguous() or qkv_biased.data_ptr() % 16:
-        raise ValueError("qkv must be contiguous and 16-byte aligned")
+                 quant_out: bool, n_real: int, two_step: bool = False,
+                 heads_per_block: int = 0):
+    """Launch attention_qkv3.cu on bias-complete [B, S, 3*H*d] qkv, int8
+    out by the epilogue `qkv3_shape` names: the cluster epilogue (no
+    scratch; heads_per_block 1 or 2 forces a variant, 0 takes the card's
+    rule), or the two-step one with its workspace. two_step: the library
+    built with -DHIREST_QKV3_TWO_STEP=1, whose every int8 call is two-step
+    (chip_smoke.py's yardstick of the cluster epilogue)."""
+    route = qkv3_shape(qkv_biased.dtype, qkv_biased.shape, num_heads,
+                       quant_out, qkv_biased.is_contiguous(),
+                       qkv_biased.data_ptr() % 16 == 0)
     if n_real < 0:
         raise ValueError(f"n_real must be >= 0, got {n_real}")
+    if two_step and route == "cluster":
+        route = "two_step"
+    if heads_per_block and route != "cluster":
+        raise ValueError(f"heads_per_block={heads_per_block} asks for the "
+                         f"cluster epilogue, which this call does not take")
+    b, s, hd, d = _split(qkv_biased.shape, num_heads)
     n_keys = min(n_real, s) if n_real else s
     dev = qkv_biased.device
-    lib = _kernel_lib()
+    lib = _kernel_lib(QKV3_TWO_STEP if two_step else ())
     c = scale * LOG2E
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if quant_out:
-            ws = torch.empty((b, s, hd), dtype=torch.float32, device=dev)
-            rowmax = torch.empty((b, s), dtype=torch.int32, device=dev)
+            ws = rowmax = None
+            if route == "two_step":
+                ws = torch.empty((b, s, hd), dtype=torch.float32, device=dev)
+                rowmax = torch.empty((b, s), dtype=torch.int32, device=dev)
             q = torch.empty((b, s, hd), dtype=torch.int8, device=dev)
             sc = torch.empty((b, s, 1), dtype=torch.float32, device=dev)
             err = lib.hirest_attention_qkv3_quant(
-                qkv_biased.data_ptr(), ws.data_ptr(), rowmax.data_ptr(),
-                q.data_ptr(), sc.data_ptr(), b, s, num_heads, d, n_keys, c,
-                stream)
+                qkv_biased.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if rowmax is None else rowmax.data_ptr(), q.data_ptr(),
+                sc.data_ptr(), b, s, num_heads, d, n_keys, c,
+                heads_per_block, stream)
             out = (q, sc)
         else:
             out = torch.empty((b, s, hd), dtype=qkv_biased.dtype, device=dev)
@@ -435,7 +495,7 @@ def _launch_qkv_f32(qkv_biased: torch.Tensor, scale: float, num_heads: int,
     if qkv_biased.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got "
                          f"{tuple(qkv_biased.shape)}")
-    b, s, hd, _ = _split(qkv_biased, num_heads)
+    b, s, hd, _ = _split(qkv_biased.shape, num_heads)
     if n_real < 0:
         raise ValueError(f"n_real must be >= 0, got {n_real}")
     n_keys = min(n_real, s) if n_real else s
@@ -562,7 +622,7 @@ def fused_attention_qkv_ref(qkv: torch.Tensor, q_bias: torch.Tensor,
     added in that dtype, then K6's softmax attention per head -> [B, S, H*d]
     in qkv's dtype, or with quant_out the int8 codes and f32 row scales
     [B, S, 1] of the f32 output (one scale over all heads of a row)."""
-    _split(qkv, num_heads)
+    _split(qkv.shape, num_heads)
     q, k, v = qkv.chunk(3, -1)
     q = q + q_bias.to(qkv.dtype)
     v = v + v_bias.to(qkv.dtype)
@@ -595,7 +655,7 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
                                        quant_out=quant_out)
     if qkv.dim() != 3:
         raise ValueError(f"expected [B, S, 3*H*d], got {tuple(qkv.shape)}")
-    b, s, hd, d = _split(qkv, num_heads)
+    b, s, hd, d = _split(qkv.shape, num_heads)
     if qkv.dtype == torch.float32:
         q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
         out = None if quant_out else torch.empty(

@@ -104,36 +104,6 @@ constexpr size_t kSmem2 = 1024 + (size_t)kStages2 * (kATile + kB2Tile) +
                           2 * kStages2 * sizeof(uint64_t);
 static_assert(kC % kBN2 == 0 && kB2Tile % 1024 == 0, "fc2 column tiles");
 
-// --- clusters ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// *p in the shared memory of the cluster's block `rank` = v.
-__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
-               : "memory");
-}
-
 // D[64 x 128] (+)= A[64 x 32] * B[128 x 32]^T, s8 x s8 -> s32; both operands
 // K-major in shared memory (128-byte swizzle), D in 64 registers a thread.
 __device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,

@@ -1,7 +1,8 @@
 // Hopper pieces shared by the kernels built on TMA and wgmma
 // (fused_mlp_int8.cu, attention_qkv3.cu, attention_f32.cu) and by the row
 // ring (rowring.cuh): mbarriers, TMA tile loads, 1-d bulk copies, the
-// tensor-map encoder, setmaxnreg, wgmma's fence / commit / wait,
+// tensor-map encoder, clusters and their distributed shared memory,
+// setmaxnreg, wgmma's fence / commit / wait,
 // shared-memory matrix descriptors, the bf16 wgmma products of the
 // attention kernel, and the tf32 ones of the f32 body with its tf32
 // rounding, proxy fence and named barrier (attention_tiles.cuh takes its
@@ -94,6 +95,82 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// --- clusters ------------------------------------------------------------
+//
+// Blocks of one cluster (fused_mlp_int8.cu's K4a, attention_qkv3.cu's K3
+// epilogue) reach each other's shared memory through mapa addresses.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of *p in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+
+// *p in the shared memory of the cluster's block `rank` = v.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(
+                   cluster_addr(p, rank)),
+               "f"(v)
+               : "memory");
+}
+
+// *p in the shared memory of the cluster's block `rank` (volatile: kept
+// after the barrier wait that makes it valid).
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(cluster_addr(p, rank)));
+  return v;
+}
+
+// One arrival on the mbarrier *bar of the cluster's block `rank`,
+// releasing this thread's earlier writes to the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_addr(bar, rank))
+      : "memory");
+}
+
+// mbar_wait that acquires what the arrivals released in the cluster.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
 }
 
 // --- warpgroups ----------------------------------------------------------

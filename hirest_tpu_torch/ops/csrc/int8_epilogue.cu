@@ -19,7 +19,12 @@
 // int8_dequant.cuh's, which G1 (int8_gemm.cu) runs in its own epilogue:
 // since G1 takes the int8 products whole, E3 runs on no path of the port.
 // E4's divisions are IEEE (__fdiv_rn, rowquant.cuh's row_scale and code4),
-// then __float2int_rn (half to even) and the clip.
+// then __float2int_rn (half to even) and the clip. row_quant_kernel takes
+// only the rows that the bulk-copy ring does not (ops/quant.py::
+// row_quant_route): the unrolled tower's 588-wide patch rows (1,176 bytes
+// a row: neither a multiple of 16 bytes nor 16-byte aligned) and f32 rows;
+// bf16 rows a bulk copy takes run K5's ring body (act_quant.cu,
+// hirest_row_quant_ring).
 //
 // Bound on an H100 SXM (EVA-g, M = 128 * 257 = 32896), by bytes. E3 on the
 // qkv projection, [M, 4224]: 555.8 MB of int32 in, 277.9 MB of bf16 out,

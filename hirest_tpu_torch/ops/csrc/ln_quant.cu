@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(kRowThreads, 2)
   const int C = kWidth ? kWidth : width;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x % 32;
-  const auto ring = RowRing<kG>::make<kGroups>(smem, x, M, C);
+  const auto ring = RowRing<kG>::make<kGroups>(smem, x, M, C, C);
   __syncthreads();
   // the first rows land while the block stages g and b
   for (int i = 0; i < kRowStages; ++i) ring.issue(i, lane);

@@ -1,10 +1,12 @@
-// The bulk-copy row ring of the persistent row kernels: act_quant (K5,
-// act_quant.cu), ln_quant and ln_bf16 (K2, K10, ln_quant.cu).
+// The bulk-copy row ring of the persistent row kernels: act_quant (K5, and
+// E4's ring form, act_quant.cu), ln_quant and ln_bf16 (K2, K10,
+// ln_quant.cu).
 //
 // A block holds kGroups groups of kG threads (a warp, or a warpgroup of four
 // warps). Each group has its own ring of kRowStages row slots in shared
 // memory, one mbarrier a slot. Group gid walks rows gid, gid + n, gid + 2n,
-// ... of the [M, C] bf16 input (n groups in the grid; gid = g * gridDim.x +
+// ... of the [M, C] bf16 input, rows ldx values apart (n groups in the
+// grid; gid = g * gridDim.x +
 // b for group g of block b, so that the groups with one row more than the
 // rest spread evenly over the SMs); its i-th row lands in slot
 // i % kRowStages. The group's leader (its thread 0) issues one 1-d bulk
@@ -68,16 +70,21 @@ struct RowRing {
   unsigned char* slots;
   uint64_t* full;
   uint64_t policy;
+  long long ldx;  // values from one row's start to the next's
   int M, C, gid, ngroups;
 
   // Every thread builds its group's view; thread 0 of the block inits the
-  // barriers, which the caller's __syncthreads publishes.
+  // barriers, which the caller's __syncthreads publishes. Each row must
+  // start 16-byte aligned (x and ldx * 2 bytes) and C * 2 be a multiple of
+  // 16: what a bulk copy takes.
   template <int kGroups>
   __device__ static RowRing make(unsigned char* smem,
-                                 const __nv_bfloat16* x, int M, int C) {
+                                 const __nv_bfloat16* x, int M, int C,
+                                 long long ldx) {
     const int group = threadIdx.x / kG;
     RowRing r;
     r.x = x;
+    r.ldx = ldx;
     r.full = reinterpret_cast<uint64_t*>(smem) + group * kRowStages;
     r.slots = smem + ring_bar_bytes<kGroups>() +
               (size_t)group * kRowStages * ring_slot_bytes(C);
@@ -113,7 +120,7 @@ struct RowRing {
     if (t != 0 || row(i) >= M) return;
     uint64_t* bar = &full[i % kRowStages];
     mbar_expect_tx(bar, C * 2);
-    bulk_load(const_cast<unsigned char*>(slot(i)), x + row(i) * C, C * 2,
+    bulk_load(const_cast<unsigned char*>(slot(i)), x + row(i) * ldx, C * 2,
               bar, policy);
   }
 

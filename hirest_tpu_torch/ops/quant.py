@@ -15,7 +15,9 @@ leaves to XLA: `int8_mm` (G1, csrc/int8_gemm.cu), an int8 projection
 whole, the int8 x int8 -> int32 product on wgmma with its dequantization,
 bias and residual sum in its epilogue; and, in csrc/int8_epilogue.cu,
 `int8_epilogue` (E3), that dequantization alone on an int32 accumulator,
-and `row_quant` (E4), the dynamic per-row quantizer of `int8_matmul`. A
+and `row_quant` (E4), the dynamic per-row quantizer of `int8_matmul`,
+whose rows a bulk copy takes run K5's ring body instead (csrc/act_quant.cu,
+`row_quant_route`). A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each takes bf16 or f32 input, as the JAX kernels compute in the
 dtype they are given: the row kernels (K2, K5, K10) have an f32 form of
@@ -39,6 +41,7 @@ int32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -142,7 +145,8 @@ def row_quant_shape(dtype, shape, row_stride: int, aligned: bool = True,
     (aligned, row_stride % 4 == 0); ValueError unless C % 4 == 0, C <=
     INT8_EPI_WIDTH, ldq % 4 == 0 and M >= 1. A tensor [..., C] comes as its
     `reshape(-1, C)` with the last stride 1. Needs no GPU: `row_quant`
-    checks its input through it."""
+    checks its input through it, and `row_quant_route` then says which of
+    E4's two kernels takes the rows."""
     if (dtype not in VEC4_BYTES or len(shape) != 2 or not aligned
             or row_stride % 4 or row_stride < shape[-1]):
         raise TypeError(
@@ -161,11 +165,32 @@ def row_quant_shape(dtype, shape, row_stride: int, aligned: bool = True,
     return m, c
 
 
-def _epi_fn(entry: str, n_pointers: int, long_stride: bool = False):
+# E4's bulk-copy ring (K5's body, csrc/act_quant.cu) takes bf16 rows each
+# starting 16-byte aligned, C a multiple of its 16-value unit, and codes
+# rows a multiple of 16 bytes apart (its 16-byte stores)
+E4_RING_MULTIPLE = 16
+
+
+def row_quant_route(dtype, shape, row_stride: int, aligned16: bool = True,
+                    ldq=None) -> str:
+    """Which of E4's kernels takes rows that `row_quant_shape` takes:
+    "ring" (K5's bulk-copy ring body without an activation, act_quant.cu)
+    for bf16 rows whose every start is 16-byte aligned (aligned16: the
+    first; row_stride % 8 == 0) with C and the codes' width ldq (default
+    C) multiples of E4_RING_MULTIPLE; else "rows" (row_quant_kernel,
+    int8_epilogue.cu): the unrolled tower's 588-wide patch rows, f32 rows.
+    Needs no GPU."""
+    c = shape[-1]
+    ldq = c if ldq is None else ldq
+    ring = (dtype == torch.bfloat16 and aligned16 and row_stride % 8 == 0
+            and c % E4_RING_MULTIPLE == 0 and ldq % E4_RING_MULTIPLE == 0)
+    return "ring" if ring else "rows"
+
+
+def _epi_fn(entry: str, n_pointers: int):
     fn = getattr(build.load("int8_epilogue"), entry)
-    ints = ([ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
-            if long_stride else [ctypes.c_int] * 2)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -224,6 +249,17 @@ def row_quant_ref(x2: torch.Tensor, rows=None, ldq=None):
     return q, s
 
 
+@functools.cache
+def _row_quant_fn(lib: str, entry: str):
+    """E4's C entry `entry` of csrc/<lib>.cu, its argument types set once:
+    x, q, s, M, rows, C, ldx (64-bit), ldq, the stream."""
+    fn = getattr(build.load(lib), entry)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def row_quant(x2: torch.Tensor, rows=None, ldq=None):
     """E4: the rows x2 [M, C] (a 2-d view with unit last stride, rows any
     distance apart) -> (codes [rows, ldq] int8, scales [rows, 1] f32), each
@@ -231,9 +267,10 @@ def row_quant(x2: torch.Tensor, rows=None, ldq=None):
     G1 takes, zero-padded along K (rows default M, ldq default C).
 
     A CPU tensor takes the plain version. A CUDA tensor must be bf16 or f32
-    rows as `row_quant_shape` says, and launches the kernel; anything else
-    raises. `row_quant.launches` counts launches on bf16 rows,
-    `.launches_f32` on f32 rows."""
+    rows as `row_quant_shape` says, and launches the kernel
+    `row_quant_route` names; anything else raises. `row_quant.launches`
+    counts launches on the ring (bf16), `.rows_launches` bf16 launches of
+    row_quant_kernel, `.launches_f32` its launches on f32 rows."""
     if x2.device.type == "cpu":
         return row_quant_ref(x2, rows, ldq)
     _require_cuda(x2)
@@ -246,21 +283,30 @@ def row_quant(x2: torch.Tensor, rows=None, ldq=None):
     row_quant_shape(x2.dtype, x2.shape, ldx, x2.stride(-1) == 1
                     and x2.data_ptr() % VEC4_BYTES.get(x2.dtype, 16) == 0,
                     ldq, rows)
+    ring = row_quant_route(x2.dtype, x2.shape, ldx, x2.data_ptr() % 16 == 0,
+                           ldq) == "ring"
     q = torch.empty((rows, ldq), dtype=torch.int8, device=x2.device)
     s = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
     f32 = x2.dtype == torch.float32
-    fn = _epi_fn("hirest_row_quant_f32" if f32 else "hirest_row_quant", 3,
-                 long_stride=True)
+    lib, entry = (("act_quant", "hirest_row_quant_ring") if ring else
+                  ("int8_epilogue", "hirest_row_quant_f32" if f32
+                   else "hirest_row_quant"))
+    fn = _row_quant_fn(lib, entry)
     with torch.cuda.device(x2.device):
         err = fn(x2.data_ptr(), q.data_ptr(), s.data_ptr(), m, rows, c, ldx,
                  ldq, torch.cuda.current_stream().cuda_stream)
-    build.check(build.load("int8_epilogue"), err,
-                f"row_quant{' f32' if f32 else ''} launch")
-    _count(row_quant, f32)
+    build.check(build.load(lib), err, f"row_quant {entry} launch")
+    if ring:
+        row_quant.launches += 1
+    elif f32:
+        row_quant.launches_f32 += 1
+    else:
+        row_quant.rows_launches += 1
     return q, s
 
 
 row_quant.launches = 0
+row_quant.rows_launches = 0
 row_quant.launches_f32 = 0
 int8_epilogue.launches = 0
 int8_epilogue.launches_f32 = 0

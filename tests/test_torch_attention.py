@@ -24,7 +24,8 @@ from hirest_tpu.ops.attention import fused_attention_qkv as jax_qkv1
 from hirest_tpu.ops.attention import fused_attention_qkv2 as jax_qkv2
 from hirest_tpu.ops.attention import fused_attention_qkv3 as jax_qkv3
 from hirest_tpu_torch.models.layers import merge_heads, split_heads
-from hirest_tpu_torch.ops.attention import (LOG2E, fused_attention,
+from hirest_tpu_torch.ops.attention import (LOG2E, QKV3_CLUSTER_HEADS,
+                                            _launch_qkv3, fused_attention,
                                             fused_attention_packed,
                                             fused_attention_packed_ref,
                                             fused_attention_qkv,
@@ -33,7 +34,8 @@ from hirest_tpu_torch.ops.attention import (LOG2E, fused_attention,
                                             fused_attention_qkv3,
                                             fused_attention_qkv3_ref,
                                             fused_attention_qkv_ref,
-                                            fused_attention_ref)
+                                            fused_attention_ref, qkv3_route,
+                                            qkv3_shape)
 from hirest_tpu_torch.ops.quant import dyn_quant_rows
 
 B, S, H, D = 2, 257, 16, 88
@@ -616,3 +618,56 @@ def test_qkv_v2_is_v3_and_counts_apart():
             fused_attention_qkv2.quant_launches,
             fused_attention_qkv3.launches,
             fused_attention_qkv3.quant_launches) == before
+
+
+# K3's epilogue by head count: (qkv shape, heads, quant_out) -> route. The
+# cluster epilogue takes EVA-g's 16 heads of 88 and the padded heads' 16 of
+# 128; another head count keeps the two-step epilogue
+QKV3_ROUTES = {"EVA-g int8": ((2, 257, 4224), 16, True, "cluster"),
+               "padded heads int8": ((2, 257, 6144), 16, True, "cluster"),
+               "8 heads int8": ((2, 257, 3 * 8 * 88), 8, True, "two_step"),
+               "24 heads int8": ((2, 33, 3 * 24 * 128), 24, True,
+                                 "two_step"),
+               "EVA-g bf16 out": ((2, 257, 4224), 16, False, "bf16")}
+
+
+@pytest.mark.parametrize("case", QKV3_ROUTES)
+def test_qkv3_route_rule(case):
+    shape, heads, quant_out, want = QKV3_ROUTES[case]
+    assert qkv3_route(heads, quant_out) == want
+    assert qkv3_shape(torch.bfloat16, shape, heads, quant_out) == want
+    assert (qkv3_route(QKV3_CLUSTER_HEADS, True) == "cluster"
+            and QKV3_CLUSTER_HEADS == H)
+
+
+# what attention_qkv3.cu refuses: (dtype, shape, heads, contiguous,
+# aligned) -> the error
+QKV3_REFUSED = {
+    "heads not dividing qkv": (torch.bfloat16, (2, 257, 4224), 15, True,
+                               True, ValueError),
+    "head width 64": (torch.bfloat16, (2, 257, 3 * 16 * 64), 16, True, True,
+                      ValueError),
+    "f16": (torch.float16, (2, 257, 4224), 16, True, True, TypeError),
+    "2-d qkv": (torch.bfloat16, (257, 4224), 16, True, True, ValueError),
+    "a strided view": (torch.bfloat16, (2, 257, 4224), 16, False, True,
+                       ValueError),
+    "8-byte aligned": (torch.bfloat16, (2, 257, 4224), 16, True, False,
+                       ValueError)}
+
+
+@pytest.mark.parametrize("case", QKV3_REFUSED)
+def test_qkv3_shape_refuses_what_the_kernel_does_not_take(case):
+    dtype, shape, heads, contiguous, aligned, error = QKV3_REFUSED[case]
+    for quant_out in (False, True):
+        with pytest.raises(error):
+            qkv3_shape(dtype, shape, heads, quant_out, contiguous, aligned)
+
+
+@pytest.mark.parametrize("heads,quant_out", [(8, True), (16, False)],
+                         ids=["two-step heads", "bf16 out"])
+def test_launch_refuses_a_cluster_variant_off_its_route(heads, quant_out):
+    """A cluster variant (heads_per_block) asked of a call the cluster
+    epilogue does not take raises before anything is built or launched."""
+    qkv = torch.zeros((1, 5, 3 * heads * 88), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="heads_per_block"):
+        _launch_qkv3(qkv, SCALE, heads, quant_out, 0, heads_per_block=2)

@@ -12,7 +12,10 @@ against the eager chain `int8_mm` ran before it had a kernel; and hold the
 CUDA wrappers' shape rules (`int8_epilogue_shape`, `row_quant_shape`, and
 `row_kernel_shape` for K5) to every call that the scanned int8 forwards
 and the unrolled int8 tower make, at EVA-g's widths. chip_smoke.py holds
-the kernels bit for bit against the plain versions on the card.
+the kernels bit for bit against the plain versions on the card. The same
+records hold the routes: K3's and K9's int8 calls (`qkv3_shape`: the
+cluster epilogue at EVA-g's 16 heads) and E4's (`row_quant_route`: the
+bulk-copy ring, or row_quant_kernel for the patch rows and f32 rows).
 """
 
 import jax
@@ -23,18 +26,20 @@ import torch
 from torch_port_util import PACKED, configs, eva_state_dict, images
 
 import hirest_tpu.ops.quant as jax_quant
+import hirest_tpu_torch.models.eva_clip as eva_clip
 import hirest_tpu_torch.models.eva_quant as eva_quant
 import hirest_tpu_torch.models.eva_scan as eva_scan
 import hirest_tpu_torch.ops.quant as quant
 from hirest_tpu.models.eva_scan import _dyn_quant_rows as jax_dyn_quant_rows
 from hirest_tpu.models.eva_scan import _int8_mm as jax_int8_mm
+from hirest_tpu_torch.ops.attention import QKV3_CLUSTER_HEADS, qkv3_shape
 from hirest_tpu_torch.ops.quant import (act_quant,
                                         dyn_quant_rows, dyn_quant_rows_ref,
                                         int8_epilogue, int8_epilogue_ref,
                                         int8_epilogue_shape, int8_matmul,
                                         int8_mm, quantize_weight, row_quant,
-                                        row_quant_ref, row_quant_shape,
-                                        row_kernel_shape)
+                                        row_quant_ref, row_quant_route,
+                                        row_quant_shape, row_kernel_shape)
 
 C, F, QKV, EMBED = 1408, 6144, 4224, 1024  # EVA-g's widths
 PATCH = 14 * 14 * 3  # the unrolled tower's patch rows, 588 (K' = 592)
@@ -275,6 +280,36 @@ def test_shape_rules_refuse_what_the_kernels_do_not_take():
             call()
 
 
+# E4's route for each EVA_G_E4 call in bf16: the trunk's rows, the MLP's,
+# the patch rows (1,176 bytes apart: no bulk copy), the head's class-token
+# rows at B = 128 and 2
+EVA_G_E4_ROUTES = ["ring", "ring", "rows", "ring", "ring"]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_e4_route_takes_eva_g_rows(dt):
+    tdt = DTYPES[dt][0]
+    for (shape, stride, ldq, _), want in zip(EVA_G_E4, EVA_G_E4_ROUTES):
+        assert row_quant_route(tdt, shape, stride, True, ldq) == (
+            want if dt == "bf16" else "rows")
+
+
+# rows row_quant_shape takes that the ring does not: (shape, row stride,
+# first row 16-byte aligned, codes' width)
+E4_OFF_RING = {"first row 8-byte aligned": ((4, C), C, False, C),
+               "rows 8 bytes short of 16 apart": ((4, C), C + 4, True, C),
+               "C % 16 != 0": ((4, 1400), 1400, True, 1408),
+               "codes 8 bytes short of 16 apart": ((4, C), C, True, C + 8)}
+
+
+@pytest.mark.parametrize("case", E4_OFF_RING)
+def test_e4_route_keeps_what_a_bulk_copy_cannot_take_off_the_ring(case):
+    shape, stride, aligned16, ldq = E4_OFF_RING[case]
+    bf16 = torch.bfloat16
+    assert row_quant_shape(bf16, shape, stride, True, ldq) == shape
+    assert row_quant_route(bf16, shape, stride, aligned16, ldq) == "rows"
+
+
 def _eva_g(cfg) -> dict:
     """The small config's widths -> EVA-g's: trunk, MLP, qkv, head out,
     patch rows."""
@@ -304,9 +339,10 @@ def _hold_e3(calls, widths, acc_shape, out_dtype, residual, dtype):
     calls.append(int8_epilogue_shape(out_dtype, (m, widths[n])))
 
 
-def _hold_e4(calls, widths, x2, rows, ldq, dtype):
+def _hold_e4(calls, widths, x2, rows, ldq, dtype, routes=None):
     """E4's call on the rows x2 [M, c] at EVA-g's c, with their row stride
-    and the codes' width scaled alike."""
+    and the codes' width scaled alike; its kernel (`row_quant_route`) into
+    routes."""
     m, c = x2.shape
     big = widths[c]
     stride = x2.stride(0) // c * big if m > 1 else big
@@ -314,6 +350,28 @@ def _hold_e4(calls, widths, x2, rows, ldq, dtype):
     assert x2.dtype == dtype and x2.stride(-1) == 1
     calls.append(row_quant_shape(x2.dtype, (m, big), stride,
                                  x2.data_ptr() % 16 == 0, ldq, rows))
+    if routes is not None:
+        routes.append((big, row_quant_route(x2.dtype, (m, big), stride,
+                                            x2.data_ptr() % 16 == 0, ldq)))
+
+
+def _hold_k3(calls, qkv, heads, quant_out, dtype, width):
+    """A K3 or K9 call of the scanned block at EVA-g's qkv width and heads
+    (the small config's heads of `width` / heads each): its epilogue by
+    `qkv3_shape`, or "f32 body" where qkv is f32 (the wrappers send f32 to
+    attention_f32.cu before attention_qkv3.cu's rule)."""
+    b, s, three_hd = qkv.shape
+    assert qkv.dtype == dtype and three_hd == 3 * width
+    if not quant_out:
+        return
+    shape = (b, s, 3 * QKV3_CLUSTER_HEADS * 88)
+    if dtype == torch.float32:
+        with pytest.raises(TypeError):
+            qkv3_shape(dtype, shape, QKV3_CLUSTER_HEADS, True)
+        calls.append("f32 body")
+        return
+    calls.append(qkv3_shape(dtype, shape, QKV3_CLUSTER_HEADS, True,
+                            qkv.is_contiguous(), qkv.data_ptr() % 16 == 0))
 
 
 def _hold_k5(calls, widths, x, dtype):
@@ -332,9 +390,11 @@ INT8_LADDER = {"int8": dict(int8=True),
                "int8+fq+v3": dict(int8=True, fused_quant=True, attn_v3=True),
                "int8+fq+v3+fm": dict(int8=True, fused_quant=True,
                                      attn_v3=True, fused_mlp=True)}
-# int8 products and dyn_quant_rows (K5 none) calls a block makes in each
-PER_BLOCK = {"int8": (4, 4), "int8+fq": (4, 0), "int8+fq+v2": (4, 0),
-             "int8+fq+v3": (4, 0), "int8+fq+v3+fm": (2, 0)}
+# int8 products, dyn_quant_rows (K5 none) calls and K3 / K9 int8 calls a
+# block makes in each
+PER_BLOCK = {"int8": (4, 4, 0), "int8+fq": (4, 0, 0),
+             "int8+fq+v2": (4, 0, 1), "int8+fq+v3": (4, 0, 1),
+             "int8+fq+v3+fm": (2, 0, 1)}
 RULE_CASES = [(name, dt) for name in INT8_LADDER for dt in DTYPES]
 
 
@@ -347,11 +407,18 @@ def test_shape_rules_take_every_scanned_int8_call(monkeypatch, name, dt):
     configuration of the scanned forward, in bf16 and f32, recorded on the
     CPU and held to the CUDA wrappers' rules as it would come at EVA-g's
     widths: the same dtype, leading dims, contiguity and alignment, each
-    width EVA-g's. (tests/test_torch_int8_gemm.py holds the same calls to
-    G1's rule.)"""
+    width EVA-g's. Every int8-out attention call of v2 and v3 (K9, K3) too:
+    at EVA-g's 16 heads its bf16 calls take the cluster epilogue, its f32
+    ones the f32 body. (tests/test_torch_int8_gemm.py holds the same calls
+    to G1's rule.)"""
     tdt = DTYPES[dt][0]
-    widths = _eva_g(configs(PACKED)[1])
-    e3, k5 = [], []
+    cfg = configs(PACKED)[1]
+    widths = _eva_g(cfg)
+    e3, k5, k3 = [], [], []
+    for attr in ("fused_attention_qkv3", "fused_attention_qkv2"):
+        _record(monkeypatch, eva_clip, attr,
+                lambda qkv, scale, heads, quant_out=False, n_real=0:
+                _hold_k3(k3, qkv, heads, quant_out, tdt, cfg.width))
     _record(monkeypatch, eva_scan, "int8_mm",
             lambda x_q, x_s, w_q, w_s, bias, out_dtype, residual=None:
             _hold_e3(e3, widths, (x_q.shape[0], w_q.shape[0]), out_dtype,
@@ -363,9 +430,11 @@ def test_shape_rules_take_every_scanned_int8_call(monkeypatch, name, dt):
         sd, configs(PACKED)[1], device="cpu", dtype=tdt,
         **INT8_LADDER[name])(im)
     assert torch.isfinite(out).all()
-    n3, n5 = PER_BLOCK[name]
-    assert (len(e3), len(k5)) == (n3 * PACKED["layers"],
-                                  n5 * PACKED["layers"])
+    n3, n5, nq = PER_BLOCK[name]
+    assert (len(e3), len(k5), len(k3)) == (n3 * PACKED["layers"],
+                                           n5 * PACKED["layers"],
+                                           nq * PACKED["layers"])
+    assert set(k3) <= {"cluster" if dt == "bf16" else "f32 body"}
 
 
 @pytest.mark.parametrize("quant_attention", [True, False],
@@ -378,17 +447,19 @@ def test_shape_rules_take_every_unrolled_int8_call(monkeypatch, dt,
     tower (QuantDense: the patch rows, 588 wide into 592-wide codes; the
     trunk's products; the head on the class tokens, rows 257 x C apart),
     recorded on the CPU and held to the CUDA wrappers' rules at EVA-g's
-    widths."""
+    widths. In bf16 every E4 call but the patch rows' takes the bulk-copy
+    ring (the trunk's 1408 and 6144 and the head's strided rows); the patch
+    rows and every f32 call take row_quant_kernel."""
     tdt = DTYPES[dt][0]
     widths = _eva_g(configs(PACKED)[1])
-    e3, e4 = [], []
+    e3, e4, routes = [], [], []
     _record(monkeypatch, quant, "int8_mm",
             lambda x_q, x_s, w_q, w_s, bias, out_dtype, residual=None:
             _hold_e3(e3, widths, (x_q.shape[0], w_q.shape[0]), out_dtype,
                      residual, tdt))
     _record(monkeypatch, quant, "row_quant",
             lambda x2, rows=None, ldq=None:
-            _hold_e4(e4, widths, x2, rows, ldq, tdt))
+            _hold_e4(e4, widths, x2, rows, ldq, tdt, routes))
     sd, im = eva_state_dict(PACKED, seed=61), images(PACKED, 2, seed=61)
     out = eva_quant.build_int8_vision_apply(
         sd, configs(PACKED)[1], quant_attention=quant_attention, dtype=tdt,
@@ -397,6 +468,8 @@ def test_shape_rules_take_every_unrolled_int8_call(monkeypatch, dt,
     per_layer = 4 if quant_attention else 2
     assert len(e3) == len(e4) == per_layer * PACKED["layers"] + 2
     assert (2, C) in e4 and (8, PATCH) in e4  # the head's, the patches'
+    rows = [w for w, route in routes if route == "rows"]
+    assert rows == ([PATCH] if dt == "bf16" else [w for w, _ in routes])
 
 
 # --- CPU calls, and devices without kernels --------------------------------
