@@ -13,17 +13,17 @@
 
 --time-attention times K1 and K3 (head widths 88 and 128; K1 also at 192
 tokens, one 192-row query tile a head), K9 (bf16 and int8 out, int8 also at
-128), K6, K7 and K8 (bf16 and int8 out), beside
-scaled_dot_product_attention; where K3 has its cluster epilogue, also
-K3's two-step epilogue and each cluster variant forced, with
-cudaOccupancyMaxActiveClusters and the variant the launch takes; then
-each head width's bounds; and nothing else, so a copy of
-this file run from a `git archive` of an earlier commit times that
-commit's kernels: run parent, change, change, parent in one call to
-compare two trees on one card. Where attention_split.cu has its
-arithmetic variants (HIREST_SPLIT_ARITH), it also times K6 and K7 under
-each (exp2f or expf for ex2.approx.ftz, __fdiv_rn for the reciprocal
-multiply), each held against its plain version. --time-mlp does the same
+128), K6 (also at ViT-B/32's d = 64), K7 and K8 (bf16 and int8 out),
+beside scaled_dot_product_attention; where K3 has its cluster epilogue,
+also K3's two-step epilogue and each cluster variant forced, with
+cudaOccupancyMaxActiveClusters and the variant the launch takes; where K8
+runs on attention_qkv3.cu's v1 form, the same for K8 int8; then each head
+width's bounds and the six forwards K6, K7 and K8 run in (ladder bf16,
+int8 dyn and int8+fq; the unrolled, padded unrolled and unrolled int8
+towers: frames/s and one profiled forward each); and nothing else, so a
+copy of this file run from a `git archive` of an earlier commit times
+that commit's kernels: run parent, change, change, parent in one call to
+compare two trees on one card. --time-mlp does the same
 for K4 at B=128 (through fused_mlp_int8, which every version of the port
 has), beside its two products as torch._int_mm; where the checkout splits
 K4 into two kernels it also times the first alone. --time-rows does the
@@ -64,7 +64,8 @@ Phases; any failure exits non-zero before the result line is printed:
 
 1. build    compile every CUDA kernel of the port from this checkout, and
             attention_qkv3.cu again with -DHIREST_QKV3_TWO_STEP=1 (set-up);
-            K4's two kernels', K1/K3's, the f32 body's, K5's, K2/K10's,
+            K4's two kernels', K1/K3's and K6/K7/K8's (attention_qkv3.cu's
+            v3 and v1 forms), the f32 body's, K5's, K2/K10's,
             E1's and E2's, E3's and E4's, and G1's instantiations'
             registers, spills and shared memory.
 2. kernels  each kernel's wrapper against its plain PyTorch version on the
@@ -83,9 +84,9 @@ Phases; any failure exits non-zero before the result line is printed:
             shape), each also with one batch row's keys all masked and
             with 33 queries over 600 keys (d = 88 masked, d = 128), K8
             (v1, [B, 257, 4224] with nonzero q/v biases, bf16 and
-            int8 out; also [2, 257, 6144] at d = 128 and [2, 600, 4224]),
-            the streamed body's blocks an SM for K6/K7's, K8's and K8
-            int8's instantiations, K9
+            int8 out; also [2, 257, 6144] at d = 128, [2, 600, 4224] and
+            12 heads of 64, [2, 50, 2304], whose int8 epilogue is
+            two-step), K9
             (v2, bf16 and int8 out, and int8 padded to S = 264 with
             n_real = 257), B = 2 and 128, M = 257 B; K3's cluster
             epilogue (16 heads: the heads of a row on one thread-block
@@ -95,7 +96,11 @@ Phases; any failure exits non-zero before the result line is printed:
             and 128, B = 2 and 128, 257 tokens, 264 with n_real = 257,
             and 33, 65 and 592 (d = 88) / 432 (d = 128) tokens, the
             counts of differing values printed, with what
-            cudaOccupancyMaxActiveClusters gives each variant; then
+            cudaOccupancyMaxActiveClusters gives each variant; K8 int8's
+            cluster epilogue (the v1 form at 16 heads, nonzero biases) the
+            same way through fused_attention_qkv and each variant forced,
+            at d = 88 and 128, B = 2 and 128, 257 tokens, and 33, 65 and
+            600 tokens; then
             row_checks: K2
             (ln_quant, [2 * 257 and M, 1408]), K5 (act_quant, [M, 6144]
             with both GELUs, [M, 1408] without one) and K10 (ln_bf16,
@@ -244,8 +249,9 @@ Phases; any failure exits non-zero before the result line is printed:
             the device's idle share, for each precision, the unrolled
             towers and the ladder's bf16, int8 and int8+fq (K8) and
             int8+fq+v3 (K5) forwards, G1 and E4 groups of their own; the
-            production int8 and int8+fq+v3 forwards must run no
-            quant_rows_kernel and no memset (K3's epilogue in the kernel);
+            production int8, int8+fq and int8+fq+v3 forwards must run no
+            quant_rows_kernel and no memset (K3's and K8's epilogues in
+            the kernel);
             each plain per-layer op timed alone.
 9. serving  the serving path at full width over phase 3's int8 features
             (written as .npy): the engine as `python -m
@@ -2011,6 +2017,62 @@ def k3_cluster_checks(heads: int) -> int:
     return total
 
 
+# K8 int8's shapes in the kernels phase: (d, B, tokens): EVA-g's and the
+# padded heads', at B = 2 and 128, and the tiles' edges (a tile and one
+# more row or key; 600 keys)
+K8_SHAPES = tuple((d, batch, tokens) for d in (88, 128)
+                  for batch, tokens in ((2, TOKENS), (BATCH, TOKENS),
+                                        (2, 33), (2, 65), (2, 600)))
+
+
+def k8_cluster_checks(heads: int) -> int:
+    """K8 int8's cluster epilogue (attention_qkv3.cu's v1 form at 16
+    heads, nonzero biases) bit for bit against the two-step epilogue of
+    the same body (the -DHIREST_QKV3_TWO_STEP=1 build) at every K8_SHAPES
+    shape: through fused_attention_qkv (the variant the card's rule picks)
+    and each K3_VARIANTS variant forced, codes and scales, the counts of
+    differing values printed (bar 0). Prints what
+    cudaOccupancyMaxActiveClusters gives each variant of the v1 form.
+    Returns the differing values in all."""
+    from hirest_tpu_torch.ops import attention
+
+    for d in (64, 88, 128):
+        info = attention.qkv3_cluster_info(d, v1=True)
+        print(f"[kernels] K8 int8 cluster epilogue d={d}: "
+              f"cudaOccupancyMaxActiveClusters {info['clusters_of_16']} "
+              f"clusters of 16, {info['clusters_of_8']} of 8; the launch "
+              f"takes {K3_VARIANTS[info['heads_per_block']]}")
+    total = 0
+    for i, (d, batch, tokens) in enumerate(K8_SHAPES):
+        qkv = attention_inputs(batch, seed=300 + i, tokens=tokens,
+                               hd=heads * d)
+        qb, vb = biases(heads * d, seed=350 + i)
+        scale = d ** -0.5
+        q, k, v = split_views(qkv, heads)
+        bq, bv = (attention._bias_arg(t, heads * d, qkv.device)
+                  for t in (qb, vb))
+        want = attention._launch_v1(q, k, v, None, None, scale, bq, bv,
+                                    two_step=True)
+        calls = {"K8 int8": lambda: attention.fused_attention_qkv(
+                     qkv, qb, vb, scale, heads, quant_out=True),
+                 **{f"{h} head(s) a block": (
+                     lambda h=h: attention._launch_v1(
+                         q, k, v, None, None, scale, bq, bv,
+                         heads_per_block=h))
+                    for h in K3_VARIANTS}}
+        counts = {name: differing(call(), want, f"K8 int8 {name}")
+                  for name, call in calls.items()}
+        total += sum(counts.values())
+        print(f"[kernels] K8 int8 cluster epilogue vs two-step [{batch},"
+              f"{tokens},{3 * heads * d}]: differing codes and scales "
+              + ", ".join(f"{k} {n}" for k, n in counts.items())
+              + " (bar 0)")
+        require(not any(counts.values()),
+                f"K8 int8 cluster epilogue off the two-step one at [{batch},"
+                f"{tokens},{3 * heads * d}]: {counts}")
+    return total
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes."""
     from hirest_tpu_torch.ops.attention import (fused_attention,
@@ -2022,8 +2084,7 @@ def phase_kernels(cfg) -> dict:
                                                 fused_attention_qkv3,
                                                 fused_attention_qkv3_ref,
                                                 fused_attention_qkv_ref,
-                                                fused_attention_ref,
-                                                split_occupancy)
+                                                fused_attention_ref)
     from hirest_tpu_torch.ops.quant import (_mlp_hidden_launch,
                                             fused_mlp_int8,
                                             fused_mlp_int8_ref,
@@ -2112,10 +2173,10 @@ def phase_kernels(cfg) -> dict:
         "K7 fused_attention_packed [2,48,16*128] over 20 keys, 15 valid",
         fused_attention_packed(*packed, 128 ** -0.5, heads, mask),
         fused_attention_packed_ref(*packed, 128 ** -0.5, heads, mask)))
-    # the streamed body's edges: a batch row whose keys are all masked
-    # (uniform p, as -1e30 gives), and 600 keys (past what a staged head
-    # fits in shared memory) over 33 queries (a 3-tile block, its last
-    # tile one row)
+    # the v1 form's edges: a batch row whose keys are all masked
+    # (uniform p, as -1e30 gives), and 600 keys (ten key tiles through the
+    # ring, the last of 24 keys) over 33 queries (one consumer's 64-row
+    # tile, part of it past Sq)
     q, k, v, mask = masked_inputs(seed=62, valid=(15, 0))
     worst["K6"] = max(worst["K6"], check_close(
         "K6 fused_attention [2,12,48,64] over 20 keys, 15 and 0 valid",
@@ -2139,15 +2200,6 @@ def phase_kernels(cfg) -> dict:
         "K7 fused_attention_packed [2,33,16*128] over 600 keys",
         fused_attention_packed(*packed, 128 ** -0.5, heads),
         fused_attention_packed_ref(*packed, 128 ** -0.5, heads)))
-    for d in (88, 128):
-        for what, kind in (("K6/K7", {}), ("K8", dict(bias=True)),
-                           ("K8 int8", dict(bias=True, quant=True))):
-            occ = split_occupancy(d, TOKENS, **kind)
-            print(f"[kernels] {what} streamed body, d={d}, Sq={TOKENS}: "
-                  f"{occ['threads']} threads and {occ['smem_bytes']} bytes "
-                  f"of shared memory a block, {occ['blocks_per_sm']} blocks "
-                  f"an SM")
-
     # K4: within 1e-2 of the MLP's largest contribution max|want - x| plus
     # one bf16 ulp of |want|, element by element: a hidden code that lands
     # on the other side of a rounding boundary moves a row by far less.
@@ -2190,21 +2242,22 @@ def phase_kernels(cfg) -> dict:
     # B=2 and 128, at head width 128, and over 600 tokens (more than the
     # first version's staged head held in shared memory)
     worst["K8"] = worst["K8q"] = 0.0
-    for batch, tokens, d in ((2, TOKENS, 88), (BATCH, TOKENS, 88),
-                             (2, TOKENS, 128), (2, 600, 88)):
+    for batch, tokens, d, h in ((2, TOKENS, 88, heads), (BATCH, TOKENS, 88, heads),
+                                (2, TOKENS, 128, heads), (2, 600, 88, heads),
+                                (2, 50, 64, 12)):
         qkv = attention_inputs(batch, seed=80 + batch + tokens + d,
-                               tokens=tokens, hd=heads * d)
-        qb, vb = biases(heads * d, seed=81 + d)
+                               tokens=tokens, hd=h * d)
+        qb, vb = biases(h * d, seed=81 + d)
         shape = f"[{batch},{tokens},{qkv.shape[-1]}]"
         err = check_close(
             f"K8 fused_attention_qkv {shape} biased",
-            fused_attention_qkv(qkv, qb, vb, d ** -0.5, heads),
-            fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, heads))
+            fused_attention_qkv(qkv, qb, vb, d ** -0.5, h),
+            fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, h))
         errq = check_codes(
-            f"K8 fused_attention_qkv quant_out {shape} biased",
-            fused_attention_qkv(qkv, qb, vb, d ** -0.5, heads,
+            f"K8 fused_attention_qkv quant_out {shape} biased ({h} heads)",
+            fused_attention_qkv(qkv, qb, vb, d ** -0.5, h,
                                 quant_out=True),
-            fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, heads,
+            fused_attention_qkv_ref(qkv, qb, vb, d ** -0.5, h,
                                     quant_out=True), 0.99, 2 ** -7)
         if d == 88:  # EVA-g's head width, the ladder's
             worst["K8"] = max(worst["K8"], err)
@@ -2228,6 +2281,7 @@ def phase_kernels(cfg) -> dict:
                                      n_real=n_real), 0.99, 2 ** -7))
 
     k3_cluster_checks(heads)
+    k8_cluster_checks(heads)
     f32 = f32_checks()
     worst["K6"] = max(worst["K6"], f32.pop("K6"))
     worst.update(f32)
@@ -3503,7 +3557,9 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     "ladder bf16": (
         ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
         ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
-        ("K8 attention_split (CUDA)", ("attention_split",)),
+        ("K8 attention_qkv3, v1 form (CUDA; attention_split.cu in "
+         "earlier checkouts)",
+         ("attention_qkv3", "attention_split")),
         ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
         ("layer_norm", ("layer_norm",)),
         ("elementwise (casts; without E1/E2 the GELU chain, bias, "
@@ -3516,8 +3572,10 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
         ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
-        ("K8 attention_split, with int8 out both steps (CUDA)",
-         ("attention_split", "quant_rows")),
+        ("K8 attention_qkv3, v1 form, int8 epilogue in the kernel (CUDA; "
+         "the two-step epilogue's quant_rows too, should it run; "
+         "attention_split.cu in earlier checkouts)",
+         ("attention_qkv3", "quant_rows", "attention_split")),
         ("K5 act_quant (CUDA; int8 dyn's row quantization too)",
          ("act_quant",)),
         ("other GEMMs (cuBLAS; torch._int_mm before G1)",
@@ -3579,7 +3637,9 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("E4 row_quant (CUDA: act_quant_kernel's ring; the patch rows' "
          "row_quant_kernel)", ("row_quant_kernel", "act_quant_kernel")),
-        ("K6 attention_split (CUDA)", ("attention_split",)),
+        ("K6 attention_qkv3, v1 form (CUDA; attention_split.cu in "
+         "earlier checkouts)",
+         ("attention_qkv3", "attention_split")),
         ("other GEMMs (bf16 cuBLAS qkv/out without quant_attention; "
          "torch._int_mm before G1)", ("nvjet", "gemm", "cutlass", "xmma",
                                       "imma")),
@@ -3616,7 +3676,8 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
         ("elementwise (QuickGELU, bias, residual, casts)", ("elementwise",)),
     ),
     "unrolled": (
-        ("K6/K7 attention_split (CUDA)", ("attention_split",)),
+        ("K6/K7 attention_qkv3, v1 form (CUDA; attention_split.cu in "
+         "earlier checkouts)", ("attention_qkv3", "attention_split")),
         ("projections (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
         ("exact GELU", ("gelu", "Gelu")),
         ("elementwise and reductions (LayerNorm, q/v bias, residual, casts)",
@@ -3704,8 +3765,8 @@ def phase_profile(cfg, main: dict, factory: dict, ladder: dict,
                         ("int8+fq+v3", "ladder int8")):
         prof = profile_forward(f"ladder {tag}", ladder["fns"][tag], batch,
                                card, groups)
-        if tag == "int8+fq+v3":
-            no_two_step_epilogue("ladder int8+fq+v3", prof)
+        if tag in ("int8+fq", "int8+fq+v3"):  # K8 int8, K3
+            no_two_step_epilogue(f"ladder {tag}", prof)
     for tag in ("unrolled", "padded_unrolled", "padded_scanned"):
         profile_forward(f"factory {tag}", factory["models"][tag].encode_image,
                         batch, card, "bf16" if "scanned" in tag
@@ -5929,18 +5990,18 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
            "hirest_tpu/ops/attention.py:502"),
     "K4": ("fused_mlp_int8", "hirest_tpu_torch/ops/csrc/fused_mlp_int8.cu",
            "hirest_tpu/ops/quant.py:296"),
-    "K6": ("fused_attention", "hirest_tpu_torch/ops/csrc/attention_split.cu",
+    "K6": ("fused_attention", "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
            "hirest_tpu/ops/attention.py:69"),
     "K7": ("fused_attention_packed",
-           "hirest_tpu_torch/ops/csrc/attention_split.cu",
+           "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
            "hirest_tpu/ops/attention.py:188"),
     "K5": ("act_quant", "hirest_tpu_torch/ops/csrc/act_quant.cu",
            "hirest_tpu/ops/quant.py:176"),
     "K8": ("fused_attention_qkv",
-           "hirest_tpu_torch/ops/csrc/attention_split.cu",
+           "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
            "hirest_tpu/ops/attention.py:551"),
     "K8q": ("fused_attention_qkv(quant_out=True)",
-            "hirest_tpu_torch/ops/csrc/attention_split.cu",
+            "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
             "hirest_tpu/ops/attention.py:585"),
     "K9": ("fused_attention_qkv2",
            "hirest_tpu_torch/ops/csrc/attention_qkv3.cu",
@@ -6033,51 +6094,97 @@ SOURCES = {  # kernel -> (wrapper name, source, TPU kernel it replaces)
 }
 
 
-ARITH_VARIANTS = {  # attention_split.cu's HIREST_SPLIT_ARITH -> its softmax
-    0: "ex2.approx.ftz, reciprocal (shipped)", 4: "exp2f, reciprocal",
-    1: "expf, reciprocal", 2: "ex2.approx.ftz, __fdiv_rn",
-    3: "expf, __fdiv_rn"}
+ATTN_FORWARDS = 3  # timed forwards of B=128 a configuration, after a warm-up
+
+
+def attention_forwards(cfg, card: str) -> None:
+    """The six forwards where K6, K7 and K8 run, at full width and depth on
+    seeded weights: the ladder's bf16 (v1, K8), int8 dyn (K8) and int8+fq
+    (K8 int8), the unrolled tower (K6), the padded unrolled tower (K7) and
+    the unrolled int8 tower (K6): ms a forward and frames/s over
+    ATTN_FORWARDS, and one profiled forward's groups. Through what every
+    version of the port has, so that a copy of this file in an earlier
+    checkout profiles that checkout's forwards."""
+    from hirest_tpu_torch.models.eva_clip import build_unrolled_vision_apply
+    from hirest_tpu_torch.models.eva_pad import pad_vision_head_params
+    from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
+    from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
+                                                  stage_scanned_params)
+    from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
+
+    sd = random_eva_vision_state_dict(cfg, seed=0)
+    frames = normalize_frames(np.random.default_rng(5).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8))
+
+    def timed(tag: str, fn, groups: str) -> None:
+        fn(frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(ATTN_FORWARDS):
+            out = fn(frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        require(bool(torch.as_tensor(out).isfinite().all()),
+                f"{tag}: non-finite output")
+        print(f"[time-attention] {card}: {REPO.name}: {tag}: "
+              f"{secs / ATTN_FORWARDS * 1e3:.2f} ms a forward of {BATCH}, "
+              f"{BATCH * ATTN_FORWARDS / secs:.2f} frames/s")
+        profile_call(f"one {tag} forward B={BATCH}", lambda: fn(frames),
+                     card, groups, tag="time-attention")
+
+    for int8, runs in ((False, (("ladder bf16", {}, "ladder bf16"),)),
+                       (True, (("ladder int8 dyn", dict(int8=True),
+                                "ladder int8 K8"),
+                               ("ladder int8+fq",
+                                dict(int8=True, fused_quant=True),
+                                "ladder int8 K8")))):
+        staged = stage_scanned_params(sd, cfg, int8=int8,
+                                      dtype=torch.bfloat16, device="cuda")
+        for tag, flags, groups in runs:
+            timed(tag, build_scanned_vision_apply(
+                None, cfg, staged=staged, dtype=torch.bfloat16,
+                device="cuda", **flags), groups)
+        del staged
+        torch.cuda.empty_cache()
+    timed("unrolled", build_unrolled_vision_apply(sd, cfg, device="cuda"),
+          "unrolled")
+    psd, pcfg = pad_vision_head_params(sd, cfg)
+    timed("padded unrolled", build_unrolled_vision_apply(
+        psd, pcfg, device="cuda"), "unrolled")
+    del psd
+    timed("unrolled int8", build_int8_vision_apply(sd, cfg, device="cuda"),
+          "unrolled int8")
 
 
 def time_attention(cfg, card: str) -> None:
-    """K1 and K3 (at head widths 88 and 128), K9 (bf16 and int8 out), K6,
-    K7 and K8 (bf16 and int8 out) ms per call at B=128, beside
-    scaled_dot_product_attention at each head width, and nothing else,
-    through the wrappers that earlier versions of the port have too, so
-    that this file copied into an earlier checkout times that checkout's
-    kernels. K1 is also timed at 192 and 384 tokens (whole 192-row query
-    tiles: every consumer of attention_qkv3.cu busy), against 257, where a
-    head's second tile has 65 rows. Where the checkout's attention_split.cu
-    has arithmetic variants, K6 and K7 are timed again under each, and each
-    held against its plain version at K6's bar."""
-    import inspect
-    from concurrent.futures import ThreadPoolExecutor
-
+    """K1 and K3 (at head widths 88 and 128), K9 (bf16 and int8 out), K6
+    (also at ViT-B/32's [128, 12, 50, 64]), K7 and K8 (bf16 and int8 out)
+    ms per call at B=128, beside scaled_dot_product_attention at each head
+    width and each kernel's bound, through the wrappers that earlier
+    versions of the port have too, so that this file copied into an
+    earlier checkout times that checkout's kernels. K1 is also timed at 192
+    and 384 tokens (whole 192-row query tiles: every consumer of
+    attention_qkv3.cu busy), against 257, where a head's second tile has
+    65 rows. Where K3 has its cluster epilogue, also its two-step epilogue
+    (the same body, -DHIREST_QKV3_TWO_STEP=1) and each cluster variant
+    forced; where K8 runs on attention_qkv3.cu's v1 form, the same for K8
+    int8. Then the six forwards of attention_forwards."""
     import torch.nn.functional as F
 
+    from hirest_tpu_torch.models.layers import split_heads
     from hirest_tpu_torch.ops import attention, build
     from hirest_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
-                                                fused_attention_packed_ref,
                                                 fused_attention_qkv,
                                                 fused_attention_qkv2,
-                                                fused_attention_qkv3,
-                                                fused_attention_ref)
+                                                fused_attention_qkv3)
 
-    variants = "defines" in inspect.signature(build.load).parameters
     cluster = hasattr(attention, "qkv3_cluster_info")  # K3's epilogue
-    flags = {k: (f"-DHIREST_SPLIT_ARITH={k}",) for k in ARITH_VARIANTS if k}
-    with ThreadPoolExecutor(8) as pool:
-        jobs = [pool.submit(build.build,
-                            ("attention_qkv3", "attention_split"))]
-        if variants:
-            jobs += [pool.submit(build.build, ("attention_split",), f)
-                     for f in flags.values()]
-        if cluster:
-            jobs.append(pool.submit(build.build, ("attention_qkv3",),
-                                    attention.QKV3_TWO_STEP))
-        for job in jobs:
-            job.result()
+    v1 = hasattr(attention, "v1_route")  # K6-K8 on attention_qkv3.cu
+    logs = build.build()  # every source at once, as the forwards need them
+    if cluster:
+        logs.update(build.build(("attention_qkv3",), attention.QKV3_TWO_STEP))
+    ptxas_summary(logs.get("attention_qkv3", ""), ("attention_qkv3_kernel",))
     scale, heads = cfg.head_width ** -0.5, cfg.num_heads
     p128 = 128 ** -0.5
     qkv = attention_inputs(BATCH, seed=7)
@@ -6088,6 +6195,11 @@ def time_attention(cfg, card: str) -> None:
     qb, vb = biases(heads * cfg.head_width, seed=14)
     hq, hk, hv = split_views(qkv)
     sq, sk, sv = split_views(qkv128)
+    w = heads * cfg.head_width
+    bq, bv = (split_heads(t + bias, heads) for t, bias in
+              ((qkv8[..., :w], qb), (qkv8[..., 2 * w:], vb)))
+    bk = split_heads(qkv8[..., w:2 * w], heads)
+    vit = split_views(attention_inputs(BATCH, seed=17, tokens=50, hd=768), 12)
     qkv192 = attention_inputs(BATCH, seed=15, tokens=192)
     qkv384 = attention_inputs(BATCH, seed=16, tokens=384)
     ms = {"K1": cuda_ms(lambda: fused_attention_qkv3(qkv, scale, heads), 50),
@@ -6108,7 +6220,14 @@ def time_attention(cfg, card: str) -> None:
               hq, hk, hv, scale=scale), 50),
           "SDPA d=128": cuda_ms(lambda: F.scaled_dot_product_attention(
               sq, sk, sv, scale=p128), 50),
+          "SDPA K8's biased heads": cuda_ms(
+              lambda: F.scaled_dot_product_attention(bq, bk, bv,
+                                                     scale=scale), 50),
+          "SDPA d=64 [128,12,50,64]": cuda_ms(
+              lambda: F.scaled_dot_product_attention(*vit, scale=0.125), 50),
           "K6": cuda_ms(lambda: fused_attention(q, k, v, scale), 50),
+          "K6 d=64 [128,12,50,64]": cuda_ms(
+              lambda: fused_attention(*vit, 0.125), 50),
           "K7": cuda_ms(lambda: fused_attention_packed(
               pq, pk, pv, p128, heads), 50),
           "K8": cuda_ms(lambda: fused_attention_qkv(qkv8, qb, vb, scale,
@@ -6134,37 +6253,38 @@ def time_attention(cfg, card: str) -> None:
                 ms[f"K3 {K3_VARIANTS[h]}{sfx}"] = cuda_ms(
                     lambda x=x, sc=sc, h=h: attention._launch_qkv3(
                         x, sc, heads, True, 0, heads_per_block=h), 50)
+    if v1:
+        # K8 int8's epilogues: the two-step one and each variant forced
+        info = attention.qkv3_cluster_info(cfg.head_width, v1=True)
+        print(f"[time-attention] {card}: K8 int8: "
+              f"cudaOccupancyMaxActiveClusters {info['clusters_of_16']} "
+              f"clusters of 16, {info['clusters_of_8']} of 8; the launch "
+              f"takes {K3_VARIANTS[info['heads_per_block']]}")
+        tq, tk, tv = split_views(qkv8)
+        tb = [attention._bias_arg(t, w, qkv8.device) for t in (qb, vb)]
+        ms["K8q two-step"] = cuda_ms(lambda: attention._launch_v1(
+            tq, tk, tv, None, None, scale, *tb, two_step=True), 50)
+        for h in K3_VARIANTS:
+            ms[f"K8q {K3_VARIANTS[h]}"] = cuda_ms(
+                lambda h=h: attention._launch_v1(
+                    tq, tk, tv, None, None, scale, *tb, heads_per_block=h),
+                50)
     print(f"[time-attention] {card}: {REPO}: " + ", ".join(
         f"{name} {t:.4f} ms" for name, t in ms.items()))
+    m = BATCH * TOKENS
     for d, x in ((88, qkv), (128, qkv128)):
-        m, hd = BATCH * TOKENS, heads * d
+        hd = heads * d
         flops = 2 * 2 * BATCH * heads * TOKENS * TOKENS * d
         k1 = bound(x.numel() * 2 + m * hd * 2, flops, BF16_FLOP_PER_S)
         k3 = bound(x.numel() * 2 + m * hd + m * 4, flops, BF16_FLOP_PER_S)
-        print(f"[time-attention] bounds d={d}: K1 {k1['bound_ms']:.4f} ms "
-              f"({k1['bound_by']}), K3 and K9 int8 {k3['bound_ms']:.4f} ms "
-              f"({k3['bound_by']})")
-    if not variants:
-        return
-    want6 = fused_attention_ref(q, k, v, scale)
-    want7 = fused_attention_packed_ref(pq, pk, pv, p128, heads)
-    shipped = attention._split_lib
-    try:
-        for k_arith, name in [*ARITH_VARIANTS.items(), (0, ARITH_VARIANTS[0])]:
-            defines = flags.get(k_arith, ())
-            attention._split_lib = lambda: shipped(defines)
-            err6 = check_close(f"K6 {name}", fused_attention(q, k, v, scale),
-                               want6)
-            err7 = check_close(f"K7 {name}", fused_attention_packed(
-                pq, pk, pv, p128, heads), want7)
-            t6 = cuda_ms(lambda: fused_attention(q, k, v, scale), 50)
-            t7 = cuda_ms(lambda: fused_attention_packed(pq, pk, pv, p128,
-                                                        heads), 50)
-            print(f"[time-attention] {card}: softmax {name}: K6 {t6:.4f} ms "
-                  f"(max_abs_err {err6}), K7 {t7:.4f} ms (max_abs_err "
-                  f"{err7})")
-    finally:
-        attention._split_lib = shipped
+        print(f"[time-attention] bounds d={d}: K1, K6, K7 and K8 "
+              f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}), K3, K9 int8 and "
+              f"K8 int8 {k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+    b64 = bound(4 * vit[0].numel() * 2,
+                2 * 2 * BATCH * 12 * 50 * 50 * 64, BF16_FLOP_PER_S)
+    print(f"[time-attention] bounds d=64 [128,12,50,64]: K6 "
+          f"{b64['bound_ms']:.4f} ms ({b64['bound_by']})")
+    attention_forwards(cfg, card)
 
 
 def time_f32(cfg, card: str) -> None:

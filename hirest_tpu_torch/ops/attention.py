@@ -21,14 +21,17 @@ Counterparts of hirest_tpu/ops/attention.py:
   K7) over packed [B, S, H*D]: the unrolled tower, at the native and the
   padded head width.
 
-K6, K7 and K8 launch `csrc/attention_split.cu`, which takes strides, so
-the head views cost no copy: one streamed body (key tiles through a
-cp.async ring, any number of keys), compiled apart for K6/K7's key mask and
-for K8's biases and int8 epilogue. Each wrapper takes its plain
-PyTorch version (`*_ref`) only for a tensor on the CPU. Their softmaxes
-differ, as the TPU kernels' do: v2 and v3 round the unnormalised exp2
-probabilities to the input dtype and divide after PV; K6, K7 and K8 scale
-the f32 scores, normalise p in f32 and then round it.
+K6, K7 and K8 launch the v1 form of the same kernel: q, k and v as
+[B, H, S, D] views of any strides the TMA maps take (`_tma_view` copies
+any other), so the head views cost no copy; K and V through the same TMA
+ring, any number of keys; K6/K7's key mask, and K8's biases (q's added to
+its fragments, v's to each landed V tile) and int8 epilogue (at 16 heads
+the cluster epilogue, as K3's), each an instantiation of its own
+(`v1_route`). Each wrapper takes its plain PyTorch version (`*_ref`)
+only for a tensor on the CPU. Their softmaxes differ, as the TPU kernels'
+do: v2 and v3 round the unnormalised exp2 probabilities to the input dtype
+and divide after PV; K6, K7 and K8 scale the f32 scores, normalise p in
+f32 and then round it.
 
 Those kernels take bf16. A float32 CUDA tensor (the JAX kernels compute in
 the dtype they are given, and the CLIP towers and the f32 EVA factory hand
@@ -59,7 +62,8 @@ LOG2E = 1.4426950408889634
 QKV3_HEAD_WIDTHS = (88, 128)  # head widths attention_qkv3.cu is built for
 QKV3_CLUSTER_HEADS = 16  # the head count of K3's cluster epilogue
 QKV3_TWO_STEP = ("-DHIREST_QKV3_TWO_STEP=1",)  # the two-step-only build
-SPLIT_HEAD_WIDTHS = (64, 88, 128)  # and attention_split.cu, attention_f32.cu
+# head widths of the v1 form (K6, K7, K8) and of attention_f32.cu
+SPLIT_HEAD_WIDTHS = (64, 88, 128)
 
 
 def qkv3_route(num_heads: int, quant_out: bool) -> str:
@@ -71,6 +75,26 @@ def qkv3_route(num_heads: int, quant_out: bool) -> str:
     if not quant_out:
         return "bf16"
     return "cluster" if num_heads == QKV3_CLUSTER_HEADS else "two_step"
+
+
+def v1_route(num_heads: int, *, masked: bool = False, biased: bool = False,
+             quant_out: bool = False) -> str:
+    """Which instantiation of attention_qkv3.cu's v1 form a bf16 call
+    takes: K6/K7 "v1", or with a key mask "v1 masked"; K8 (the q/v biases)
+    "v1 biased", and with quant_out "v1 biased cluster" at
+    QKV3_CLUSTER_HEADS heads, else "v1 biased two_step" (`qkv3_route`'s
+    epilogues). Raises ValueError for what no instantiation takes: a key
+    mask with the biases (K8 takes none), int8 out without them (K6 and
+    K7 write bf16)."""
+    if masked and biased:
+        raise ValueError("the v1 form takes a key mask or the q/v biases, "
+                         "not both")
+    if quant_out and not biased:
+        raise ValueError("int8 out is K8's form: it takes the q/v biases")
+    if biased:
+        return "v1 biased" + (f" {qkv3_route(num_heads, True)}"
+                              if quant_out else "")
+    return "v1 masked" if masked else "v1"
 
 
 def qkv3_shape(dtype, shape, num_heads: int, quant_out: bool,
@@ -143,23 +167,32 @@ def _kernel_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.hirest_attention_qkv3_quant.argtypes = (
         [ctypes.c_void_p] * 5 + ints + [ctypes.c_float, ctypes.c_int,
                                         ctypes.c_void_p])
+    heads = [ctypes.c_int] * 5  # B, H, Sq, Sk, D
+    strides = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+    lib.hirest_attention_v1.argtypes = (
+        [ctypes.c_void_p] * 7 + heads + strides + [ctypes.c_void_p])
+    lib.hirest_attention_v1_quant.argtypes = (
+        [ctypes.c_void_p] * 9 + heads + strides + [ctypes.c_int,
+                                                   ctypes.c_void_p])
     lib.hirest_attention_qkv3_cluster_info.argtypes = [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.hirest_attention_qkv3_bf16,
-               lib.hirest_attention_qkv3_quant,
+               lib.hirest_attention_qkv3_quant, lib.hirest_attention_v1,
+               lib.hirest_attention_v1_quant,
                lib.hirest_attention_qkv3_cluster_info):
         fn.restype = ctypes.c_int
     return lib
 
 
-def qkv3_cluster_info(d: int) -> dict:
-    """K3's cluster epilogue on this card at head width d: the clusters of
-    16 and of 8 blocks it holds at once (cudaOccupancyMaxActiveClusters),
-    and the heads a block the launch takes (1: clusters of 16, 2: clusters
-    of 8)."""
+def qkv3_cluster_info(d: int, v1: bool = False) -> dict:
+    """The int8 cluster epilogue on this card at head width d, of K3 or
+    (v1) of K8's form: the clusters of 16 and of 8 blocks it holds at once
+    (cudaOccupancyMaxActiveClusters), and the heads a block the launch
+    takes (1: clusters of 16, 2: clusters of 8)."""
     lib = _kernel_lib()
     info = (ctypes.c_int * 3)()
-    build.check(lib, lib.hirest_attention_qkv3_cluster_info(d, info),
+    build.check(lib, lib.hirest_attention_qkv3_cluster_info(d, int(v1),
+                                                            info),
                 "attention_qkv3 cluster info")
     return {"clusters_of_16": info[0], "clusters_of_8": info[1],
             "heads_per_block": info[2]}
@@ -329,44 +362,11 @@ def fused_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
     return merge_heads(fused_attention_ref(q, k, v, scale, key_mask))
 
 
-def _split_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """attention_split.cu's library; `defines` selects a timing variant
-    (`-DHIREST_SPLIT_ARITH=k`, see the source)."""
-    lib = build.load("attention_split", defines)
-    ints = [ctypes.c_int] * 5  # B, H, Sq, Sk, D
-    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-            ctypes.c_void_p]
-    lib.hirest_attention_split.argtypes = [ctypes.c_void_p] * 7 + ints + tail
-    lib.hirest_attention_split_quant.argtypes = (
-        [ctypes.c_void_p] * 9 + ints + tail)
-    lib.hirest_attention_split.restype = ctypes.c_int
-    lib.hirest_attention_split_quant.restype = ctypes.c_int
-    lib.hirest_attention_split_occupancy.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3)
-    lib.hirest_attention_split_occupancy.restype = ctypes.c_int
-    return lib
-
-
-def split_occupancy(d: int, sq: int, *, bias: bool = False,
-                    quant: bool = False) -> dict:
-    """The streamed body's launch at head width d and sq queries (needs
-    the card), unmasked: K6/K7's instantiation, or with `bias` K8's (with
-    `quant` its int8 epilogue's). Threads and dynamic shared memory a
-    block, and the blocks an SM holds at once."""
-    lib = _split_lib()
-    blocks, threads, smem = (ctypes.c_int() for _ in range(3))
-    err = lib.hirest_attention_split_occupancy(
-        d, sq, int(bias), int(quant), ctypes.byref(blocks),
-        ctypes.byref(threads), ctypes.byref(smem))
-    build.check(lib, err, "attention_split occupancy")
-    return {"blocks_per_sm": blocks.value, "threads": threads.value,
-            "smem_bytes": smem.value}
-
-
-def _check_split(q, k, v, key_mask, dtype=torch.bfloat16):
-    """Check [B, H, S, D] views for attention_split.cu (bf16: 16-byte
-    aligned rows) or attention_f32.cu (f32) -> ((B, H, Sq, Sk, D), the
-    int32 key mask on q's device or None)."""
+def _check_heads(q, k, v, key_mask, dtype=torch.bfloat16):
+    """Check [B, H, S, D] views of q, k and v for the v1 form (bf16) or
+    attention_f32.cu (f32): one attention, one dtype and device, a head
+    width the kernels are built for -> ((B, H, Sq, Sk, D), the int32 key
+    mask on q's device or None). Layouts are `_tma_view`'s."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
@@ -376,12 +376,6 @@ def _check_split(q, k, v, key_mask, dtype=torch.bfloat16):
         if t.device != q.device or t.dtype != dtype:
             raise TypeError(f"the CUDA kernel takes {dtype} q, k and v on "
                             f"one device, got {t.dtype} on {t.device}")
-        if t.stride(-1) != 1:
-            raise ValueError("q, k and v need a unit last stride")
-        if dtype == torch.bfloat16 and (any(st % 8 for st in t.stride()[:3])
-                                        or t.data_ptr() % 16):
-            raise ValueError("bf16 q, k and v need strides a multiple of 8 "
-                             "and 16-byte alignment")
     if d not in SPLIT_HEAD_WIDTHS:
         raise ValueError(f"the CUDA kernel is built for head widths "
                          f"{SPLIT_HEAD_WIDTHS}, got {d}")
@@ -429,10 +423,13 @@ def _f32_lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
 
 
 def _tma_view(t: torch.Tensor) -> torch.Tensor:
-    """t where attention_f32.cu's TMA maps take it as it is (16-byte
-    aligned, batch, head and row strides positive multiples of 4
-    elements), else a copy with the contiguous layout's strides."""
-    if t.data_ptr() % 16 or any(st <= 0 or st % 4 for st in t.stride()[:3]):
+    """t where the TMA maps of attention_qkv3.cu's v1 form (bf16) and of
+    attention_f32.cu (f32) take it as it is (16-byte aligned, a unit last
+    stride, batch, head and row strides positive multiples of 16 bytes),
+    else a copy with the contiguous layout's strides."""
+    if (t.data_ptr() % 16 or t.stride(-1) != 1
+            or any(st <= 0 or st * t.element_size() % 16
+                   for st in t.stride()[:3])):
         return torch.empty_like(
             t, memory_format=torch.contiguous_format).copy_(t)
     return t
@@ -440,12 +437,12 @@ def _tma_view(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_f32(q, k, v, key_mask, out, scale: float, q_bias=None,
                 v_bias=None):
-    """Launch attention_f32.cu on f32 [B, H, S, D] views (unit last stride;
-    any batch, head and row strides, taken through `_tma_view`) into the
+    """Launch attention_f32.cu on f32 [B, H, S, D] views (any strides,
+    taken through `_tma_view`) into the
     f32 [B, H, Sq, D] view `out`, with the key mask [B, Sk] and the biases
     [H*D] (each or None). With out=None, the int8-out form instead ->
     (int8 codes [B, Sq, H*D], f32 row scales [B, Sq, 1])."""
-    (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask, torch.float32)
+    (b, h, sq, sk, d), mask = _check_heads(q, k, v, key_mask, torch.float32)
     q, k, v = (_tma_view(t) for t in (q, k, v))
     if out is not None and (out.dtype != torch.float32
                             or out.stride(-1) != 1):
@@ -509,45 +506,71 @@ def _launch_qkv_f32(qkv_biased: torch.Tensor, scale: float, num_heads: int,
     return out
 
 
-def _launch_split(q, k, v, key_mask, out, scale: float, q_bias=None,
-                  v_bias=None) -> None:
-    """Launch attention_split.cu on [B, H, S, D] views (any batch, head and
-    row strides, unit last stride) into the [B, H, Sq, D] view `out`, with
-    the bf16 biases [H*D] (or None) added to q and v; the kernel takes
-    biases or a key mask, not both."""
-    (b, h, sq, sk, d), mask = _check_split(q, k, v, key_mask)
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
-    lib = _split_lib()
-    with torch.cuda.device(q.device):
-        err = lib.hirest_attention_split(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-            _ptr(q_bias), _ptr(v_bias), out.data_ptr(), b, h, sq, sk, d,
-            strides, scale, torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "attention_split launch")
+def v1_plan(q, k, v, key_mask=None, biased: bool = False,
+            quant_out: bool = False) -> dict:
+    """What attention_qkv3.cu's v1 form launches for bf16 [B, H, S, D]
+    views q, k and v, without launching: the route (`v1_route`), the
+    views as its TMA maps take them (each q, k or v itself, or the copy
+    `_tma_view` makes), their (batch, head, row) strides, the shape
+    (B, H, Sq, Sk, D) and the int32 key mask. Raises as `_check_heads`
+    and `v1_route` do. Needs no GPU."""
+    shape, mask = _check_heads(q, k, v, key_mask)
+    route = v1_route(shape[1], masked=mask is not None, biased=biased,
+                     quant_out=quant_out)
+    views = tuple(_tma_view(t) for t in (q, k, v))
+    return {"route": route, "views": views, "shape": shape, "mask": mask,
+            "strides": tuple(st for t in views for st in t.stride()[:3])}
 
 
-def _launch_split_quant(q, k, v, scale: float, q_bias, v_bias):
-    """attention_split.cu with K8's biases and int8 epilogue, no key
-    mask: [B, H, S, D] views -> (int8 codes [B, Sq, H*D], f32 row scales
-    [B, Sq, 1])."""
-    (b, h, sq, sk, d), _ = _check_split(q, k, v, None)
+def _launch_v1(q, k, v, key_mask, out, scale: float, q_bias=None,
+               v_bias=None, two_step: bool = False, heads_per_block: int = 0):
+    """Launch attention_qkv3.cu's v1 form (`v1_plan`) on bf16 [B, H, S, D]
+    views into `out`, a contiguous bf16 [B, Sq, H*D] tensor, with the key
+    mask [B, Sk] (K6/K7) or the biases (K8: bf16 [H*D] each, `_bias_arg`).
+    With out=None, K8's int8 epilogue instead -> (int8 codes [B, Sq, H*D],
+    f32 row scales [B, Sq, 1]); two_step and heads_per_block as
+    `_launch_qkv3`'s (chip_smoke.py's yardstick and variants)."""
+    quant = out is None
+    plan = v1_plan(q, k, v, key_mask, q_bias is not None, quant)
+    route = plan["route"]
+    b, h, sq, sk, d = plan["shape"]
+    if two_step and route.endswith("cluster"):
+        route = "v1 biased two_step"
+    if heads_per_block and not route.endswith("cluster"):
+        raise ValueError(f"heads_per_block={heads_per_block} asks for the "
+                         f"cluster epilogue, which this call does not take")
+    if not quant and (out.dtype != torch.bfloat16 or not out.is_contiguous()
+                      or tuple(out.shape) != (b, sq, h * d)):
+        raise ValueError(f"out must be a contiguous bf16 [B, Sq, H*D] = "
+                         f"{(b, sq, h * d)}, got {tuple(out.shape)}")
+    q, k, v = plan["views"]
+    strides = (ctypes.c_longlong * 9)(*plan["strides"])
+    lib = _kernel_lib(QKV3_TWO_STEP if two_step else ())
     dev = q.device
-    ws = torch.empty((b, sq, h * d), dtype=torch.float32, device=dev)
-    rowmax = torch.empty((b, sq), dtype=torch.int32, device=dev)
-    codes = torch.empty((b, sq, h * d), dtype=torch.int8, device=dev)
-    scales = torch.empty((b, sq, 1), dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 9)(
-        *(st for t in (q, k, v) for st in t.stride()[:3]))
-    lib = _split_lib()
     with torch.cuda.device(dev):
-        err = lib.hirest_attention_split_quant(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_bias.data_ptr(),
-            v_bias.data_ptr(), ws.data_ptr(), rowmax.data_ptr(),
-            codes.data_ptr(), scales.data_ptr(), b, h, sq, sk, d, strides,
-            scale, torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "attention_split quant launch")
-    return codes, scales
+        stream = torch.cuda.current_stream().cuda_stream
+        if quant:
+            ws = rowmax = None
+            if route.endswith("two_step"):
+                ws = torch.empty((b, sq, h * d), dtype=torch.float32,
+                                 device=dev)
+                rowmax = torch.empty((b, sq), dtype=torch.int32, device=dev)
+            codes = torch.empty((b, sq, h * d), dtype=torch.int8, device=dev)
+            scales = torch.empty((b, sq, 1), dtype=torch.float32, device=dev)
+            err = lib.hirest_attention_v1_quant(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), q_bias.data_ptr(),
+                v_bias.data_ptr(), _ptr(ws), _ptr(rowmax), codes.data_ptr(),
+                scales.data_ptr(), b, h, sq, sk, d, strides, scale,
+                heads_per_block, stream)
+            result = codes, scales
+        else:
+            err = lib.hirest_attention_v1(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(plan["mask"]),
+                _ptr(q_bias), _ptr(v_bias), out.data_ptr(), b, h, sq, sk, d,
+                strides, scale, stream)
+            result = out
+    build.check(lib, err, "attention v1 launch")
+    return result
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -557,10 +580,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> [B, H, Sq, D] in q's dtype (K6).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (K and V streamed through shared memory, so any Sk): bf16 views with a
-    unit last stride, head width 64, 88 or 128, or f32 views, which take
-    the f32 body; anything else raises. The output lies in [B, Sq, H, D]
-    memory, so merging the heads back is a view.
+    (K and V streamed through shared memory, so any Sk): bf16 views of
+    head width 64, 88 or 128 (a layout the TMA maps cannot take is copied
+    first, `_tma_view`), or f32 views, which take the f32 body; anything
+    else raises. The output lies in [B, Sq, H, D] memory, so merging the
+    heads back is a view.
     `fused_attention.launches` counts bf16 launches, `.launches_f32` f32
     ones."""
     if not _on_cuda(q):
@@ -568,15 +592,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4:
         raise ValueError(f"expected [B, H, Sq, D], got {tuple(q.shape)}")
     b, h, sq, d = q.shape
-    out = torch.empty((b, sq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if q.dtype == torch.float32:
-        _launch_f32(q, k, v, key_mask, out, scale)
+        _launch_f32(q, k, v, key_mask, out.transpose(1, 2), scale)
         fused_attention.launches_f32 += 1
-        return out
-    _launch_split(q, k, v, key_mask, out, scale)
+        return out.transpose(1, 2)
+    _launch_v1(q, k, v, key_mask, out.view(b, sq, h * d), scale)
     fused_attention.launches += 1
-    return out
+    return out.transpose(1, 2)
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -595,12 +618,12 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"expected [B, Sq, {num_heads} heads * D], got "
                          f"{tuple(q.shape)}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    q, k, v, o = (split_heads(t, num_heads) for t in (q, k, v, out))
+    q, k, v = (split_heads(t, num_heads) for t in (q, k, v))
     if q.dtype == torch.float32:
-        _launch_f32(q, k, v, key_mask, o, scale)
+        _launch_f32(q, k, v, key_mask, split_heads(out, num_heads), scale)
         fused_attention_packed.launches_f32 += 1
         return out
-    _launch_split(q, k, v, key_mask, o, scale)
+    _launch_v1(q, k, v, key_mask, out, scale)
     fused_attention_packed.launches += 1
     return out
 
@@ -641,12 +664,13 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
     q_bias and v_bias [H*d] -> [B, S, H*d], or with quant_out the int8
     codes and f32 row scales [B, S, 1] of the f32 output.
 
-    A CPU tensor takes the plain version. A CUDA tensor must be contiguous
-    bf16 with head width 64, 88 or 128, any S, and launches
-    attention_split.cu on the q, k and v thirds as views, the biases added
-    in bf16 as the kernel loads q and as each V tile lands in shared
-    memory; or f32, which launches the f32 body on the same views with the
-    biases added in f32; anything else raises.
+    A CPU tensor takes the plain version. A CUDA tensor in bf16 (head
+    width 64, 88 or 128, any S) launches the kernel's v1 form on the q, k
+    and v thirds as views (copied first where the TMA maps cannot take
+    them, `_tma_view`), the biases added in bf16 to q's fragments and to
+    each V tile as it lands in shared memory, the int8 epilogue at 16
+    heads in the kernel (`v1_route`); in f32 the f32 body on the same
+    views with the biases added in f32; anything else raises.
     `fused_attention_qkv.launches` counts bf16-out launches,
     `.quant_launches` int8-out ones, `.launches_f32` and
     `.quant_launches_f32` their f32 ones."""
@@ -665,17 +689,17 @@ def fused_attention_qkv(qkv: torch.Tensor, q_bias: torch.Tensor,
                             v_bias)
         _count_f32(fused_attention_qkv, quant_out)
         return codes if quant_out else out
-    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 or "
-                        f"float32 qkv, got {qkv.dtype}")
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bfloat16 or float32 qkv, got "
+                        f"{qkv.dtype}")
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, -1))
     qb, vb = (_bias_arg(t, hd, qkv.device) for t in (q_bias, v_bias))
     if quant_out:
-        out = _launch_split_quant(q, k, v, scale, qb, vb)
+        out = _launch_v1(q, k, v, None, None, scale, qb, vb)
         fused_attention_qkv.quant_launches += 1
         return out
     out = torch.empty((b, s, hd), dtype=qkv.dtype, device=qkv.device)
-    _launch_split(q, k, v, None, split_heads(out, num_heads), scale, qb, vb)
+    _launch_v1(q, k, v, None, out, scale, qb, vb)
     fused_attention_qkv.launches += 1
     return out
 

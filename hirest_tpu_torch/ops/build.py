@@ -5,8 +5,8 @@ own into `build/kernels/lib<name>-<digest>.so` at the repository root (a
 directory git ignores). The digest covers the source, the shared headers
 `csrc/*.cuh` and the flags, so an edited source or header is rebuilt and
 never served from a stale library. A caller may add `-D` defines, which
-make a library of their own (attention_split.cu's arithmetic variants,
-timed by chip_smoke.py --time-attention). Nothing is
+make a library of their own (attention_qkv3.cu's two-step-only build,
+chip_smoke.py's yardstick of its cluster epilogue). Nothing is
 built when a module is imported: the first launch builds, or a caller that
 wants the build timed on its own calls `build()` first.
 """
@@ -22,9 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_qkv3", "attention_split", "ln_quant", "fused_mlp_int8",
-           "act_quant", "attention_f32", "epilogue", "int8_epilogue",
-           "int8_gemm")
+SOURCES = ("attention_qkv3", "ln_quant", "fused_mlp_int8", "act_quant",
+           "attention_f32", "epilogue", "int8_epilogue", "int8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -248,7 +248,8 @@ __device__ __forceinline__ uint64_t smem_desc_mn64(uint32_t addr,
 // register fragment: warp w holds rows 16w..16w+15 in mma.sync's m16n8k16
 // A layout (a[0] rows g / cols 2t, a[1] rows g+8, a[2] cols 2t+8, a[3]
 // both). B comes by descriptor: K-major for the score product (n64),
-// MN-major for PV (n96, n128). D register 4i + e holds row 16w + g +
+// MN-major for PV (n96, n128, and n64 with kTransB = 1 at head width 64).
+// D register 4i + e holds row 16w + g +
 // 8 (e / 2), column 8i + 2t + e % 2, g = lane / 4, t = lane % 4:
 // mma.sync's C layout for each 8-column slice.
 
@@ -256,6 +257,7 @@ __device__ __forceinline__ uint64_t smem_desc_mn64(uint32_t addr,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
                                                const uint32_t (&a)[4],
                                                uint64_t db, int accumulate) {
@@ -267,10 +269,10 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+        "r"(accumulate), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_bf16_n96(float (&d)[48],
