@@ -48,16 +48,23 @@ int8, padded scanned, ladder bf16, int8 dyn, bf16+v3+lnk in f32): frames/s
 and one profiled forward's groups each. In a checkout without
 ops/epilogue.py it says so and times the plain chains alone, so parent,
 change, change, parent in one call compares the two trees.
---time-int8-gemm holds each G1 variant (256-wide tiles one block an SM,
-128-wide tiles two blocks an SM) bit for bit against int8_mm_ref, then times
-G1 (each variant) at every product it takes over beside its bound,
-torch._int_mm alone, torch._int_mm + E3 (the chain before G1) and the
-plain version, then six full-width int8 forwards (production int8, the
-ladder's int8 dyn, int8+fq and int8+fq+v3, int8+fq+v3 in f32, the
-unrolled int8 tower): frames/s and one profiled forward's groups each. In
-a checkout without csrc/int8_gemm.cu it says so and times torch._int_mm +
-E3 and the forwards, so parent, change, change, parent in one call
-compares the two trees.
+--time-int8-gemm prints G1's registers and spills (ptxas), each variant's
+shared memory, ring stages and the clusters the card holds at once
+(cudaOccupancyMaxActiveClusters), holds every variant bit for bit against
+int8_mm_ref (as the kernels phase does), then times G1 at every product
+it takes over beside its bound, torch._int_mm alone, torch._int_mm + E3
+(the chain before G1) and the plain version, each variant forced in
+turns (every variant, then every variant again in reverse order), then
+the short products (the head at B = 128 and 2, one frame's qkv and fc2)
+in CUDA graphs (device time without the host's enqueue) in each variant,
+then six full-width int8 forwards (production int8, the ladder's int8
+dyn, int8+fq and int8+fq+v3, int8+fq+v3 in f32, the unrolled int8
+tower): frames/s and one profiled forward's groups each. In a checkout
+without csrc/int8_gemm.cu it says so and times torch._int_mm + E3 and
+the forwards, and in one with an earlier G1 it times that G1's variants
+unchecked, so parent, change, change, parent in one call compares the two
+trees. tools/g1_probe.py probes the first G1 design (the epilogue in
+series with the products) on the card.
 The flags combine: one process runs each asked for.
 
 Phases; any failure exits non-zero before the result line is printed:
@@ -154,9 +161,15 @@ Phases; any failure exits non-zero before the result line is printed:
             [M, 1408] x 4224 and, at padded heads, x 6144; out with its
             residual (K = 1408 and 2048), fc1 (x 6144), fc2 (K = 6144) with
             its residual, the patch embedding [B * 256, 592] x 1408, for
-            M = 32896 (32768), 1, 17, 257 and 5000; the head x 1024 on
-            class-token rows 257 x 1408 apart at B = 2 and 128; and G1
-            refusing what its shape rule refuses.
+            M = 32896 (an odd count of row tiles: the last cluster pair
+            has one), 32768 (even), 1, 17, 257 and 5000; the head x 1024
+            on class-token rows 257 x 1408 apart at B = 2 and 128; each
+            in int8_gemm_config's choice and in every variant forced
+            (clusters of two 128 x 256 tiles; split K, also at 2, 3, 5
+            and 8 blocks on the head; f32 only, 128-wide tiles two blocks
+            an SM), with each variant's shared memory, ring and the
+            clusters the card holds printed first; and G1 refusing what
+            its shape rule refuses.
 3. main     the extraction encoder at full EVA-g width (40 layers, 1408 wide,
             seeded random weights): make_eva_encoder(device="cuda"), bf16 and
             int8=True, each with the float and the uint8 front end, a few
@@ -451,6 +464,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms, its `iters` calls captured in one
+    CUDA graph and replayed (after a warm-up call): launches back to back,
+    without the host's enqueue time between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -1663,10 +1698,48 @@ G1_FORMS = (("qkv v1", 1408, 4224, False, False),
             ("fc2", 6144, 1408, True, True),
             ("patch embed", 592, 1408, True, False))
 G1_EDGE_M = (1, 17, 257, 5000)  # a row, _int_mm's least, a frame, ragged
+# 256 row tiles, so clusters of two along M pair every row tile (M = 32896
+# leaves the last one alone)
+G1_EVEN_M = BATCH * 256
 G1_HEAD = (1408, 1024)  # the head: K, N, on B class-token rows
-# G1's variants (ops/quant.py::INT8_GEMM_VARIANTS) -> what each is
-G1_VARIANTS = {0: "256-wide tiles, one block an SM",
-               1: "128-wide tiles, two blocks an SM"}
+G1_HEAD_SPLITS = (2, 3, 5, 8)  # split K forced at the head, beside the rule's
+G1_KERNELS = ("int8_gemm_kernel", "int8_gemm_split_kernel",
+              "int8_gemm_serial_kernel")
+
+
+def g1_variants() -> dict:
+    """G1's variants in this checkout (ops/quant.py::INT8_GEMM_VARIANTS)
+    -> what each is."""
+    from hirest_tpu_torch.ops import quant
+
+    v = quant.INT8_GEMM_VARIANTS
+    return dict(v) if isinstance(v, dict) else {i: f"variant {i}" for i in v}
+
+
+def g1_forced(quant, v):
+    """G1 in variant v, in this checkout's wrapper or an earlier one's."""
+    import inspect
+
+    key = ("config" if "config" in inspect.signature(
+        quant._int8_gemm_launch).parameters else "variant")
+    return lambda *args: quant._int8_gemm_launch(*args, **{key: v})
+
+
+def print_int8_gemm_info(tag: str) -> None:
+    """Each G1 variant's shared memory, ring stages, cluster and the blocks
+    (clusters) the card holds at once."""
+    from hirest_tpu_torch.ops import quant
+
+    names = g1_variants()
+    for (v, dt), info in quant.int8_gemm_info().items():
+        held = ("not persistent" if info["resident"] == 0 else
+                f"{info['resident']} blocks at once"
+                + (f" ({info['resident'] // info['cluster']} clusters of "
+                   f"{info['cluster']}, cudaOccupancyMaxActiveClusters)"
+                   if info["cluster"] > 1 else ""))
+        print(f"[{tag}] G1 variant {v} ({names[v]}), {dt} out: "
+              f"{info['smem']} B shared a block, {info['stages']} ring "
+              f"stages, {held}")
 
 
 def int8_gemm_inputs(m: int, k: int, n: int, seed: int, dtype,
@@ -1700,15 +1773,16 @@ def int8_gemm_inputs(m: int, k: int, n: int, seed: int, dtype,
 
 
 def int8_gemm_cases(seed: int, edges: bool = True):
-    """(tag, G1's operands) at every shape G1 takes over, in bf16 and f32:
-    each G1_FORMS product at M = 32896 (the patch embedding at 32768) and,
-    with edges, G1_EDGE_M; the head on class-token rows at B = 2 and
-    128."""
+    """(tag, G1's operands, dtype) at every shape G1 takes over, in bf16 and
+    f32: each G1_FORMS product at M = 32896 (the patch embedding at 32768)
+    and, with edges, at G1_EVEN_M and G1_EDGE_M; the head on class-token
+    rows at B = 2 and 128."""
     for dtype in (torch.bfloat16, torch.float32):
         sfx = "" if dtype == torch.bfloat16 else "f32"
         for form, k, n, with_bias, with_res in G1_FORMS:
-            big = BATCH * 256 if form == "patch embed" else BATCH * TOKENS
-            for m in (big, *(G1_EDGE_M if edges else ())):
+            big = G1_EVEN_M if form == "patch embed" else BATCH * TOKENS
+            more = (*((G1_EVEN_M,) if big != G1_EVEN_M else ()), *G1_EDGE_M)
+            for m in (big, *(more if edges else ())):
                 seed += 1
                 yield (f"G1{sfx} {form} [{m},{k}]x[{k},{n}]",
                        int8_gemm_inputs(m, k, n, seed, dtype, with_bias,
@@ -1722,39 +1796,54 @@ def int8_gemm_cases(seed: int, edges: bool = True):
                                     head_rows=True), dtype)
 
 
-def int8_gemm_checks(variants: bool = False) -> dict:
-    """G1 (int8_mm on CUDA) bit for bit against its plain version
-    (int8_mm_ref: torch._int_mm, then E3's plain version) at every shape
-    of int8_gemm_cases, in bf16 and f32 out; with `variants`, also each
-    G1 variant at the large M of each form and M = 5000. Then the wrapper
-    refusing what G1's rule refuses.
-    Returns G1's largest errors (0: bit for bit)."""
-    from hirest_tpu_torch.ops.quant import (_int8_gemm_launch, int8_mm,
+def int8_gemm_checks() -> dict:
+    """G1 (int8_mm on CUDA, in int8_gemm_config's choice) bit for bit
+    against its plain version (int8_mm_ref: torch._int_mm, then E3's plain
+    version) at every shape of int8_gemm_cases, in bf16 and f32 out, and
+    every variant (each one the rule picks somewhere) forced at every
+    shape in each dtype it has, split K also at G1_HEAD_SPLITS on the
+    head's rows. Then the wrapper refusing what G1's rule refuses. Returns
+    G1's largest errors (0: bit for bit)."""
+    from hirest_tpu_torch.ops.quant import (INT8_GEMM_F32_ONLY,
+                                            INT8_GEMM_SPLIT, Int8GemmConfig,
+                                            _int8_gemm_launch,
+                                            int8_gemm_config, int8_mm,
                                             int8_mm_ref)
 
+    forced = list(g1_variants())
     worst = {"G1": 0.0, "G1f32": 0.0}
-    n_checks = 0
+    n_checks, picked = 0, {}
     for tag, (x_q, x_s, w_q, w_s, b, x), dtype in int8_gemm_cases(2100):
         want = int8_mm_ref(x_q, x_s, w_q, w_s, b, dtype, x)
         got = int8_mm(x_q, x_s, w_q, w_s, b, dtype, x)
         err, share = epilogue_check(tag, got, want, exact=True)
-        n_checks += 1
-        m = x_q.shape[0]
-        if variants and (m >= 5000 or m == BATCH):
-            for v in G1_VARIANTS:
-                got = _int8_gemm_launch(x_q, x_s, w_q, w_s, b, dtype, x,
-                                        variant=v)
-                epilogue_check(f"{tag} variant {v}", got, want, exact=True)
-                n_checks += 1
+        m, k = x_q.shape
+        n = w_q.shape[0]
+        config = int8_gemm_config(m, n, k, dtype == torch.float32,
+                                  x is not None)
+        picked.setdefault(config[:2], []).append(m)
+        configs = [v for v in forced if dtype == torch.float32
+                   or v not in INT8_GEMM_F32_ONLY]
+        if "head" in tag:
+            configs += [Int8GemmConfig(INT8_GEMM_SPLIT, sp, sp)
+                        for sp in G1_HEAD_SPLITS]
+        for c in configs:
+            got = _int8_gemm_launch(x_q, x_s, w_q, w_s, b, dtype, x,
+                                    config=c)
+            epilogue_check(f"{tag} {c}", got, want, exact=True)
+        n_checks += 1 + len(configs)
         key = "G1" if dtype == torch.bfloat16 else "G1f32"
         worst[key] = max(worst[key], err)
-        if m in (BATCH * TOKENS, BATCH * 256, 2):
-            print(f"[kernels] {tag}: max_abs_err={err}, share differing "
-                  f"{share} (bit for bit; also at M = "
-                  f"{', '.join(map(str, G1_EDGE_M))})")
+        if m in (BATCH * TOKENS, G1_EVEN_M, 2):
+            print(f"[kernels] {tag}: {config}, max_abs_err={err}, share "
+                  f"differing {share} (bit for bit; also at M = "
+                  f"{', '.join(map(str, G1_EDGE_M))} and in variants "
+                  f"{forced})")
         del x_q, x_s, w_q, w_s, b, x, got, want
     print(f"[kernels] G1 int8_mm: {n_checks} products bit for bit with "
-          f"int8_mm_ref, bf16 and f32 out")
+          f"int8_mm_ref, bf16 and f32 out; the rule's picks (variant, "
+          f"splits) -> rows: "
+          f"{ {c: sorted(set(ms)) for c, ms in picked.items()} }")
     codes = torch.zeros((32, 1408), dtype=torch.int8, device="cuda")
     w_q = torch.zeros((1408, 1408), dtype=torch.int8, device="cuda")
     x_s = torch.ones((32, 1), device="cuda")
@@ -1807,16 +1896,18 @@ def int8_gemm_bound(m: int, k: int, n: int, dtype, with_bias: bool,
 
 def int8_gemm_times(variants: bool) -> tuple:
     """At every G1_FORMS product (M = 32896, the patch embedding 32768) and
-    the head at B = 128, in bf16 and f32 out: G1 (int8_mm; with variants,
-    each variant) beside its bound, the
-    plain version (int8_mm_ref), torch._int_mm alone and torch._int_mm +
-    E3 (int8_epilogue), the chain G1 replaces. Where the checkout has no
-    G1, its int8_mm (torch._int_mm + E3) and the rest. Returns (the
-    kernels line's rows: qkv v2/v3, its bias, the kernels line's; every
-    row, by tag)."""
+    the head at B = 128, in bf16 and f32 out: G1 (int8_mm, the rule's
+    variant; with variants, also each variant forced, in turns: every
+    variant, then every variant again in reverse order) beside its bound,
+    the plain version (int8_mm_ref), torch._int_mm alone and
+    torch._int_mm + E3 (int8_epilogue), the chain G1 replaces. Where the
+    checkout has no G1, its int8_mm (torch._int_mm + E3) and the rest.
+    Returns (the kernels line's rows: qkv v2/v3, its bias, the kernels
+    line's; every row, by tag)."""
     from hirest_tpu_torch.ops import quant
 
     kernel = hasattr(quant, "int8_gemm_shape")
+    order = list(g1_variants()) if kernel and variants else []
     rows = {}
     seed = 2500
     for dtype in (torch.bfloat16, torch.float32):
@@ -1845,11 +1936,21 @@ def int8_gemm_times(variants: bool) -> tuple:
             if kernel:
                 r["ms"] = cuda_ms(lambda: quant.int8_mm(
                     x_q, x_s, w_q, w_s, b, dtype, x), 20)
-                if variants:
-                    r["variants"] = {
-                        v: cuda_ms(lambda: quant._int8_gemm_launch(
-                            x_q, x_s, w_q, w_s, b, dtype, x, variant=v), 20)
-                        for v in G1_VARIANTS}
+                if hasattr(quant, "int8_gemm_config") and kernel:
+                    try:
+                        r["config"] = tuple(quant.int8_gemm_config(
+                            m, n, k, dtype == torch.float32, x is not None))
+                    except TypeError:  # an earlier rule, by K alone
+                        r["config"] = quant.int8_gemm_config(
+                            k, dtype == torch.float32, x is not None)
+                mine = [v for v in order if dtype == torch.float32 or v not in
+                        getattr(quant, "INT8_GEMM_F32_ONLY", ())]
+                if order:
+                    r["variants"] = {v: [] for v in mine}
+                    for v in mine + mine[::-1]:
+                        fn = g1_forced(quant, v)
+                        r["variants"][v].append(cuda_ms(
+                            lambda: fn(x_q, x_s, w_q, w_s, b, dtype, x), 20))
             rows[f"G1{sfx} {form} [{m},{k}]x[{k},{n}]"] = r
             if form == "qkv v2/v3":
                 rows[f"G1{sfx}"] = r
@@ -1858,10 +1959,49 @@ def int8_gemm_times(variants: bool) -> tuple:
     return line, {k: v for k, v in rows.items() if k not in line}
 
 
+# short products whose time the host's enqueue hides: (form, M, K, N,
+# with the head's class-token rows)
+G1_SHORT = (("head", BATCH, 1408, 1024, True), ("head", 2, 1408, 1024, True),
+            ("qkv v2/v3", TOKENS, 1408, 4224, False),
+            ("fc2", TOKENS, 6144, 1408, False))
+
+
+def int8_gemm_short_times(card: str, tag: str) -> None:
+    """G1 at G1_SHORT in bf16, each variant of this checkout's (the
+    rule's first) in CUDA graphs: device time without the host's
+    enqueue, beside the rule's choice and torch._int_mm's."""
+    from hirest_tpu_torch.ops import quant
+
+    names = g1_variants()
+    for form, m, k, n, head in G1_SHORT:
+        x_q, x_s, w_q, w_s, b, x = int8_gemm_inputs(
+            m, k, n, 2700 + m, torch.bfloat16, True, form == "fc2",
+            head_rows=head)
+        x_c = torch.nn.functional.pad(x_q, (0, 0, 0, max(0, 17 - m)))
+        ms = {"rule": graph_ms(lambda: quant.int8_mm(
+                  x_q, x_s, w_q, w_s, b, torch.bfloat16, x)),
+              "_int_mm": graph_ms(lambda: _INT_MM(x_c, w_q.t()))}
+        for v in names:
+            if v in quant.INT8_GEMM_F32_ONLY:
+                continue
+            fn = g1_forced(quant, v)
+            ms[v] = graph_ms(lambda: fn(x_q, x_s, w_q, w_s, b,
+                                        torch.bfloat16, x))
+        config = quant.int8_gemm_config(m, n, k, False, x is not None)
+        print(f"[{tag}] {card}: {REPO.name}: G1 {form} [{m},{k}]x[{k},{n}] "
+              f"bf16, device ms in CUDA graphs: rule {tuple(config)} "
+              f"{ms['rule']:.4f}, _int_mm {ms['_int_mm']:.4f}; "
+              + ", ".join(f"{v} {ms[v]:.4f}" for v in names if v in ms))
+        del x_q, x_s, w_q, w_s, b, x, x_c
+
+
 def print_int8_gemm_times(rows: dict, card: str, tag: str) -> None:
+    names = g1_variants() if any("variants" in r for r in rows.values()) \
+        else {}
     for name, r in rows.items():
         kernel = ("missing" if r["ms"] is None else
-                  f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of bound)")
+                  f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of bound)"
+                  f"{', ' + str(r['config']) if 'config' in r else ''}")
         plain = ("missing" if r["plain_ms"] is None
                  else f"{r['plain_ms']:.4f} ms")
         print(f"[{tag}] {card}: {REPO.name}: {name}: G1 {kernel}, "
@@ -1869,8 +2009,9 @@ def print_int8_gemm_times(rows: dict, card: str, tag: str) -> None:
               f"{r['int_mm_e3_ms']:.4f} ms, plain {plain}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         for v, ms in r.get("variants", {}).items():
-            print(f"[{tag}] {card}:   variant {v} ({G1_VARIANTS[v]}): "
-                  f"{ms:.4f} ms ({r['bound_ms'] / ms:.3f} of bound)")
+            print(f"[{tag}] {card}:   variant {v} ({names[v]}): "
+                  f"{' / '.join(f'{t:.4f}' for t in ms)} ms "
+                  f"({r['bound_ms'] / min(ms):.3f} of bound)")
 
 
 # the int8 forwards --time-int8-gemm times: staged tower dtype (None: the
@@ -1895,33 +2036,35 @@ G1_FORWARDS = 3  # timed forwards of B=128 a configuration, after a warm-up
 
 def time_int8_gemm(cfg, card: str) -> None:
     """G1 at every shape it takes over beside its bound, torch._int_mm
-    alone, torch._int_mm + E3 and the plain version (int8_gemm_times),
-    after every variant's bit-for-bit check (int8_gemm_checks with
-    variants); then each G1_TOWERS forward at full width and depth on
+    alone, torch._int_mm + E3 and the plain version, and every variant in
+    turns (int8_gemm_times), after G1's registers and spills (ptxas), each
+    variant's shared memory, ring and the clusters the card holds at once,
+    and every variant's bit-for-bit check (int8_gemm_checks); then each G1_TOWERS forward at full width and depth on
     seeded weights: ms a forward and frames/s over G1_FORWARDS, and one
     profiled forward's groups. A checkout without G1 times torch._int_mm +
-    E3 (its int8_mm) and its forwards, so parent, change, change, parent
-    in one call compares the two trees."""
+    E3 (its int8_mm) and its forwards, and an earlier G1 its own variants
+    unchecked, so parent, change, change, parent in one call compares the
+    two trees."""
     from hirest_tpu_torch.models.eva_quant import build_int8_vision_apply
     from hirest_tpu_torch.models.eva_scan import (build_scanned_vision_apply,
                                                   stage_scanned_params)
-    from hirest_tpu_torch.ops import build
+    from hirest_tpu_torch.ops import build, quant
     from hirest_tpu_torch.utils.init import random_eva_vision_state_dict
 
     kernel = "int8_gemm" in build.SOURCES
     logs = build.build()  # every source at once, as the forwards need them
     if kernel:
-        from hirest_tpu_torch.ops.quant import int8_gemm_smem_bytes
-
-        ptxas_summary(logs.get("int8_gemm", ""), ("int8_gemm_kernel",))
-        print(f"[time-int8-gemm] G1 dynamic shared memory a block: "
-              f"{int8_gemm_smem_bytes()}")
-        int8_gemm_checks(variants=True)
+        ptxas_summary(logs.get("int8_gemm", ""), G1_KERNELS)
+        if hasattr(quant, "int8_gemm_info"):
+            print_int8_gemm_info("time-int8-gemm")
+            int8_gemm_checks()
     else:
         print(f"[time-int8-gemm] {REPO}: G1 (csrc/int8_gemm.cu) is not in "
               f"this checkout: torch._int_mm + E3 alone")
     line, rows = int8_gemm_times(variants=kernel)
     print_int8_gemm_times({**line, **rows}, card, "time-int8-gemm")
+    if kernel and hasattr(quant, "int8_gemm_info"):
+        int8_gemm_short_times(card, "time-int8-gemm")
     t0 = time.perf_counter()
     sd = random_eva_vision_state_dict(cfg, seed=0)
     print(f"[time-int8-gemm] seeded weights drawn in "
@@ -3542,7 +3685,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     ),
     "int8": (
         ("G1 int8_gemm, products and dequant (CUDA)",
-         ("int8_gemm_kernel",)),
+         ("int8_gemm",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3, int8 epilogue in the kernel (CUDA; the two-step "
@@ -3567,7 +3710,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     ),
     "ladder int8 K8": (
         ("G1 int8_gemm, products and dequant (CUDA)",
-         ("int8_gemm_kernel",)),
+         ("int8_gemm",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("E1 bias_act (CUDA)", ("bias_act_kernel",)),
         ("E2 bias_residual (CUDA)", ("bias_residual_kernel",)),
@@ -3586,7 +3729,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     ),
     "ladder int8": (
         ("G1 int8_gemm, products and dequant (CUDA)",
-         ("int8_gemm_kernel",)),
+         ("int8_gemm",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 ln_quant (CUDA)", ("ln_quant", "ln_kernel")),
         ("K3 attention_qkv3, int8 epilogue in the kernel (CUDA; the two-step "
@@ -3610,7 +3753,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     ),
     "ladder f32 int8": (
         ("G1 f32 int8_gemm, products and dequant (CUDA)",
-         ("int8_gemm_kernel",)),
+         ("int8_gemm",)),
         ("E3 f32 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("K2 f32 ln_f32_kernel (CUDA)", ("ln_f32_kernel<true>",
                                          "ln_f32_kernelILb1E")),
@@ -3633,7 +3776,7 @@ KERNEL_GROUPS = {  # precision -> (group, substrings of a device kernel's name)
     ),
     "unrolled int8": (
         ("G1 int8_gemm, products and dequant (CUDA)",
-         ("int8_gemm_kernel",)),
+         ("int8_gemm",)),
         ("E3 int8_epilogue dequant (CUDA)", ("dequant_kernel",)),
         ("E4 row_quant (CUDA: act_quant_kernel's ring; the patch rows' "
          "row_quant_kernel)", ("row_quant_kernel", "act_quant_kernel")),
@@ -6913,8 +7056,7 @@ def main() -> int:
           f"compiled in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"[build] {name}:\n{log.strip()}")
-    from hirest_tpu_torch.ops.quant import (int8_gemm_smem_bytes,
-                                            mlp_int8_smem_bytes)
+    from hirest_tpu_torch.ops.quant import mlp_int8_smem_bytes
 
     ptxas_summary(logs.get("fused_mlp_int8", ""),
                   ("fused_mlp_int8_hidden_kernel",
@@ -6928,11 +7070,10 @@ def main() -> int:
                                              "bias_residual_kernel"))
     ptxas_summary(logs.get("int8_epilogue", ""), ("dequant_kernel",
                                                   "row_quant_kernel"))
-    ptxas_summary(logs.get("int8_gemm", ""), ("int8_gemm_kernel",))
+    ptxas_summary(logs.get("int8_gemm", ""), G1_KERNELS)
     print(f"[build] K4 dynamic shared memory a block: "
           f"{mlp_int8_smem_bytes()}")
-    print(f"[build] G1 dynamic shared memory a block, by (variant, out): "
-          f"{int8_gemm_smem_bytes()}")
+    print_int8_gemm_info("build")
 
     if "--parallel-only" in sys.argv[1:]:
         phase_parallel(card)

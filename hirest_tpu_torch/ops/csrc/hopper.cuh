@@ -1,8 +1,9 @@
 // Hopper pieces shared by the kernels built on TMA and wgmma
-// (fused_mlp_int8.cu, attention_qkv3.cu, attention_f32.cu) and by the row
-// ring (rowring.cuh): mbarriers, TMA tile loads, 1-d bulk copies, the
-// tensor-map encoder, clusters and their distributed shared memory,
-// setmaxnreg, wgmma's fence / commit / wait,
+// (fused_mlp_int8.cu, attention_qkv3.cu, attention_f32.cu, int8_gemm.cu)
+// and by the row ring (rowring.cuh): mbarriers, TMA tile loads (also
+// multicast to a cluster) and stores with their bulk groups, 1-d bulk
+// copies, the tensor-map encoder, clusters and their distributed shared
+// memory, setmaxnreg, wgmma's fence / commit / wait,
 // shared-memory matrix descriptors, the bf16 wgmma products of the
 // attention kernel, and the tf32 ones of the f32 body with its tf32
 // rounding, proxy fence and named barrier (attention_tiles.cuh takes its
@@ -63,6 +64,51 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same box written into the shared memory of every block of the
+// cluster named in `mask` (bit r: rank r), at the same offset as dst, each
+// copy completing its bytes on that block's barrier at bar's offset.
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int x, int y,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// One box of shared memory out to a 2-d tensor map at (x, y), in the
+// issuing thread's bulk group; the map clips what lies past its bounds.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups still read
+// their shared memory (the source may then be written again).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // An L2 policy that evicts the lines it covers first: for data read once.
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t policy;
@@ -108,6 +154,12 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
@@ -148,6 +200,16 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
   return v;
 }
 
+// The 16 bytes at p in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint4 ld_cluster_v4(const void* p, uint32_t rank) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(cluster_addr(p, rank))
+               : "memory");
+  return v;
+}
+
 // One arrival on the mbarrier *bar of the cluster's block `rank`,
 // releasing this thread's earlier writes to the cluster.
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
@@ -156,6 +218,16 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
       "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
           cluster_addr(bar, rank))
       : "memory");
+}
+
+// One arrival on the mbarrier *bar of the cluster's block `rank`, at the
+// default release semantics (the CTA's scope), for an arrival that orders
+// no memory access of this thread's for the peer.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_addr(bar, rank))
+               : "memory");
 }
 
 // mbar_wait that acquires what the arrivals released in the cluster.

@@ -43,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -392,48 +393,99 @@ def int8_gemm_shape(out_dtype, x_shape, w_shape, x_stride=None,
     return m, n, k
 
 
-# G1's variants (csrc/int8_gemm.cu): 256-wide tiles, one block an SM; or
-# 128-wide tiles, two blocks an SM
-INT8_GEMM_WIDE, INT8_GEMM_PAIR = 0, 1
-INT8_GEMM_VARIANTS = (INT8_GEMM_WIDE, INT8_GEMM_PAIR)
+# G1's variants (csrc/int8_gemm.cu), by number -> what each is
+INT8_GEMM_VARIANTS = {
+    0: "clusters of two 128 x 256 tiles sharing w_q's, one block an SM",
+    1: "split K: 128 x 128 tiles, a cluster of blocks along K",
+    2: "f32 only: 128-wide tiles, two blocks an SM, the epilogue in series",
+}
+INT8_GEMM_PAIR, INT8_GEMM_SPLIT, INT8_GEMM_SERIAL = range(3)
+INT8_GEMM_F32_ONLY = (INT8_GEMM_SERIAL,)  # variants without a bf16 form
+INT8_GEMM_MAX_SPLITS = 8  # blocks of a split-K cluster (the portable most)
+INT8_GEMM_SMS = 132  # an H100 SXM's SMs: the wave split K fills
+INT8_GEMM_BM, INT8_GEMM_BK = 128, 128  # a tile's rows, a K tile's bytes
 
 
-def int8_gemm_config(k: int, f32: bool = False,
-                     residual: bool = False) -> int:
-    """The variant G1 launches for a product K deep into f32 (else bf16),
-    with or without a residual: what measured fastest on an H100 at
-    EVA-g's shapes (chip_smoke.py --time-int8-gemm, PERF.md). An epilogue
-    that reads a residual takes two blocks an SM, so that one block's
-    epilogue runs beside the other's products, unless the products are
-    deep enough (bf16 out, K > 2048) to outweigh it; every other product
-    takes 256-wide tiles."""
-    if residual and (f32 or k <= 2048):
-        return INT8_GEMM_PAIR
-    return INT8_GEMM_WIDE
+class Int8GemmConfig(NamedTuple):
+    """What G1 launches for a product: `variant` (INT8_GEMM_VARIANTS),
+    `splits` (the split-K variant's blocks a tile along K, else 1) and
+    `cluster` (the blocks of a thread-block cluster: 2 along M where two
+    blocks share w_q's tile, `splits` along K, else 1)."""
+    variant: int
+    splits: int
+    cluster: int
+
+
+def int8_gemm_config(m: int, n: int, k: int, f32: bool = False,
+                     residual: bool = False) -> Int8GemmConfig:
+    """The variant G1 launches for x_q [m, k] times w_q [n, k]^T into f32
+    (else bf16), with or without a residual: what measured fastest on an
+    H100 at EVA-g's shapes (chip_smoke.py --time-int8-gemm, PERF.md).
+    Where at least two blocks a 128 x 128 tile still fit one wave of the
+    card's SMs, K is split across a cluster of that many (at most 8, at
+    most one a 128-byte K tile): the head's 128 class-token rows, a row or
+    a frame. Otherwise f32 with a residual takes 128-wide tiles two blocks
+    an SM, whose epilogues overlap each other's products; every other
+    product clusters of two 128 x 256 tiles that share w_q's."""
+    tiles = -(-m // INT8_GEMM_BM) * -(-n // 128)
+    splits = min(INT8_GEMM_MAX_SPLITS, -(-k // INT8_GEMM_BK),
+                 INT8_GEMM_SMS // tiles)
+    if splits >= 2:
+        return Int8GemmConfig(INT8_GEMM_SPLIT, splits, splits)
+    if f32 and residual:
+        return Int8GemmConfig(INT8_GEMM_SERIAL, 1, 1)
+    return Int8GemmConfig(INT8_GEMM_PAIR, 1, 2)
+
+
+def int8_gemm_split_ranges(k: int, splits: int) -> list:
+    """The [k0, k1) column ranges of K the split-K variant's blocks sum, in
+    cluster rank order: K's 128-byte tiles dealt out as evenly as the
+    kernel deals them (rank r takes tiles r T / s to (r + 1) T / s)."""
+    k_tiles = -(-k // INT8_GEMM_BK)
+    if not 1 <= splits <= min(INT8_GEMM_MAX_SPLITS, k_tiles):
+        raise ValueError(f"split K takes 1 to {INT8_GEMM_MAX_SPLITS} blocks "
+                         f"and at most one a K tile ({k_tiles}), got "
+                         f"{splits}")
+    return [(r * k_tiles // splits * INT8_GEMM_BK,
+             min((r + 1) * k_tiles // splits * INT8_GEMM_BK, k))
+            for r in range(splits)]
 
 
 def _gemm_fn():
     fn = build.load("int8_gemm").hirest_int8_gemm
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong] + [
-        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def int8_gemm_smem_bytes() -> dict:
-    """Dynamic shared memory a block of each G1 variant asks for, by
-    (variant, output dtype name)."""
-    fn = build.load("int8_gemm").hirest_int8_gemm_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+def int8_gemm_info() -> dict:
+    """Each G1 variant's dynamic shared memory a block, ring stages,
+    blocks a cluster and blocks the card holds at once (0 for the split-K
+    variant, which is not persistent), by (variant, output dtype name)."""
+    lib = build.load("int8_gemm")
+    fn = lib.hirest_int8_gemm_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    return {(v, name): fn(v, int(name == "float32"))
-            for v in INT8_GEMM_VARIANTS for name in ("bfloat16", "float32")}
+    out = {}
+    for v in INT8_GEMM_VARIANTS:
+        for name in ("bfloat16", "float32"):
+            if name == "bfloat16" and v in INT8_GEMM_F32_ONLY:
+                continue
+            info = (ctypes.c_int * 4)()
+            build.check(lib, fn(v, int(name == "float32"), info),
+                        f"int8_gemm info, variant {v}")
+            out[v, name] = dict(zip(("smem", "stages", "cluster",
+                                     "resident"), info))
+    return out
 
 
 def _int8_gemm_launch(x_q, x_s, w_q, w_s, bias, out_dtype, residual=None,
-                      variant=None):
-    """G1 on CUDA tensors, as int8_mm_ref, in `variant` or
+                      config=None):
+    """G1 on CUDA tensors, as int8_mm_ref, in `config` (an Int8GemmConfig,
+    or a variant number: the split-K variant then takes
+    int8_gemm_config's splits, or 2 where that is not split) or
     int8_gemm_config's; checks its operands, counts nothing."""
     _require_cuda(x_q)
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -453,16 +505,23 @@ def _int8_gemm_launch(x_q, x_s, w_q, w_s, bias, out_dtype, residual=None,
                         residual=(residual, (m, n), out_dtype))
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     f32 = out_dtype == torch.float32
-    if variant is None:
-        variant = int8_gemm_config(k, f32, residual is not None)
+    chosen = int8_gemm_config(m, n, k, f32, residual is not None)
+    if config is None:
+        config = chosen
+    elif isinstance(config, int):
+        splits = (chosen.splits if chosen.variant == INT8_GEMM_SPLIT
+                  else min(2, -(-k // INT8_GEMM_BK)))
+        config = Int8GemmConfig(config, splits, 1)
+    if config.variant in INT8_GEMM_F32_ONLY and not f32:
+        raise TypeError(f"G1's variant {config.variant} has no bf16 form")
     ldx = x_q.stride(0) if m > 1 else k
     with torch.cuda.device(dev):
         err = _gemm_fn()(
             x_q.data_ptr(), ldx, xs.data_ptr(), w_q.data_ptr(),
             w_q.stride(0), ws.data_ptr(), None if b is None else b.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), m, n, k, int(f32), variant,
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), m, n, k, int(f32), config.variant,
+            config.splits, torch.cuda.current_stream().cuda_stream)
     build.check(build.load("int8_gemm"), err,
                 f"int8_mm{' f32' if f32 else ''} launch")
     return out

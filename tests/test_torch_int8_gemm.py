@@ -7,12 +7,15 @@ On the CPU `int8_mm` takes its plain version, `int8_mm_ref` (the exact
 plain version against JAX's `_int8_mm` (with the residual sum that follows
 it in the block) and `int8_matmul` against JAX's `int8_matmul`, at EVA-g's
 widths on a few rows; hold the plain version bit for bit against the
-chain it replaces; hold G1's shape rule (`int8_gemm_shape`) to every call
+chain it replaces; hold G1's shape rule (`int8_gemm_shape`) and its
+variant rule (`int8_gemm_config`: variant, split, cluster) to every call
 that the scanned int8 forwards (each int8 ladder configuration, at head
 widths 88 and 128) and the unrolled int8 tower make, at EVA-g's widths,
-and to what it refuses; and check that CPU calls count no launch and that
-a device without the kernel raises. chip_smoke.py holds G1 bit for bit
-against the plain version on the card.
+and the shape rule to what it refuses; emulate the split-K variant's
+int32 partials over its K ranges at the head's shape, bit for bit with
+the plain version; and check that CPU calls count no launch and that a
+device without the kernel raises. chip_smoke.py holds every G1 variant
+bit for bit against the plain version on the card.
 """
 
 import jax.numpy as jnp
@@ -186,16 +189,71 @@ def test_shape_rule_takes_eva_g_shapes(dt):
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_config_picks_a_variant_for_every_eva_g_product(dt):
-    """int8_gemm_config names one of G1's variants for every product of
-    the towers: two blocks an SM where a shallow product's epilogue reads
-    a residual (out), 256-wide tiles for the deep ones."""
+    """int8_gemm_config names a (variant, splits, cluster) for every product
+    of the towers, with and without a residual: one of the variants it
+    picks from, in a form the output dtype has; split K only where its
+    blocks (2 to 8 a 128 x 128 tile, at most one a 128-byte K tile) fit
+    one wave of the card's SMs; the 128-wide two-blocks-an-SM tiles only
+    for f32 with a residual; otherwise clusters of two 128 x 256 tiles."""
     f32 = dt == "f32"
-    for (_, k), _ in EVA_G:
+    for (m, k), (n, _) in EVA_G:
         for residual in (False, True):
-            assert quant.int8_gemm_config(k, f32, residual) in (
-                quant.INT8_GEMM_VARIANTS)
-    assert quant.int8_gemm_config(C, f32, True) == quant.INT8_GEMM_PAIR
-    assert quant.int8_gemm_config(C, f32, False) == quant.INT8_GEMM_WIDE
+            got = quant.int8_gemm_config(m, n, k, f32, residual)
+            assert got.variant in quant.INT8_GEMM_VARIANTS
+            assert f32 or got.variant not in quant.INT8_GEMM_F32_ONLY
+            if got.variant == quant.INT8_GEMM_SPLIT:
+                assert 2 <= got.splits == got.cluster <= min(
+                    quant.INT8_GEMM_MAX_SPLITS, -(-k // 128))
+                assert (-(-m // 128) * -(-n // 128) * got.splits
+                        <= quant.INT8_GEMM_SMS)
+            elif got.variant == quant.INT8_GEMM_SERIAL:
+                assert f32 and residual and (got.splits, got.cluster) == (
+                    1, 1)
+            else:
+                assert (got.splits, got.cluster) == (1, 2)
+    for (m, k), (n, _) in EVA_G[:8]:  # the towers' products at B = 128
+        for residual in (False, True):
+            assert quant.int8_gemm_config(m, n, k, f32, residual) == (
+                (quant.INT8_GEMM_SPLIT, 8, 8) if m == 128 else
+                (quant.INT8_GEMM_SERIAL, 1, 1) if f32 and residual else
+                (quant.INT8_GEMM_PAIR, 1, 2))
+
+
+SPLIT_CASES = [(dt, splits) for dt in DTYPES
+               for splits in range(2, quant.INT8_GEMM_MAX_SPLITS + 1)]
+
+
+@pytest.mark.parametrize("dt,splits", SPLIT_CASES,
+                         ids=[f"{d}-{s}" for d, s in SPLIT_CASES])
+def test_split_k_sums_are_the_product_bit_for_bit(dt, splits):
+    """The split-K variant's arithmetic at EVA-g's head (128 class-token
+    rows x 1408 into 1024, with its bias): int32 partials over each
+    block's K range (int8_gemm_split_ranges), added in int32, then the
+    dequant once (int8_epilogue_ref), equal to int8_mm_ref bit for bit;
+    the ranges cover K once, in 128-byte tiles."""
+    tdt = DTYPES[dt][0]
+    k, n = C, EMBED
+    x_q, x_s, w_q, w_s, bias, _ = (torch.from_numpy(a) for a in
+                                   _operands(90 + splits, 128, n, k))
+    ranges = quant.int8_gemm_split_ranges(k, splits)
+    assert [r[0] for r in ranges[1:]] == [r[1] for r in ranges[:-1]]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(k0 % 128 == 0 and k1 > k0 for k0, k1 in ranges)
+    acc = torch.zeros((128, n), dtype=torch.int32)
+    for k0, k1 in ranges:
+        acc += torch._int_mm(x_q[:, k0:k1].contiguous(),
+                             w_q[:, k0:k1].contiguous().t())
+    got = int8_epilogue_ref(acc, x_s, w_s, bias, tdt)
+    want = int8_mm_ref(x_q, x_s, w_q, w_s, bias, tdt)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_split_ranges_refuse_what_the_kernel_does_not_take():
+    for splits in (0, quant.INT8_GEMM_MAX_SPLITS + 1):
+        with pytest.raises(ValueError):
+            quant.int8_gemm_split_ranges(C, splits)
+    with pytest.raises(ValueError):  # more blocks than K tiles
+        quant.int8_gemm_split_ranges(256, 3)
 
 
 def test_weight_codes_are_contiguous_whatever_the_weight_strides():
@@ -271,6 +329,10 @@ def _hold(calls, widths, dtype, x_q, x_s, w_q, w_s, bias, out_dtype,
     calls.append(int8_gemm_shape(
         out_dtype, (m, big_k), (big_n, big_k), x_stride, w_stride,
         x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0))
+    for rows in (m, 128 * 257):  # the recorded rows, and EVA-g's at B = 128
+        assert quant.int8_gemm_config(
+            rows, big_n, big_k, dtype == torch.float32,
+            residual is not None).variant in quant.INT8_GEMM_VARIANTS
 
 
 INT8_LADDER = {"int8": dict(int8=True),
