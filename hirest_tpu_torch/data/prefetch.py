@@ -5,6 +5,12 @@ loading with compute via DataLoader worker processes
 (hirest_dataset.py:610-630). Here the host work (frame decode + resize)
 runs in a daemon thread feeding a bounded queue, overlapping with the
 device step.
+
+Spans (utils/profiling.py): `prefetch.start`, the thread's creation and
+start; `prefetch.wait`, the consumer blocked on its next item; and on the
+producer thread `prefetch.produce`, each item built by the source, a
+child of the `prefetch.start` span of its iterator (in `spans()` only:
+torch.profiler does not record that thread).
 """
 
 from __future__ import annotations
@@ -12,6 +18,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterable, Iterator
+
+from hirest_tpu_torch.utils.profiling import adopt, current, span
 
 _SENTINEL = object()
 
@@ -24,14 +32,21 @@ class PrefetchIterator:
     def __init__(self, iterable: Iterable, depth: int = 2):
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._error = None
-        self._thread = threading.Thread(target=self._fill, args=(iterable,),
-                                        daemon=True)
-        self._thread.start()
+        with span("prefetch.start"):
+            self._thread = threading.Thread(
+                target=self._fill, args=(iterable, current()), daemon=True)
+            self._thread.start()
 
-    def _fill(self, iterable):
+    def _fill(self, iterable, parent):
         try:
-            for item in iterable:
-                self._queue.put(item)
+            with adopt(parent):
+                items = iter(iterable)
+                while True:
+                    with span("prefetch.produce"):
+                        item = next(items, _SENTINEL)
+                    if item is _SENTINEL:
+                        break
+                    self._queue.put(item)
         except BaseException as e:  # propagate to the consumer
             self._error = e
         finally:
@@ -41,7 +56,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._queue.get()
+        with span("prefetch.wait"):
+            item = self._queue.get()
         if item is _SENTINEL:
             if self._error is not None:
                 raise self._error

@@ -7,9 +7,14 @@ truncated to the rounded duration, one {video_id}.npy [n_frames, 1024] per
 video, videos already done skipped.
 
     python -m hirest_tpu_torch.extraction.features --frame_dir FRAMES \
-        --out_dir FEATS [--int8] [--uint8_frontend] [--device cpu]
+        --out_dir FEATS [--int8] [--uint8_frontend] [--device cpu] \
+        [--trace_dir TRACES]
 
-It runs on CUDA unless --device cpu is given.
+It runs on CUDA unless --device cpu is given. With --trace_dir the run is
+traced by torch.profiler, as the trainer's --trace_dir does, into a Chrome
+trace in that directory that holds the extraction's `hirest.*` spans
+beside the device's kernels (all but `prefetch.produce`, whose thread the
+profiler does not record).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from hirest_tpu_torch.config import EvaVisionConfig
+from hirest_tpu_torch.utils.profiling import span, trace
 
 
 def _decode_frame(args):
@@ -60,13 +66,21 @@ def finish_video_features(embs: Sequence, normalize: bool = True,
                           duration: Optional[float] = None) -> np.ndarray:
     """Per-video finish: concatenate the batch embeddings (tensors or
     arrays, already cut to their real frames) as f32, L2-normalize each row,
-    truncate to round(duration) when one is given."""
-    feats = np.concatenate(
-        [torch.as_tensor(e).float().cpu().numpy() for e in embs], axis=0)
-    if normalize:
-        feats = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
-    if duration is not None:
-        feats = feats[: round(duration)]
+    truncate to round(duration) when one is given.
+
+    Spans (utils/profiling.py): `features.fetch` for each batch's fetch to
+    the host, which waits for the device to finish it, then
+    `features.normalise` for the rest."""
+    host = []
+    for e in embs:
+        with span("features.fetch"):
+            host.append(torch.as_tensor(e).float().cpu().numpy())
+    with span("features.normalise"):
+        feats = np.concatenate(host, axis=0)
+        if normalize:
+            feats = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
+        if duration is not None:
+            feats = feats[: round(duration)]
     return feats
 
 
@@ -88,7 +102,12 @@ def extract_video_features(
     `durations` (video_id -> seconds) truncates features to round(duration).
     A background thread keeps 2 decoded batches ahead of the device encode,
     and `decode_workers > 0` fans the per-frame JPEG decode + bicubic resize
-    across that many spawn-context processes."""
+    across that many spawn-context processes.
+
+    Under a profiler (utils/profiling.py) each video is a span
+    `extract.video` (attr `video`, its id), whose trace the spans of its
+    prefetch, forwards and finish share, and its file's write
+    `extract.save`."""
     from hirest_tpu_torch.data.prefetch import prefetch
 
     frame_root, out_dir = Path(frame_root), Path(out_dir)
@@ -113,13 +132,16 @@ def extract_video_features(
             out = out_dir / f"{vid}.npy"
             if out.exists():
                 continue
-            embs = [encode_image_fn(imgs)[:n] for imgs, n in prefetch(
-                iter_video_frame_batches(frame_root / vid, preprocess_fn,
-                                         batch_size, pool=pool))]
-            if not embs:
-                continue
-            duration = durations.get(vid) if durations else None
-            np.save(out, finish_video_features(embs, normalize, duration))
+            with span("extract.video", video=vid):
+                embs = [encode_image_fn(imgs)[:n] for imgs, n in prefetch(
+                    iter_video_frame_batches(frame_root / vid, preprocess_fn,
+                                             batch_size, pool=pool))]
+                if not embs:
+                    continue
+                duration = durations.get(vid) if durations else None
+                feats = finish_video_features(embs, normalize, duration)
+                with span("extract.save"):
+                    np.save(out, feats)
             n_done += 1
     finally:
         if pool is not None:
@@ -187,7 +209,7 @@ def make_eva_encoder(pretrained_dir: str = "./pretrained_weights",
     return apply, (preprocess_image_u8 if uint8_frontend else preprocess_image)
 
 
-if __name__ == "__main__":
+def main(argv=None) -> int:
     import argparse
 
     p = argparse.ArgumentParser()
@@ -207,12 +229,21 @@ if __name__ == "__main__":
                    help="JPEG decode/resize worker processes (0 = in-line)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
-    a = p.parse_args()
+    p.add_argument("--trace_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the "
+                        "extraction, with its spans, into this directory")
+    a = p.parse_args(argv)
     enc, pre = make_eva_encoder(a.pretrained_dir, int8=a.int8,
                                 uint8_frontend=a.uint8_frontend,
                                 device=a.device)
-    n = extract_video_features(a.frame_dir, a.out_dir, enc, pre, a.batch_size,
-                               process_id=a.process_id,
-                               num_processes=a.num_processes,
-                               decode_workers=a.decode_workers)
+    with trace(a.trace_dir):
+        n = extract_video_features(a.frame_dir, a.out_dir, enc, pre,
+                                   a.batch_size, process_id=a.process_id,
+                                   num_processes=a.num_processes,
+                                   decode_workers=a.decode_workers)
     print(f"encoded {n} videos")
+    return 0
+
+
+if __name__ == "__main__":
+    main()

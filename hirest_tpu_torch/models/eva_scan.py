@@ -66,6 +66,7 @@ from hirest_tpu_torch.ops.quant import (act_quant, dyn_quant_rows,
                                         fused_mlp_int8, int8_mm, ln_quant,
                                         quantize_weight)
 from hirest_tpu_torch.utils.device import resolve_device
+from hirest_tpu_torch.utils.profiling import span
 
 
 def fold_uint8_frontend(patch_w: torch.Tensor, patch_b: torch.Tensor):
@@ -242,7 +243,12 @@ def build_scanned_vision_apply(params: Union[Mapping, nn.Module, None],
     int8 epilogue), fused_mlp with fused_quant (K4), fused_ln without int8
     (K10); attn_v3 (K1/K3) wins over attn_v2 (K9), and both need head rows
     that are multiples of 128 wide. fast_gelu selects gelu_bf16_poly over
-    exact GELU."""
+    exact GELU.
+
+    Each call is two spans (utils/profiling.py): `eva.copy_in` (attr
+    `bytes`), the frames' copy to the device, which waits behind the
+    kernels already queued where the host memory is pageable; and
+    `eva.forward`, enqueueing the forward."""
     device = resolve_device(device)
     if staged is None:
         staged = stage_scanned_params(params, cfg, int8=int8, dtype=dtype,
@@ -270,6 +276,12 @@ def build_scanned_vision_apply(params: Union[Mapping, nn.Module, None],
 
     @torch.inference_mode()
     def apply(images) -> torch.Tensor:
-        return tower(torch.as_tensor(images).to(device), opts)
+        with span("eva.copy_in") as s:
+            x = torch.as_tensor(images)
+            if s is not None:
+                s.attrs["bytes"] = x.nbytes
+            x = x.to(device)
+        with span("eva.forward"):
+            return tower(x, opts)
 
     return apply
