@@ -84,7 +84,9 @@ Phases; any failure exits non-zero before the result line is printed:
             tokens, 264 with n_real = 257 at B = 2 and 128), K4
             (fused_mlp_int8, [M, 1408] x 6144,
             both activations; its first kernel's codes and scales also
-            against mlp_int8_hidden_ref, equal), K6 (split heads
+            against mlp_int8_hidden_ref, equal, at M = 1, 257, 2 x 257,
+            64 x 257 and 128 x 257 with rows whose chunk maximum lies in
+            each block of a cluster and all-zero rows), K6 (split heads
             [B, 16, 257, 88] as views of one qkv projection, and a masked
             [2, 12, 48, 64] over 20 keys)
             and K7 (packed [B, 257, 16 * 128], and a masked 48 x 20-key
@@ -665,6 +667,35 @@ def mlp_inputs(m: int, seed: int, hidden: int = 6144):
     b2 = 0.02 * torch.randn(1408, generator=g, device="cuda")
     x = torch.randn((m, 1408), generator=g, device="cuda").bfloat16()
     return h_q, h_s, w1_q, w1_s, b1, w2_q, w2_s, b2, x
+
+
+# K4's first kernel is checked at one frame, the CLI's B = 64, the main
+# path's B = 128 and two tails of its persistent walk
+K4_STAGE_ROWS = (1, TOKENS, 2 * TOKENS, 64 * TOKENS, BATCH * TOKENS)
+
+
+def k4_stage_inputs(m: int, seed: int, zero_row: bool = False):
+    """mlp_inputs' first five (h_q, h_s, w1_q, w1_s, b1) with spikes: for k
+    in 0..7, row k * (m // 8) has, in every 1024-unit chunk, one hidden unit
+    in the chunk's k-th 128-unit slice whose w1 row follows the row's signs
+    at full scale, so that the row's chunk maximum lies there; the slices
+    cover each block of a cluster whatever its width. zero_row: b1 zero and
+    the last row of h_q (and one in the middle) all zero, so that their
+    chunks take the 1e-8 scale floor."""
+    h_q, h_s, w1_q, w1_s, b1 = mlp_inputs(m, seed)[:5]
+    f = w1_q.shape[0]
+    for k in range(8):
+        row = k * max(1, m // 8)
+        if row >= m:
+            break
+        signs = torch.where(h_q[row] < 0, -127, 127).to(torch.int8)
+        for c0 in range(0, f, 1024):
+            w1_q[c0 + 128 * k + (37 * k + 11) % 128] = signs
+    if zero_row:
+        b1 = torch.zeros_like(b1)
+        h_q[m - 1] = 0
+        h_q[m // 2] = 0
+    return h_q, h_s, w1_q, w1_s, b1
 
 
 def check_codes(tag: str, got, want, min_equal: float, scale_rel: float,
@@ -2343,26 +2374,35 @@ def phase_kernels(cfg) -> dict:
         "K7 fused_attention_packed [2,33,16*128] over 600 keys",
         fused_attention_packed(*packed, 128 ** -0.5, heads),
         fused_attention_packed_ref(*packed, 128 ** -0.5, heads)))
-    # K4: within 1e-2 of the MLP's largest contribution max|want - x| plus
-    # one bf16 ulp of |want|, element by element: a hidden code that lands
-    # on the other side of a rounding boundary moves a row by far less.
-    # Its first kernel's codes and scales must equal the plain version's
-    # (a stage check: the products are exact and every f32 step rounds
-    # where the plain version rounds)
+    # K4's first kernel: its codes and scales must equal the plain
+    # version's (the products are exact and every f32 step rounds where the
+    # plain version rounds), at every tail of its persistent walk, for
+    # both activations, with rows whose chunk maximum lies in each block of
+    # a cluster and an all-zero row (k4_stage_inputs)
+    for m in K4_STAGE_ROWS:
+        for zero in (False, True):
+            args = k4_stage_inputs(m, seed=30 + m % 1000, zero_row=zero)
+            for act in ("gelu_poly", "gelu"):
+                codes, scales = _mlp_hidden_launch(*args, act)
+                want_codes, want_scales = mlp_int8_hidden_ref(*args, act=act)
+                torch.cuda.synchronize()
+                n_codes = int((codes != want_codes).sum().item())
+                n_scales = int((scales != want_scales).sum().item())
+                floor = int((want_scales == 1e-8).sum().item())
+                print(f"[kernels] K4 mlp_hidden [{m},1408]x6144 act={act}"
+                      f"{' zero row' if zero else ''}: {n_codes} of "
+                      f"{codes.numel()} codes and {n_scales} of "
+                      f"{scales.numel()} scales differ (bar 0), {floor} "
+                      f"scales at the floor")
+                require(n_codes == 0 and n_scales == 0 and floor >= zero *
+                        scales.shape[1], f"K4 mlp_hidden [{m}] {act} off "
+                        f"its plain version")
+    # K4 whole: within 1e-2 of the MLP's largest contribution max|want - x|
+    # plus one bf16 ulp of |want|, element by element: a hidden code that
+    # lands on the other side of a rounding boundary moves a row by far less
     for batch in (2, BATCH):
         args = mlp_inputs(batch * TOKENS, seed=30 + batch)
         for act in ("gelu_poly", "gelu"):
-            codes, scales = _mlp_hidden_launch(*args[:5], act)
-            want_codes, want_scales = mlp_int8_hidden_ref(*args[:5], act=act)
-            torch.cuda.synchronize()
-            n_codes = int((codes != want_codes).sum().item())
-            n_scales = int((scales != want_scales).sum().item())
-            print(f"[kernels] K4 mlp_hidden [{batch * TOKENS},1408]x6144 "
-                  f"act={act}: {n_codes} of {codes.numel()} codes and "
-                  f"{n_scales} of {scales.numel()} scales differ (bar 0)")
-            require(n_codes == 0 and n_scales == 0,
-                    f"K4 mlp_hidden [{batch * TOKENS}] {act} off its plain "
-                    f"version")
             got = fused_mlp_int8(*args, act=act)
             torch.cuda.synchronize()
             want = fused_mlp_int8_ref(*args, act=act).float()

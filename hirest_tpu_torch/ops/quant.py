@@ -792,13 +792,18 @@ def mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1, *, act: str = "gelu_poly",
     h_q [M, C] int8, h_s [M, 1] f32; w1_q [F, C] int8, w1_s/b1 [F]. For
     each n_chunk-wide slice of the F hidden units, y = act((f32(h_q w1^T)
     * h_s) * s1 + b1) in f32, requantized per (row, chunk). Returns
-    (codes [M, F] int8, scales [M, F / n_chunk] f32)."""
+    (codes [M, F] int8, scales [M, F / n_chunk] f32). On a CUDA tensor
+    h_q's rows are zero-padded to the 17 `torch._int_mm` takes there and
+    the products cut back."""
     act_fn = _act(act)
     f = w1_q.shape[0]
     nc = _chunk(f, n_chunk)
+    m = h_q.shape[0]
+    if h_q.device.type == "cuda" and m < _INT_MM_MIN_ROWS:
+        h_q = F.pad(h_q, (0, 0, 0, _INT_MM_MIN_ROWS - m))
     codes, scales = [], []
     for j in range(0, f, nc):
-        y = torch._int_mm(h_q, w1_q[j:j + nc].t()).float()
+        y = torch._int_mm(h_q, w1_q[j:j + nc].t())[:m].float()
         y.mul_(h_s).mul_(w1_s[j:j + nc].float()).add_(b1[j:j + nc].float())
         q2, sc = _scale_and_codes(act_fn(y))
         codes.append(q2)

@@ -408,6 +408,49 @@ def test_out_ref_on_hidden_codes_is_the_one_loop_mlp(dtype):
     assert torch.equal(fused_mlp_int8_ref(*args), want)
 
 
+@pytest.mark.parametrize("act", ["gelu_poly", "gelu"])
+def test_hidden_zero_rows_take_the_scale_floor(act):
+    """With b1 zero, an all-zero row of h_q (here the first, one in the
+    middle and the last, as K4a's check on the card puts them in a tile's
+    tail) activates to zeros: every chunk of it takes the 1e-8 scale and
+    codes 0, and the other rows keep scales of their own."""
+    h_q, h_s, w1_q, w1_s, b1 = _mlp_inputs(14, 40, f=2048)[:5]
+    b1 = torch.zeros_like(b1)
+    zero = [0, 20, 39]
+    h_q[zero] = 0
+    codes, scales = mlp_int8_hidden_ref(h_q, h_s, w1_q, w1_s, b1, act=act)
+    assert torch.equal(scales[zero], torch.full((3, 2), 1e-8))
+    assert not codes[zero].any()
+    others = [r for r in range(40) if r not in zero]
+    assert bool((scales[others] > 1e-8).all())
+    assert bool((codes[others].abs().amax(1) == 127).all())
+
+
+def test_k4_probe_rewrites_the_kernel_source():
+    """tools/k4_probe.py finds each of its marked spans in this tree's
+    fused_mlp_int8.cu: p2 takes out the value, codes and store spans and p3
+    repeats p2's products span."""
+    import importlib.util
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "k4_probe", repo / "tools" / "k4_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    source = (repo / "hirest_tpu_torch" / "ops" / "csrc" /
+              "fused_mlp_int8.cu").read_text()
+    p = probe.probes(source)
+    assert p["p1"] == source
+    for name in probe.SPANS:
+        assert probe.span_re(name).search(source), name
+    products = probe.span_re("products").search(source).group(1)
+    for name in ("value", "codes", "store"):
+        assert not probe.span_re(name).search(p["p2"]), name
+    assert p["p2"].count(products) == 1
+    assert p["p3"].count(2 * products) == 1
+
+
 def test_fused_mlp_chunks_requant_separately():
     """Two 1024-unit chunks quantize the hidden units with two scales a
     row: the result differs from one chunk over all 2048 of them, and a
